@@ -10,7 +10,8 @@ Public API mirrors ``pixray_tpu``:
     pixray.do_run(settings)
 
 or the one-liner ``pixray_tpu_torch.run(prompts=..., drawer="pixel")``.
-Only the pixel drawer with OpenAI ViT perceptors is ported so far.
+The pixel, clipdraw and line_sketch drawers with OpenAI ViT perceptors
+are ported so far.
 """
 
 from __future__ import annotations

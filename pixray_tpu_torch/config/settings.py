@@ -297,7 +297,7 @@ def apply_settings(settings_dict: dict, apply_side_effects=True):
     everything with unknown-key validation.
     """
     parser = argparse.ArgumentParser(description="CLIP-guided image generation (PyTorch port)")
-    parser.add_argument("--drawer", type=str, help="pixel (the only drawer ported)", default="vqgan", dest="drawer")
+    parser.add_argument("--drawer", type=str, help="pixel, clipdraw or line_sketch (the drawers ported)", default="vqgan", dest="drawer")
     parser.add_argument("--filters", type=str, help="Image filtering (not yet ported)", default=None, dest="filters")
     parser.add_argument("--losses", "--custom_loss", type=str, help="custom loss list (not yet ported)", default=None, dest="custom_loss")
 

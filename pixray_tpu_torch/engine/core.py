@@ -11,8 +11,13 @@ there is none raises (there is no CPU fallback).  The post-warp epilogue
 and the towers compute in bfloat16 on CUDA when ``--precision bf16`` (the
 default), in float32 on the CPU.
 
-Settings this slice does not implement raise ``NotImplementedError`` here
-rather than being ignored.
+The latent is a tensor (pixel) or a dict of tensors (clipdraw,
+line_sketch); a drawer with ``get_opts`` brings its own optimizer (one Adam
+per group), as in the JAX engine.  ``--save_svg`` writes the drawer's
+vector export at the end of ``run``.
+
+Settings the ported slices do not implement raise ``NotImplementedError``
+here rather than being ignored.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch
 
 from pixray_tpu_torch.drawers import drawer_class
 from pixray_tpu_torch.engine import cutouts as C
+from pixray_tpu_torch.engine.latent import ravel, tree_map
 from pixray_tpu_torch.engine.optimizers import build_optimizer
 from pixray_tpu_torch.engine.prompts import build_prompt_tables
 from pixray_tpu_torch.engine.schedule import BestTracker
@@ -41,7 +47,7 @@ _UNPORTED = [
     ("labels", []), ("image_labels", None),
     ("noise_prompt_seeds", []), ("animation_dir", None), ("make_video", False),
     ("resume_from", None), ("checkpoint_every", 0), ("profile_dir", None),
-    ("init_weight_pix", 0.0), ("save_svg", False),
+    ("init_weight_pix", 0.0),
 ]
 
 
@@ -91,7 +97,6 @@ class Engine:
         # ---- drawer
         self.drawer = drawer_class(args.drawer)(args)
         self.side_x, self.side_y = self.drawer.snap_canvas(args.size)
-        self.drawer_params = {k: v.to(self.device) for k, v in self.drawer.model_params.items()}
 
         # ---- precision
         on_cuda = self.device.type == "cuda"
@@ -104,12 +109,14 @@ class Engine:
                            for name in args.clip_models]
         tables = build_prompt_tables(args, self.perceptors, self.device)
 
-        # ---- init latent
+        # ---- init latent (the stroke drawers ignore init_tensor and make
+        # their model_params here)
         init_tensor = None
         if args.init_noise == "pixels":
             init_tensor = _uint8_to_unit(self._init_noise(args)) * 2 - 1
-        self.z = self.drawer.init_params(self.gen, init_tensor).to(self.device)
-        self.z_orig_flat = self.z.reshape(-1).clone()
+        self.z = tree_map(lambda t: t.to(self.device), self.drawer.init_params(self.gen, init_tensor))
+        self.z_orig_flat = ravel(self.z).clone()
+        self.drawer_params = {k: v.to(self.device) for k, v in self.drawer.model_params.items()}
 
         self.step_cfg = StepConfig(
             drawer=self.drawer,
@@ -130,11 +137,7 @@ class Engine:
         self.loss_names = self.step_cfg.names
 
         self.tracker = BestTracker(max_loss_drops=args.max_loss_drops)
-        drawer_lr = getattr(self.drawer, "learning_rate", None)
-        lr = drawer_lr if drawer_lr is not None else args.learning_rate
-        self.optimizer = build_optimizer(args.optimiser, lr)
-        self.opt_state = self.optimizer.init(self.z)
-        self.lr_scale = 1.0 / self.tracker.drop_divisor
+        self._build_optimizer()
 
         self.cur_iteration = 0
         self.last_loss_values = None
@@ -142,6 +145,19 @@ class Engine:
         print("Optimising using:", args.optimiser)
         if args.prompts:
             print("Using text prompts:", args.prompts)
+
+    def _build_optimizer(self):
+        """The drawer's own optimizer (``get_opts``) or the engine-global one."""
+        get_opts = getattr(self.drawer, "get_opts", None)
+        drawer_opt = get_opts(self.args, 1.0) if get_opts is not None else None
+        if drawer_opt is not None:
+            self.optimizer = drawer_opt
+        else:
+            drawer_lr = getattr(self.drawer, "learning_rate", None)
+            lr = drawer_lr if drawer_lr is not None else self.args.learning_rate
+            self.optimizer = build_optimizer(self.args.optimiser, lr)
+        self.opt_state = self.optimizer.init(self.z)
+        self.lr_scale = 1.0 / self.tracker.drop_divisor
 
     def _init_noise(self, args):
         from pixray_tpu_torch.utils.noise import random_noise_array
@@ -245,7 +261,21 @@ class Engine:
             if self.cur_iteration == args.iterations:
                 break
             self.cur_iteration += 1
+        if args.save_svg:
+            self.save_svg()
         return True
+
+    def save_svg(self):
+        """Vector export for drawers that have one (clipdraw, line_sketch)."""
+        to_svg = getattr(self.drawer, "to_svg", None)
+        if to_svg is None:
+            print(f"drawer {self.args.drawer} has no SVG export")
+            return None
+        outfile = get_file_path(self.args.outdir, self.args.output, ".svg")
+        with open(outfile, "w") as f:
+            f.write(to_svg(self.z))
+        print(f"saved {outfile}")
+        return outfile
 
 
 def _uint8_to_unit(arr: np.ndarray) -> torch.Tensor:

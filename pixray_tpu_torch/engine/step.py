@@ -1,12 +1,14 @@
 """The optimization step (port of ``build_loss_fn`` and ``_build_step_core``
-in ``pixray_tpu/engine/step.py``, for the terms the pixel slice has).
+in ``pixray_tpu/engine/step.py``, for the terms the ported slices have).
 
     synth → [flatten alpha] → per perceptor: pool → cutouts → encode →
     prompt losses;  + init-weight and transparency terms
     then grad → Adam → LR scale → drawer clamp.
 
 Random draws of a step come in a ``draws`` dict (see ``loss_fn``), so a
-caller can replay another implementation's draws.
+caller can replay another implementation's draws.  The latent ``z`` is a
+tensor or a dict of tensors (``engine/latent.py``); gradients, the
+optimizer and ``batches`` accumulation go leaf by leaf.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Any
 import torch
 
 from pixray_tpu_torch.engine import cutouts as C
+from pixray_tpu_torch.engine.latent import leaves, ravel, tree_map, unflatten
 from pixray_tpu_torch.engine.prompts import PromptTable, prompt_losses
 from pixray_tpu_torch.ops.grad import spherical_dist_loss
 
@@ -80,41 +83,51 @@ def loss_fn(cfg: StepConfig, z, iteration: int, draws: dict):
         for i in range(spec.table.size):
             add(f"{spec.name}:prompt{i}", pl[i])
 
+    if cfg.init_weight or cfg.init_weight_dist or cfg.init_weight_cos:
+        z_flat, z0 = ravel(z), cfg.z_orig_flat
     if cfg.init_weight:
-        z0 = cfg.z_orig_flat.reshape(1, -1)
-        add("init_weight", torch.mean(spherical_dist_loss(z.reshape(1, -1), z0)) * cfg.init_weight)
+        add("init_weight", torch.mean(spherical_dist_loss(z_flat[None], z0[None])) * cfg.init_weight)
     if cfg.init_weight_dist:
-        add("init_weight_dist", torch.mean((z.reshape(-1) - cfg.z_orig_flat) ** 2) * cfg.init_weight_dist / 2)
+        add("init_weight_dist", torch.mean((z_flat - z0) ** 2) * cfg.init_weight_dist / 2)
     if cfg.init_weight_cos:
-        zf, z0 = z.reshape(1, -1), cfg.z_orig_flat.reshape(1, -1)
-        cos = torch.nn.functional.cosine_similarity(zf, z0, dim=-1, eps=1e-8)
+        cos = torch.nn.functional.cosine_similarity(z_flat[None], z0[None], dim=-1, eps=1e-8)
         add("init_weight_cos", torch.mean(1.0 - cos) * cfg.init_weight_cos)
     if alpha is not None and cfg.transparent_weight != 0:
         add("transparent", cfg.transparent_weight * torch.mean(alpha))
 
     cfg.names[:] = names
-    vals = torch.stack(values) if values else torch.zeros((0,), device=z.device)
+    vals = torch.stack(values) if values else torch.zeros((0,), device=img.device)
     return vals.sum(), (vals, img)
+
+
+def loss_and_grads(cfg: StepConfig, z, iteration: int, batch_draws: list[dict]):
+    """Gradients of the loss w.r.t. each leaf of ``z``, summed over the
+    batches (one draws dict each), and the first batch's (total, values, img)."""
+    if len(batch_draws) != cfg.batches:
+        raise ValueError(f"{len(batch_draws)} draws for {cfg.batches} batches")
+    params = [p.detach().requires_grad_(True) for p in leaves(z)]
+    zp = unflatten(z, params)
+    grads = None
+    first = None
+    for draws in batch_draws:
+        total, (vals, img) = loss_fn(cfg, zp, iteration, draws)
+        gs = torch.autograd.grad(total, params, allow_unused=True)
+        gs = [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+        grads = gs if grads is None else [a + b for a, b in zip(grads, gs)]
+        if first is None:
+            first = (total.detach(), vals.detach(), img.detach())
+    return unflatten(z, grads), first
 
 
 def train_step(cfg: StepConfig, optimizer, z, opt_state, iteration: int, lr_scale: float,
                batch_draws: list[dict]):
     """One optimizer step.  ``batch_draws`` holds one draws dict per batch;
-    gradients sum over the batches, metrics come from the first.
+    gradients sum over the batches, metrics come from the first.  The LR
+    scale multiplies every group's update alike.
 
     Returns (z, opt_state, total, values, img)."""
-    if len(batch_draws) != cfg.batches:
-        raise ValueError(f"{len(batch_draws)} draws for {cfg.batches} batches")
-    z = z.detach().requires_grad_(True)
-    grads = None
-    first = None
-    for draws in batch_draws:
-        total, (vals, img) = loss_fn(cfg, z, iteration, draws)
-        (g,) = torch.autograd.grad(total, z)
-        grads = g if grads is None else grads + g
-        if first is None:
-            first = (total.detach(), vals.detach(), img.detach())
+    grads, first = loss_and_grads(cfg, z, iteration, batch_draws)
     with torch.no_grad():
         updates, opt_state = optimizer.update(grads, opt_state)
-        z = cfg.drawer.clip_params(z.detach() + updates * lr_scale)
+        z = cfg.drawer.clip_params(tree_map(lambda p, u: p.detach() + u * lr_scale, z, updates))
     return (z, opt_state, *first)

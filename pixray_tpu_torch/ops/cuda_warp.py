@@ -21,23 +21,16 @@ launched), so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 
 import torch
 
+from pixray_tpu_torch.ops.nvcc import build_library, library_path, source_path
 from pixray_tpu_torch.ops.warp import inv3x3
 from pixray_tpu_torch.ops.warp_batch import modes_with_fill, warp_modes_plain
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "warp.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libpixray_warp.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = source_path("warp.cu")
+LIBRARY = library_path("libpixray_warp.so")
 
 LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
 
@@ -50,31 +43,9 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA warp kernels cannot be built")
-
-
 def build(force: bool = False) -> str:
     """Compile ``csrc/warp.cu`` if the library is missing or older than it."""
-    if (not force and os.path.exists(LIBRARY)
-            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
-        return LIBRARY
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, LIBRARY)
-    return LIBRARY
+    return build_library(SOURCE, LIBRARY, force)
 
 
 def _library():

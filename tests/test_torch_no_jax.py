@@ -3,8 +3,9 @@ GPU machine that has none of them.  PIL, PyYAML, regex and ftfy are blocked
 too: the port's main path must not need them.
 
 A subprocess installs an import hook that refuses those modules, imports
-pixray_tpu_torch and runs the pixel slice for 2 steps on the CPU at
-TinyTest size through the public API.
+pixray_tpu_torch and runs a slice for 2 steps on the CPU at TinyTest size
+through the public API: the pixel slice, and the clipdraw slice with its
+SVG export.
 """
 
 import os
@@ -29,9 +30,10 @@ SCRIPT = textwrap.dedent("""
     import pixray_tpu_torch as pixray
 
     pixray.reset_settings()
-    pixray.add_settings(drawer="pixel", prompts="sunrise", clip_models="TinyTest", size=[64, 36],
+    pixray.add_settings(prompts="sunrise", clip_models="TinyTest", size=[64, 36],
                         num_cuts=8, iterations=2, save_every=1, seed=3, outdir=OUTDIR,
-                        save_intermediates=False, learning_rate_drops=[], vector_prompts="none")
+                        save_intermediates=False, learning_rate_drops=[], vector_prompts="none",
+                        **DRAWER)
     settings = pixray.apply_settings()
     pixray.do_init(settings, device="cpu")
     assert pixray.do_run(settings)
@@ -41,11 +43,11 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_runs_without_jax(tmp_path):
+def _run_blocked(tmp_path, drawer: dict):
     outdir = str(tmp_path / "run")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
-        [sys.executable, "-c", f"OUTDIR = {outdir!r}\n" + SCRIPT],
+        [sys.executable, "-c", f"OUTDIR = {outdir!r}\nDRAWER = {drawer!r}\n" + SCRIPT],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
@@ -53,3 +55,14 @@ def test_port_runs_without_jax(tmp_path):
     assert "iter: 2" in proc.stdout  # the final checkin
     with open(os.path.join(outdir, "output.png"), "rb") as f:
         assert f.read(8) == b"\x89PNG\r\n\x1a\n"
+    return outdir
+
+
+def test_port_runs_without_jax(tmp_path):
+    _run_blocked(tmp_path, dict(drawer="pixel"))
+
+
+def test_clipdraw_runs_without_jax(tmp_path):
+    outdir = _run_blocked(tmp_path, dict(drawer="clipdraw", strokes=12, save_svg=True))
+    with open(os.path.join(outdir, "output.svg")) as f:
+        assert f.read().count("<path ") == 12
