@@ -17,8 +17,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    (1024 strokes, P=25, 384x216, white), line_sketch (24 strokes, P=65,
    paper background) and a ragged case (9 strokes on 40x140: off-canvas,
    zero-length, exact-tie and alpha-0 strokes), with median times;
-5. agreement: TinyTest pixel and clipdraw runs on the card against the same
-   runs on the CPU (plain versions), same latent and draws, per-step losses;
+5. agreement: TinyTest pixel and clipdraw runs, and a tiny_test VQGAN
+   under TinyTest + TinyTest48, on the card against the same runs on the
+   CPU (plain versions), same latent, weights and draws, per-step losses;
 6. main path: the bench's headline row (pixel drawer, 384x216, "sunrise",
    random-weight ViT-B/32, 64 cuts) through apply_settings + Engine, 9
    warm-up and 24 timed steps; asserts finite, descending losses, one K1 and
@@ -28,7 +29,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    one K4s + K5 + K1 + K2 launch per step, K4 at checkin, the PNG and the
    SVG of --save_svg;
 8. line_sketch: a few steps with a trainable paper color; asserts finite
-   losses, launches, and that the paper color moved.
+   losses, launches, and that the paper color moved;
+9. vqgan path: the bench's vqgan row (imagenet_f16_16384, random weights,
+   under ViT-B/32 + ViT-B/16, 64 cuts, 384x208), 9 + 24 steps; asserts
+   finite losses, two K1 and two K2 launches per step, that the latent
+   moved within the codebook box onto other codes, and the 384x208 PNG;
+10. decoder times: the VQGAN's decode forward and gradient to the latent
+   at the 24x13x256 latent, and its encoder at 384x208, in bf16 and in an
+   f32 copy (CUDA events);
+11. default run: ``pixray_tpu_torch.run(prompts=...)`` with every other
+   setting at its default (vqgan, ViT-B/32 + ViT-B/16, 30 cuts, the init
+   noise resized and encoded, an LR drop), cut to 12 steps; asserts the
+   resolved settings, finite losses, the encoded init on codebook rows,
+   the LR drop, the checkins and frames, and the launches.
 
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -55,10 +68,15 @@ PIXEL_CONFIG = dict(
     drawer="pixel", size=[384, 216],
 )
 CLIPDRAW_CONFIG = dict(PIXEL_CONFIG, drawer="clipdraw")  # CONFIGS["clipdraw"], bench.py:105
+# CONFIGS["vqgan"], bench.py:100: imagenet_f16_16384 (the vqgan drawer's
+# default model, random weights) under the ViT-B/32 + ViT-B/16 ensemble
+VQGAN_CONFIG = dict(PIXEL_CONFIG, drawer="vqgan", clip_models="ViT-B/32,ViT-B/16")
 WARMUP_STEPS = 9  # bench.py:73-74
 TIMED_STEPS = 24
 LINE_SKETCH_STEPS = 4
+DEFAULT_RUN_STEPS = 12  # pixray_tpu_torch.run's defaults, cut to 12 iterations
 
+CODEBOOK_ATOL = 1e-5  # an encoded latent row against its nearest codebook row
 FWD_ATOL = 2e-4  # f32 coordinate rounding (FMA contraction) times a unit-range canvas
 BWD_RTOL = 5e-4  # of max|dwork|: atomics sum in a run-dependent order
 AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTest
@@ -118,6 +136,25 @@ def median_ms(fn, reps=20):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, reps=5):
+    """Summed kernel time of one call of ``fn`` (torch.profiler): the
+    device's work, where a host clock or CUDA events around an eager call
+    of hundreds of kernels measure the host's launch rate."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        fail("the profiler recorded no kernel")
+    return sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3 / reps
 
 
 def kernel_case(work, ms, modes, fill, out_size, time_it):
@@ -355,32 +392,54 @@ def _draws_to(draws, device, dtype):
     return out
 
 
-def phase_agreement(tmp, drawer_config, label, **extra):
-    """TinyTest on the card vs on the CPU, same latent and draws: per-step losses."""
+def wide_codebook_weights(name):
+    """The vqgan drawer's seeded random weights for model ``name``, with
+    the codebook drawn normal(0, 0.5) instead of the flax initializer's
+    uniform [0, 2 / n_embed).  With the latter the clamp box is 2 / n_embed
+    wide per dim: one Adam step puts the latent on a corner of it, where
+    the nearest code wins by less than rounding, so codes flip between
+    the card and the CPU (tiny_test) and from step to step (PERF.md)."""
+    import torch
+
+    from pixray_tpu_torch.drawers.vqgan import RANDOM_INIT_SEED
+    from pixray_tpu_torch.models.vqgan import VQGAN, VQGAN_CONFIGS, init_random_
+
+    model = init_random_(VQGAN(VQGAN_CONFIGS[name]), torch.Generator().manual_seed(RANDOM_INIT_SEED))
+    sd = model.state_dict()
+    table = "quantize.embedding.weight"
+    sd[table] = torch.randn(sd[table].shape, generator=torch.Generator().manual_seed(1)) * 0.5
+    return sd
+
+
+def phase_agreement(tmp, drawer_config, label, state_dicts=None, **extra):
+    """TinyTest on the card vs on the CPU, same latent, weights and draws:
+    per-step losses.  Random weights come from fixed seeds, so both engines
+    hold the same ones unless ``state_dicts`` gives them."""
     import torch
 
     from pixray_tpu_torch.config import apply_settings
     from pixray_tpu_torch.engine.core import Engine
     from pixray_tpu_torch.engine.latent import tree_map
 
-    cfg = dict(drawer_config, clip_models="TinyTest", size=[96, 54], num_cuts=8, iterations=10,
-               precision="fp32", outdir=tmp, **extra)
-    cpu = Engine(apply_settings(dict(cfg), apply_side_effects=False), device="cpu")
-    gpu = Engine(apply_settings(dict(cfg), apply_side_effects=False), device="cuda")
+    cfg = {**drawer_config, "clip_models": "TinyTest", "size": [96, 54], "num_cuts": 8, "iterations": 10,
+           "precision": "fp32", "outdir": tmp, **extra}
+    cpu = Engine(apply_settings(dict(cfg), apply_side_effects=False), device="cpu", state_dicts=state_dicts)
+    gpu = Engine(apply_settings(dict(cfg), apply_side_effects=False), device="cuda", state_dicts=state_dicts)
     gpu.z = tree_map(lambda t: t.to("cuda"), cpu.z)
     gpu.opt_state = gpu.optimizer.init(gpu.z)
     for k, v in cpu.drawer_params.items():
         gpu.drawer_params[k] = v.to("cuda")
-    worst = 0.0
+    diffs = []
     for it in range(3):
         draws = cpu.draw_step()
         cpu.train(it, draws)
         gpu.train(it, _draws_to(draws, torch.device("cuda"), torch.bfloat16))
         a = cpu.last_loss_values.numpy()
         b = gpu.last_loss_values.float().cpu().numpy()
-        worst = max(worst, float(abs(a - b).max()))
-    print(f"agreement TinyTest {label} card vs CPU, 3 steps: max |loss diff| {worst:.3g} (tol {AGREE_ATOL})",
-          flush=True)
+        diffs.append(float(abs(a - b).max()))
+    worst = max(diffs)
+    print(f"agreement TinyTest {label} card vs CPU, 3 steps: max |loss diff| {worst:.3g} per step "
+          f"{[float(f'{d:.3g}') for d in diffs]} (tol {AGREE_ATOL})", flush=True)
     if not worst <= AGREE_ATOL:
         fail(f"{label} card run disagrees with the CPU run: {worst}")
 
@@ -432,9 +491,17 @@ def check_launches(label, launches, expected):
             fail(f"{label}: {name} launched {got} times, expected {want}; {launches}")
 
 
-def check_png(label, path):
-    if not (os.path.exists(path) and open(path, "rb").read(8) == b"\x89PNG\r\n\x1a\n"):
-        fail(f"{label}: checkin PNG missing")
+def check_png(label, path, size=None):
+    """The file is a PNG (of ``size`` = (width, height), when given)."""
+    if not os.path.exists(path):
+        fail(f"{label}: PNG {path} missing")
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{label}: {path} is not a PNG")
+    got = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"))
+    if size is not None and got != tuple(size):
+        fail(f"{label}: {path} is {got[0]}x{got[1]}, expected {size[0]}x{size[1]}")
 
 
 def phase_main_path(tmp, card):
@@ -495,6 +562,126 @@ def phase_line_sketch(tmp):
           f"losses {[round(v, 4) for v in losses]}, paper moved {moved:.3g}; launches {launches}", flush=True)
 
 
+def phase_vqgan_path(tmp, card):
+    """The bench's vqgan row, timed as the pixel row is.  Its losses are
+    held finite, not to descent: with random weights the latent lives in
+    the codebook's 2 / n_embed-wide clamp box, which every Adam step
+    crosses, so most tokens change code every step and over 33 steps the
+    loss moves by less than the cutouts' noise; the descent gate then
+    passes or fails with the seed, and fails at the bench's seed 1
+    (PERF.md).  What is held instead: the latent moved, stayed in the
+    box, and landed on other codes."""
+    steps = WARMUP_STEPS + TIMED_STEPS
+    engine, losses, launches, init_s, elapsed = drive_path(dict(VQGAN_CONFIG, iterations=steps + 16), tmp,
+                                                           steps, WARMUP_STEPS)
+    check_launches("vqgan", launches, {"warp_fwd": 2 * steps, "warp_bwd": 2 * steps, "strokes_fwd": 0,
+                                       "strokes_fwd_store": 0, "strokes_bwd": 0})
+    drawer = engine.drawer
+    quantize = drawer.model.quantize
+    z = engine.z.reshape(-1, quantize.codebook.shape[1])
+    changed = int((quantize.nearest(z) != quantize.nearest(engine.z_orig_flat.reshape(z.shape))).sum())
+    inside = bool(((z >= drawer.z_min) & (z <= drawer.z_max)).all())
+    if not (changed and inside):
+        fail(f"vqgan: after {steps} steps {changed} of {z.shape[0]} codes changed; latent inside the box: {inside}")
+    png = os.path.join(tmp, "output.png")
+    check_png("vqgan", png, (384, 208))
+    rate = TIMED_STEPS / elapsed
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    print(f"vqgan path: imagenet_f16_16384 (random weights) 384x208, ViT-B/32 + ViT-B/16 (random weights), "
+          f"64 cuts each: init {init_s:.1f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over "
+          f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, on {card}", flush=True)
+    print(f"vqgan losses (finite; not gated on descent): first5 {first5:.4f} -> last5 {last5:.4f}, "
+          f"{changed} of {z.shape[0]} codes changed; names {engine.loss_names}; launches {launches}; "
+          f"checkin {png}", flush=True)
+    return engine
+
+
+def phase_vqgan_default(tmp):
+    """``pixray_tpu_torch.run`` with its defaults (vqgan, quality normal:
+    ViT-B/32 + ViT-B/16, 30 cuts, the init noise resized and encoded, the
+    LR dropped at 75%, checkins every 10 with frames), cut to 12 steps."""
+    import torch
+
+    import pixray_tpu_torch as pixray
+    from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+
+    cuda_warp.reset_launch_counts()
+    cuda_strokes.reset_launch_counts()
+    pixray.run(prompts="sunrise", outdir=tmp, seed=1, iterations=DEFAULT_RUN_STEPS)
+    launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES}
+    engine = pixray.get_engine()
+    args = engine.args
+    if (args.drawer, args.clip_models, args.num_cuts, args.init_noise) != (
+            "vqgan", ["ViT-B/32", "ViT-B/16"], 30, "pixels"):
+        fail(f"default run: settings resolved to {args.drawer}, {args.clip_models}, {args.num_cuts} cuts, "
+             f"init_noise {args.init_noise}")
+    if args.learning_rate_drops != [8] or engine.tracker.drop_divisor == 1:
+        fail(f"default run: no LR drop ({args.learning_rate_drops}, divisor {engine.tracker.drop_divisor})")
+    values = engine.last_loss_values.float()
+    if not torch.isfinite(values).all():
+        fail(f"default run: non-finite losses {values.tolist()}")
+    quantize = engine.drawer.model.quantize
+    flat = engine.z_orig_flat.reshape(-1, quantize.codebook.shape[1])
+    off = float((flat - quantize.codebook[quantize.nearest(flat)]).abs().max())
+    if not off < CODEBOOK_ATOL:
+        fail(f"default run: the encoded init is {off} off the codebook (tol {CODEBOOK_ATOL})")
+    check_png("default run", os.path.join(tmp, "output.png"), (384, 208))
+    for it in (0, 10, DEFAULT_RUN_STEPS):
+        check_png("default run", os.path.join(tmp, "steps", f"frame_{it:04d}.png"), (384, 208))
+    check_launches("default run", launches, {"warp_fwd": 2 * DEFAULT_RUN_STEPS, "warp_bwd": 2 * DEFAULT_RUN_STEPS,
+                                             "strokes_fwd": 0, "strokes_fwd_store": 0, "strokes_bwd": 0})
+    print(f"default run: vqgan {engine.side_x}x{engine.side_y} (noise resized from {args.size[0]}x{args.size[1]} "
+          f"and encoded: {flat.shape[0]} codebook rows, max off {off:.3g}), {args.clip_models}, "
+          f"{args.num_cuts} cuts, {DEFAULT_RUN_STEPS} steps, LR drop at {args.learning_rate_drops}; final losses "
+          f"{dict(zip(engine.loss_names, [round(v, 4) for v in values.tolist()]))}; frames 0, 10, 12", flush=True)
+
+
+def phase_decoder_times(model):
+    """Decode forward and gradient to the latent at the 384x208 canvas's
+    24x13x256 latent, and the encoder forward at 384x208, in bf16 (the
+    path's model) and in an f32 copy (TF32 off): summed kernel time (the
+    device's work) and CUDA-event time of an eager call (bounded below by
+    the host's launches)."""
+    import copy
+
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cb = model.quantize.codebook
+    z = cb[torch.randint(0, cb.shape[0], (13 * 24,), device=dev, generator=gen)].reshape(13, 24, -1)
+    z = z.permute(2, 0, 1)[None].contiguous()
+    x = torch.rand((1, 3, 208, 384), device=dev, generator=gen) * 2 - 1
+    out = {}
+    for label, m in (("bf16", model), ("f32", copy.deepcopy(model).to_compute_dtype(torch.float32))):
+        zr = z.clone().requires_grad_(True)
+        y = m.decode_from_continuous(zr)
+        g = torch.randn(y.shape, device=dev, generator=gen)
+
+        def fwd():
+            with torch.no_grad():
+                m.decode_from_continuous(z)
+
+        def enc():
+            with torch.no_grad():
+                m.encode(x)
+
+        def bwd():
+            torch.autograd.grad(y, zr, g, retain_graph=True)
+
+        out[label] = {name: (device_ms(f), median_ms(f, reps=10))
+                      for name, f in (("decode forward", fwd), ("gradient to the latent", bwd),
+                                      ("encoder forward", enc))}
+        out[label]["image"] = y.detach()
+    diff = float((out["bf16"].pop("image") - out["f32"].pop("image")).abs().max())
+    for label, t in out.items():
+        print(f"decoder {label} (kernel sum / CUDA events of an eager call, ms): "
+              + ", ".join(f"{name} {k:.4f} / {e:.4f}" for name, (k, e) in t.items())
+              + " (decode at the 24x13x256 latent, encoder at 384x208)", flush=True)
+    print(f"decoder bf16 vs f32: decoded images differ by max |diff| {diff:.3g}", flush=True)
+    return out
+
+
 def main():
     import torch
 
@@ -517,11 +704,21 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, CLIPDRAW_CONFIG, "clipdraw", strokes=16)
     with tempfile.TemporaryDirectory() as tmp:
+        phase_agreement(tmp, VQGAN_CONFIG, "vqgan tiny_test",
+                        state_dicts={"vqgan": wide_codebook_weights("tiny_test")},
+                        vqgan_model="tiny_test", clip_models="TinyTest,TinyTest48")
+    with tempfile.TemporaryDirectory() as tmp:
         launches = phase_main_path(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         stroke_launches = phase_clipdraw_path(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_line_sketch(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        vqgan_engine = phase_vqgan_path(tmp, card)
+    phase_decoder_times(vqgan_engine.drawer.model)
+    del vqgan_engine
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_vqgan_default(tmp)
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
     kernels = [

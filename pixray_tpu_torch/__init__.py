@@ -10,8 +10,8 @@ Public API mirrors ``pixray_tpu``:
     pixray.do_run(settings)
 
 or the one-liner ``pixray_tpu_torch.run(prompts=..., drawer="pixel")``.
-The pixel, clipdraw and line_sketch drawers with OpenAI ViT perceptors
-are ported so far.
+The vqgan (the default), pixel, clipdraw and line_sketch drawers with
+OpenAI ViT perceptors are ported so far.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def get_engine():
     return _engine
 
 
-def run(prompts=None, drawer="pixel", device="cuda", **kwargs):
+def run(prompts=None, drawer="vqgan", device="cuda", **kwargs):
     """One-stop API: resolve settings, build the engine, run it."""
     reset_settings()
     add_settings(prompts=prompts, drawer=drawer, **kwargs)

@@ -1,4 +1,4 @@
-"""Drawer registry of the port: ``pixel``, ``clipdraw`` and ``line_sketch`` so far."""
+"""Drawer registry of the port: ``pixel``, ``clipdraw``, ``line_sketch`` and ``vqgan`` so far."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ _DRAWER_MODULES = {
     "pixel": ("pixray_tpu_torch.drawers.pixel", "PixelDrawer"),
     "clipdraw": ("pixray_tpu_torch.drawers.clipdraw", "ClipDrawer"),
     "line_sketch": ("pixray_tpu_torch.drawers.line_sketch", "LineDrawer"),
+    "vqgan": ("pixray_tpu_torch.drawers.vqgan", "VqganDrawer"),
 }
 
 

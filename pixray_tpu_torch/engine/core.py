@@ -7,14 +7,16 @@ LR drops with a fresh optimizer state, best-loss tracking read one step
 late so the host never waits on the step it just queued).
 
 ``device`` is explicit and defaults to ``"cuda"``; asking for CUDA where
-there is none raises (there is no CPU fallback).  The post-warp epilogue
-and the towers compute in bfloat16 on CUDA when ``--precision bf16`` (the
-default), in float32 on the CPU.
+there is none raises (there is no CPU fallback).  The towers and the VQGAN
+compute in bfloat16 on CUDA when ``--precision bf16`` (the default), the
+post-warp epilogue in bfloat16 on CUDA; all in float32 on the CPU.
 
-The latent is a tensor (pixel) or a dict of tensors (clipdraw,
-line_sketch); a drawer with ``get_opts`` brings its own optimizer (one Adam
-per group), as in the JAX engine.  ``--save_svg`` writes the drawer's
-vector export at the end of ``run``.
+The latent is a tensor (pixel, vqgan) or a dict of tensors (clipdraw,
+line_sketch); a drawer with ``load_model`` gets the device and dtype for
+its weights; a drawer with ``get_opts`` brings its own optimizer (one Adam
+per group), as in the JAX engine.  ``--init_noise pixels`` off the
+drawer's grid is resized with PIL's Lanczos, as in the JAX engine.
+``--save_svg`` writes the drawer's vector export at the end of ``run``.
 
 Settings the ported slices do not implement raise ``NotImplementedError``
 here rather than being ignored.
@@ -72,7 +74,9 @@ def resolve_device(device) -> torch.device:
 
 class Engine:
     """``state_dicts`` optionally maps perceptor names to OpenAI-layout
-    weights (see ``models/clip/bridge.py``); others get seeded random weights."""
+    weights (see ``models/clip/bridge.py``) and the drawer's name to its
+    weights (``"vqgan"``: taming names, see ``models/vqgan.py``); the rest
+    load from their checkpoint files or get seeded random weights."""
 
     def __init__(self, args, device="cuda", state_dicts=None):
         self.args = args
@@ -94,18 +98,22 @@ class Engine:
         self.gen = torch.Generator().manual_seed(int_seed)
         self.gen_device = torch.Generator(device=self.device).manual_seed(int_seed)
 
-        # ---- drawer
-        self.drawer = drawer_class(args.drawer)(args)
-        self.side_x, self.side_y = self.drawer.snap_canvas(args.size)
-
-        # ---- precision
+        # ---- precision: the towers and a drawer's model compute in bf16 on
+        # CUDA under --precision bf16; the epilogue in bf16 on CUDA
         on_cuda = self.device.type == "cuda"
-        tower_dtype = torch.bfloat16 if (args.precision == "bf16" and on_cuda) else torch.float32
+        model_dtype = torch.bfloat16 if (args.precision == "bf16" and on_cuda) else torch.float32
         self.compute_dtype = torch.bfloat16 if on_cuda else None
 
-        # ---- perceptors + text prompt tables
+        # ---- drawer (a drawer with weights loads them before snapping)
         state_dicts = state_dicts or {}
-        self.perceptors = [Perceptor(name, self.device, tower_dtype, state_dicts.get(name))
+        self.drawer = drawer_class(args.drawer)(args)
+        load_model = getattr(self.drawer, "load_model", None)
+        if load_model is not None:
+            load_model(args, self.device, model_dtype, state_dicts.get(args.drawer))
+        self.side_x, self.side_y = self.drawer.snap_canvas(args.size)
+
+        # ---- perceptors + text prompt tables
+        self.perceptors = [Perceptor(name, self.device, model_dtype, state_dicts.get(name))
                            for name in args.clip_models]
         tables = build_prompt_tables(args, self.perceptors, self.device)
 
@@ -164,7 +172,11 @@ class Engine:
 
         arr = random_noise_array(args.size[0], args.size[1], self.np_rng)
         if arr.shape[:2] != (self.side_y, self.side_x):
-            raise NotImplementedError("init noise resizing is not yet ported")
+            # off the drawer's grid: PIL's Lanczos, as the JAX engine resizes
+            # (PIL is imported only here, so an on-grid run never needs it)
+            from PIL import Image
+
+            arr = np.asarray(Image.fromarray(arr).resize((self.side_x, self.side_y), Image.LANCZOS))
         return arr
 
     # ------------------------------------------------------------------ draws

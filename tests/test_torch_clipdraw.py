@@ -167,7 +167,7 @@ def test_clipdraw_slice_matches_jax_engine(tmp_path, monkeypatch):
     j_grad = jax.jit(jax.grad(lambda z, key: j_loss(z, ref.refs, key, 0, 0)[0]))
     for it in range(SLICE["iterations"]):
         _, k_step = jax.random.split(ref.key)
-        draws = _jax_step_draws(k_step, 32, SLICE["num_cuts"], 96 / 54, 1)
+        draws = _jax_step_draws(k_step, [32], SLICE["num_cuts"], 96 / 54, 1)
         if it == 0:
             grads = j_grad(ref.z, jax.random.split(k_step, 1)[0])
             pgrads, _ = loss_and_grads(port.step_cfg, port.z, 0, draws)

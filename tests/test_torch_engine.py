@@ -49,7 +49,10 @@ def test_settings_resolve_like_jax(settings):
 
 def test_settings_refuse_unported():
     with pytest.raises(NotImplementedError):
-        apply_settings(dict(drawer="vqgan", prompts="x"), apply_side_effects=False)
+        apply_settings(dict(drawer="fft", prompts="x"), apply_side_effects=False)
+    vqgan = dict(drawer="vqgan", prompts="x")
+    assert vars(apply_settings(dict(vqgan), apply_side_effects=False)) == vars(
+        j_apply_settings(dict(vqgan), apply_side_effects=False))
     with pytest.raises(NotImplementedError):
         apply_settings(dict(drawer="pixel", prompts="x", palette="black->white"), apply_side_effects=False)
 
@@ -82,15 +85,22 @@ def test_adam_and_set_learning_rate_match_optax():
         np.testing.assert_allclose(pz.numpy(), np.asarray(jz), atol=1e-6)
 
 
-def _jax_step_draws(k_step, cut_size, num_cuts, aspect, batches):
+def _jax_step_draws(k_step, cut_sizes, num_cuts, aspect, batches):
     """The draws of one JAX step, split exactly as pixray_tpu's step, loss_fn
-    and render_cutouts split them (one perceptor, nchw bank)."""
-    return [_jax_batch_draws(key, cut_size, num_cuts, aspect)
+    and render_cutouts split them (one cut size per perceptor, nchw bank)."""
+    return [_jax_batch_draws(key, cut_sizes, num_cuts, aspect)
             for key in jax.random.split(k_step, batches)]
 
 
-def _jax_batch_draws(key, cut_size, num_cuts, aspect):
-    _k_synth, k_fill, _k_loss, pk = jax.random.split(key, 4)
+def _jax_batch_draws(key, cut_sizes, num_cuts, aspect):
+    _k_synth, k_fill, _k_loss, *pks = jax.random.split(key, 3 + len(cut_sizes))
+    return {
+        "fill": float(jax.random.uniform(k_fill)),
+        "perceptors": [_jax_perceptor_draws(pk, s, num_cuts, aspect) for pk, s in zip(pks, cut_sizes)],
+    }
+
+
+def _jax_perceptor_draws(pk, cut_size, num_cuts, aspect):
     k_t, k_jit, k_noise, *_ = jax.random.split(pk, 6)
     zoom, wide = JC.sample_cut_transforms(k_t, cut_size, num_cuts, aspect)
     hs, sf, ap = jax.vmap(lambda k: _draw_jitter_params(k, 0.1, 0.1, 0.8))(jax.random.split(k_jit, num_cuts))
@@ -100,13 +110,23 @@ def _jax_batch_draws(key, cut_size, num_cuts, aspect):
               for kp in jax.random.split(k_planes, 3)]
     t = lambda a: torch.tensor(np.asarray(a))
     return {
-        "fill": float(jax.random.uniform(k_fill)),
-        "perceptors": [{
-            "transforms": (t(zoom), t(wide)),
-            "jitter": (t(hs), t(sf), t(ap)),
-            "noise": (t(facs), [t(p) for p in planes]),
-        }],
+        "transforms": (t(zoom), t(wide)),
+        "jitter": (t(hs), t(sf), t(ap)),
+        "noise": (t(facs), [t(p) for p in planes]),
     }
+
+
+def test_jax_draws_of_one_perceptor_use_the_fourth_key():
+    """With one perceptor the step key splits in 4 (synth, fill, loss,
+    perceptor), as the single-perceptor slices were written against."""
+    key = jax.random.PRNGKey(5)
+    draws = _jax_batch_draws(key, [32], 8, 96 / 54)
+    _, k_fill, _, pk = jax.random.split(key, 4)
+    ref = _jax_perceptor_draws(pk, 32, 8, 96 / 54)
+    assert draws["fill"] == float(jax.random.uniform(k_fill))
+    for got, want in zip(draws["perceptors"][0]["transforms"] + draws["perceptors"][0]["jitter"],
+                         ref["transforms"] + ref["jitter"]):
+        assert torch.equal(got, want)
 
 
 # the main-path terms only; then the other terms of the slice's loss
@@ -137,7 +157,7 @@ def test_pixel_slice_matches_jax_engine(tmp_path, terms):
     port.step_cfg.z_orig_flat = torch.tensor(np.asarray(ref.z_orig_flat))
     for it in range(cfg["iterations"]):
         _, k_step = jax.random.split(ref.key)
-        draws = _jax_step_draws(k_step, 32, cfg["num_cuts"], 96 / 54, cfg["batches"])
+        draws = _jax_step_draws(k_step, [32], cfg["num_cuts"], 96 / 54, cfg["batches"])
         ref.train(it)
         port.train(it, draws)
         np.testing.assert_allclose(port.last_loss_values.numpy(), np.asarray(ref.last_loss_values), atol=1e-4)

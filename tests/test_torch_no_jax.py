@@ -4,8 +4,9 @@ too: the port's main path must not need them.
 
 A subprocess installs an import hook that refuses those modules, imports
 pixray_tpu_torch and runs a slice for 2 steps on the CPU at TinyTest size
-through the public API: the pixel slice, and the clipdraw slice with its
-SVG export.
+through the public API: the pixel slice, the clipdraw slice with its
+SVG export, and the vqgan slice (tiny_test, random weights, two towers) at
+a size on the VQGAN's grid, so the init noise needs no resize (and no PIL).
 """
 
 import os
@@ -30,10 +31,10 @@ SCRIPT = textwrap.dedent("""
     import pixray_tpu_torch as pixray
 
     pixray.reset_settings()
-    pixray.add_settings(prompts="sunrise", clip_models="TinyTest", size=[64, 36],
-                        num_cuts=8, iterations=2, save_every=1, seed=3, outdir=OUTDIR,
-                        save_intermediates=False, learning_rate_drops=[], vector_prompts="none",
-                        **DRAWER)
+    pixray.add_settings(**dict(dict(prompts="sunrise", clip_models="TinyTest", size=[64, 36],
+                                    num_cuts=8, iterations=2, save_every=1, seed=3, outdir=OUTDIR,
+                                    save_intermediates=False, learning_rate_drops=[],
+                                    vector_prompts="none"), **DRAWER))
     settings = pixray.apply_settings()
     pixray.do_init(settings, device="cpu")
     assert pixray.do_run(settings)
@@ -66,3 +67,7 @@ def test_clipdraw_runs_without_jax(tmp_path):
     outdir = _run_blocked(tmp_path, dict(drawer="clipdraw", strokes=12, save_svg=True))
     with open(os.path.join(outdir, "output.svg")) as f:
         assert f.read().count("<path ") == 12
+
+
+def test_vqgan_runs_without_jax(tmp_path):
+    _run_blocked(tmp_path, dict(drawer="vqgan", vqgan_model="tiny_test", clip_models="TinyTest,TinyTest48"))
