@@ -8,10 +8,16 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the CUDA sources of pixray_tpu_torch/csrc (warp.cu and
    strokes.cu, one nvcc each, in parallel);
-3. warp kernels (K1, K2) vs their plain PyTorch versions on the card,
-   forward and backward, at the flagship bank shapes (224x224x3 canvas, the
-   45 perspective cuts of a 64-cut bank, S=224, modes 0/1/3 with a fill) and
-   a ragged small case (N=5, S=17, 20x28 canvas), with median times;
+3. warp kernels (K1, K2) in their bare-warp configuration (f32, no
+   jitter, no noise) vs the plain gather on the card, forward (bitwise) and
+   backward, at the 45 perspective cuts of a 64-cut bank (224x224x3 canvas,
+   S=224, modes 0/1/3 with a fill) and a ragged small case (N=5, S=17,
+   20x28 canvas), with median times;
+3b. bank kernels (K1, K2 with the bf16 rounding, jitter and noise inside)
+   vs the plain composition on the card: the flagship 64-cut bank and a
+   ragged tie-rich bank whose K2 blocks take both accumulation branches;
+   the pre-jitter bank bitwise, the bank within one bf16 ulp, the canvas
+   gradient within BWD_RTOL; kernel, plain, grid_sample times and bounds;
 4. stroke kernels (K4, K4s, K5) vs the plain stroke renderer on the card,
    forward, chunk prefixes and all four gradients: clipdraw's own init
    (1024 strokes, P=25, 384x216, white), line_sketch (24 strokes, P=65,
@@ -77,8 +83,21 @@ LINE_SKETCH_STEPS = 4
 DEFAULT_RUN_STEPS = 12  # pixray_tpu_torch.run's defaults, cut to 12 iterations
 
 CODEBOOK_ATOL = 1e-5  # an encoded latent row against its nearest codebook row
-FWD_ATOL = 2e-4  # f32 coordinate rounding (FMA contraction) times a unit-range canvas
+FWD_ATOL = 0.0  # the bare warp: the kernel repeats the plain version's f32 ops in its order
 BWD_RTOL = 5e-4  # of max|dwork|: atomics sum in a run-dependent order
+# the bank (bf16, jitter, noise) against the plain composition on the card:
+BANK_ULPS = 1  # per element: the jitter's f32 ops, where the card's eager ops round otherwise
+# the explicit jitter adjoint vs autograd, per bf16 cotangent: f32 sums in another order
+# (tests/test_torch_cutout_bank.py holds them to 1e-5 in f32), then rounded to bf16:
+# |d_explicit - d_autograd| <= ADJOINT_ULP * |d_autograd| + ADJOINT_CANCEL * max|g| of the pixel
+ADJOINT_ULP = 2.0 ** -7  # one bf16 ulp
+ADJOINT_CANCEL = 4e-5  # where its terms cancel far below the pixel's cotangent (1.9e-5 on the CPU)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (HBM3 peak)
+F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+BANK_FWD_FLOPS_PER_PIXEL = 100  # coordinates and taps ~25, 3-channel bilinear 24, HSV round trip ~45, noise 6
+BANK_BWD_FLOPS_PER_PIXEL = 160  # taps ~25, HSV state ~35, its adjoint ~75, the 12 tap products 24
+STROKE_FLOPS_PER_SEGMENT = 18  # per kept (pixel, stroke) pair: projection, clamp, distance, min
+STROKE_FLOPS_PER_PAIR = 18  # sqrt, coverage, the 4-channel over
 AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTest
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
 
@@ -239,6 +258,278 @@ def phase_kernels():
     return flagship, small
 
 
+def bf16_ulps(a, b):
+    """Elementwise distance of two bf16 tensors in ulps (ordered bit patterns)."""
+    import torch
+
+    def key(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -32768 - i, i)
+
+    return (key(a) - key(b)).abs()
+
+
+def footprint_blocks(inv, modes, h, w, s, tile=16, budget=2048):
+    """(blocks that sum in shared memory, blocks that add to device memory)
+    of K2: the canvas footprint of each cut x tile block's valid taps after
+    each mode's remap, against the kernel's 8 KB (2048-float) budget."""
+    import torch
+
+    from pixray_tpu_torch.ops.warp_batch import reflect_coord, source_coords
+
+    sx, sy = source_coords(inv, s)
+    m = modes[:, None, None]
+    big = 1 << 30
+
+    def extent(c, size):
+        t = torch.where(m == 0, reflect_coord(c, size), torch.where(m == 1, c.clamp(0.0, size - 1.0), c))
+        c0 = torch.floor(t).clamp(-2, size + 1).nan_to_num(-2).long()
+        ok0, ok1 = (c0 >= 0) & (c0 < size), (c0 + 1 >= 0) & (c0 + 1 < size)
+        lo = torch.where(ok0, c0, torch.where(ok1, c0 + 1, big))
+        hi = torch.where(ok1, c0 + 1, torch.where(ok0, c0, -big))
+        return lo, hi
+
+    xlo, xhi = extent(sx, w)
+    ylo, yhi = extent(sy, h)
+    valid = (xlo < big) & (ylo < big)
+    n, pad = inv.shape[0], (-s) % tile
+    tiles = (s + pad) // tile
+
+    def per_block(v, fill, reduce):
+        v = torch.nn.functional.pad(torch.where(valid, v, fill), (0, pad, 0, pad), value=fill)
+        return reduce(v.reshape(n, tiles, tile, tiles, tile), dim=(2, 4))
+
+    x0, x1 = per_block(xlo, big, torch.amin), per_block(xhi, -big, torch.amax)
+    y0, y1 = per_block(ylo, big, torch.amin), per_block(yhi, -big, torch.amax)
+    touched = x1 >= x0
+    local = touched & ((x1 - x0 + 1) * (y1 - y0 + 1) * 3 <= budget)
+    return int(local.sum()), int((touched & ~local).sum())
+
+
+def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_it):
+    """The bank's K1/K2 (bf16, jitter, noise) vs the plain version on the
+    card: the pre-jitter bank bitwise; the bank within BANK_ULPS of the
+    plain composition; the canvas gradient within BWD_RTOL of max|dwork| of
+    the plain one made with K2's formulas (the explicit jitter adjoint,
+    itself within a bf16 ulp of autograd per cotangent, see ADJOINT_ULP)."""
+    import torch
+
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.ops.color import jitter_planes_adjoint
+    from pixray_tpu_torch.ops.warp import inv3x3
+    from pixray_tpu_torch.ops.warp_batch import warp_modes_plain
+
+    dev, bf16 = work.device, torch.bfloat16
+    inv = inv3x3(ms.float())
+    params = cuda_warp.pack_params(inv, modes, jitter, facs)
+    params_dev = params.to(dev)
+    n, (h, w, _) = ms.shape[0], work.shape
+
+    out_k, pre_k = cuda_warp.launch_bank_fwd(work, params_dev, fill, out_size, planes, bf16, save_pre=True)
+    with torch.no_grad():
+        pre_p = warp_modes_plain(work, inv.to(dev), modes.to(dev, torch.int32), fill, out_size).to(bf16)
+        out_p = cuda_warp.cutout_bank_plain(work, params, fill, out_size, planes, bf16)
+    torch.cuda.synchronize()
+    if out_k.shape != (n, 3, out_size, out_size) or not torch.isfinite(out_k.float()).all():
+        fail(f"K1 bank malformed on {name}: {tuple(out_k.shape)}")
+    ulps = bf16_ulps(out_k, out_p)
+    g = torch.randn((n, 3, out_size, out_size), device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    g = g.to(bf16)
+    dwork_k = cuda_warp.launch_bank_bwd(g, pre_k, params_dev, tuple(work.shape), out_size)
+    # the plain references: autograd through the whole composition, and the
+    # explicit jitter adjoint (K2's formulas) rounded to bf16, then autograd
+    # through the plain warp
+    w_req = work.clone().requires_grad_(True)
+    out_plain = cuda_warp.cutout_bank_plain(w_req, params, fill, out_size, planes, bf16)
+    (dwork_p,) = torch.autograd.grad(out_plain, w_req, g, retain_graph=time_it)
+    pre_leaf = pre_p.clone().requires_grad_(True)
+    (d_auto,) = torch.autograd.grad(cuda_warp.bank_epilogue_plain(pre_leaf, params, planes), pre_leaf, g)
+    u = cuda_warp.unpack_params(params)
+    d_exp = torch.stack(jitter_planes_adjoint(*pre_p.unbind(1), u["hue"].to(dev)[:, None, None],
+                                              u["sat"].to(dev)[:, None, None], *g.float().unbind(1)), 1)
+    d_exp = torch.where(u["apply"].to(dev)[:, None, None, None], d_exp.to(bf16), g)
+    w_exp = work.clone().requires_grad_(True)
+    (dwork_e,) = torch.autograd.grad(
+        warp_modes_plain(w_exp, inv.to(dev), modes.to(dev, torch.int32), fill, out_size).to(bf16), w_exp, d_exp)
+    torch.cuda.synchronize()
+    adj_diff = (d_exp.float() - d_auto.float()).abs()
+    adj_tol = ADJOINT_ULP * d_auto.float().abs() + ADJOINT_CANCEL * g.float().abs().amax(1, keepdim=True)
+    scale = max(float(dwork_e.abs().max()), 1e-6)
+    local, direct = footprint_blocks(inv.to(dev), modes.to(dev), h, w, out_size)
+    res = {"name": name, "n": n, "s": out_size, "canvas": [h, w],
+           "jittered": int(jitter[2].sum()), "pre_bitwise": torch.equal(pre_k, pre_p),
+           "ulp_diffs": int((ulps > 0).sum()), "max_ulps": int(ulps.max()), "elements": ulps.numel(),
+           "adjoint_diffs": int((adj_diff > 0).sum()), "adjoint_excess": float((adj_diff / adj_tol).max()),
+           "fwd_err": float((out_k.float() - out_p.float()).abs().max()),
+           "bwd_err": float((dwork_k - dwork_e).abs().max()), "bwd_scale": scale,
+           "bwd_tol": BWD_RTOL * scale, "bwd_err_autograd": float((dwork_k - dwork_p).abs().max()),
+           "blocks_local": local, "blocks_direct": direct}
+    if not res["pre_bitwise"]:
+        bad = int((pre_k != pre_p).sum())
+        fail(f"K1's pre-jitter bank differs from the plain one in {bad} elements on {name}: {res}")
+    if not res["max_ulps"] <= BANK_ULPS:
+        fail(f"K1's bank differs from the plain composition by {res['max_ulps']} ulps on {name}: {res}")
+    if not res["adjoint_excess"] <= 1.0:
+        fail(f"the explicit jitter adjoint differs from autograd beyond its tolerance on {name}: {res}")
+    if not res["bwd_err"] <= res["bwd_tol"]:
+        fail(f"K2 disagrees with the plain gradient on {name}: {res}")
+    if time_it:
+        f_bytes = h * w * 3 * 4 + params.numel() * 4 + 3 * n * out_size ** 2 * 2 * 3
+        b_bytes = 2 * n * 3 * out_size ** 2 * 2 + params.numel() * 4 + h * w * 3 * 4
+        f_ops = BANK_FWD_FLOPS_PER_PIXEL * n * out_size ** 2
+        b_ops = BANK_BWD_FLOPS_PER_PIXEL * n * out_size ** 2
+
+        def plain_fwd():
+            with torch.no_grad():
+                cuda_warp.cutout_bank_plain(work, params, fill, out_size, planes, bf16)
+
+        def plain_bwd():
+            torch.autograd.grad(out_plain, w_req, g, retain_graph=True)
+
+        # the library yardstick: grid_sample over the same cuts' source
+        # coordinates (bilinear, reflection about the pixel edges) from the
+        # one canvas broadcast over the cuts, the warp without the epilogue;
+        # its grid made here
+        from pixray_tpu_torch.ops.warp_batch import source_coords
+
+        sx, sy = source_coords(inv.to(dev), out_size)
+        grid = torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], dim=-1).contiguous()
+        chw = work.permute(2, 0, 1).contiguous()
+        chw_req = chw.clone().requires_grad_(True)
+        kw_gs = dict(mode="bilinear", padding_mode="reflection", align_corners=False)
+        lib_out = torch.nn.functional.grid_sample(chw_req[None].expand(n, -1, -1, -1), grid, **kw_gs)
+        g32 = g.float()
+
+        def lib_fwd():
+            with torch.no_grad():
+                torch.nn.functional.grid_sample(chw[None].expand(n, -1, -1, -1), grid, **kw_gs)
+
+        def lib_bwd():
+            torch.autograd.grad(lib_out, chw_req, g32, retain_graph=True)
+
+        timed = {
+            "fwd": lambda: cuda_warp.launch_bank_fwd(work, params_dev, fill, out_size, planes, bf16, save_pre=True),
+            "bwd": lambda: cuda_warp.launch_bank_bwd(g, pre_k, params_dev, tuple(work.shape), out_size),
+            "fwd_plain": plain_fwd, "bwd_plain": plain_bwd, "fwd_lib": lib_fwd, "bwd_lib": lib_bwd,
+        }
+        for key, fn in timed.items():
+            res[f"{key}_ms"], res[f"{key}_event_ms"] = device_ms(fn), median_ms(fn)
+        res.update(
+            fwd_bound_ms=1e3 * max(f_bytes / HBM_BYTES_PER_S, f_ops / F32_FLOPS),
+            fwd_bound_by="bytes" if f_bytes / HBM_BYTES_PER_S >= f_ops / F32_FLOPS else "operations",
+            bwd_bound_ms=1e3 * max(b_bytes / HBM_BYTES_PER_S, b_ops / F32_FLOPS),
+            bwd_bound_by="bytes" if b_bytes / HBM_BYTES_PER_S >= b_ops / F32_FLOPS else "operations",
+            fwd_bytes=f_bytes, bwd_bytes=b_bytes)
+    return res
+
+
+def _tie_canvas(h, w, gen):
+    """A canvas with regions that tie: gray (r = g = b), r = g, r = b,
+    exact 0 and 1, one channel at the clip bound."""
+    import torch
+
+    work = torch.rand((h, w, 3), generator=gen)
+    work[: h // 3] = work[: h // 3, :, :1]
+    work[h // 3: h // 2, :, 1] = work[h // 3: h // 2, :, 0]
+    work[h // 2: 3 * h // 5, :, 2] = work[h // 2: 3 * h // 5, :, 0]
+    work[3 * h // 5: 2 * h // 3] = 0.0
+    work[2 * h // 3: 3 * h // 4] = 1.0
+    work[3 * h // 4: 5 * h // 6, :, 0] = 1.0
+    return work
+
+
+def phase_bank_kernels():
+    """K1/K2 with the epilogue at the flagship bank (64 cuts of 224 on the
+    224x224x3 work canvas of the 384x216 canvas, bf16, the jitter drawn with
+    p = 0.8, noise) and on a ragged tie-rich bank (9 cuts of S = 40 on a
+    90x100 canvas with gray, tied, 0 and 1 regions; zoomed-out cuts whose
+    footprint overflows shared memory, so both of K2's branches run)."""
+    import torch
+
+    from pixray_tpu_torch.engine.cutouts import bank_order, cut_transforms, draw_cut_params, draw_noise
+    from pixray_tpu_torch.ops import warp as W
+    from pixray_tpu_torch.ops.color import draw_jitter_params
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    gen_dev = torch.Generator(device=dev).manual_seed(0)
+    aspect = 384 / 216
+    zoom, wide = cut_transforms(draw_cut_params(gen, 64, aspect), 224, aspect)
+    order = bank_order(zoom.shape[0], wide.shape[0])
+    ms = torch.cat([zoom, wide])[order]
+    modes = torch.tensor([i % 2 for i in range(zoom.shape[0])] + [3] * wide.shape[0], dtype=torch.int32)[order]
+    jitter = draw_jitter_params(gen, 64)
+    facs, planes = draw_noise(gen, gen_dev, 64, 224, torch.bfloat16, dev)
+    work = torch.rand((224, 224, 3), generator=gen).to(dev)
+    flagship = bank_case("flagship", work, ms, modes, 0.37, 224, jitter, facs, planes, time_it=True)
+
+    h, w, s = 90, 100, 40
+    t = lambda *a: torch.tensor(a, dtype=torch.float32)
+    boxes = W.crop_box_transform(t(0.0, 10.0, -120.0, 5.0, 0.0, -140.0), t(0.0, 2.0, -100.0, 20.0, 0.0, -90.0),
+                                 t(100.0, 30.0, 350.0, 60.0, 100.0, 380.0), t(90.0, 28.0, 300.0, 50.0, 90.0, 270.0),
+                                 s, s)
+    persp = W.mm3(W.crop_box_transform(t(5.0, -10.0, 20.0), t(0.0, 10.0, -5.0), t(90.0, 80.0, 60.0),
+                                       t(85.0, 70.0, 95.0), s, s),
+                  W.random_perspective(h, w, 0.5, torch.rand((3, 4, 2), generator=gen)))
+    ms_r = torch.cat([boxes, persp])
+    modes_r = torch.tensor([1, 0, 0, 3, 3, 3, 3, 2, 0], dtype=torch.int32)
+    jitter_r = (t(0.0, 0.5, 0.1, -0.1, 0.05, 0.0, 1 / 6, -0.05, 0.02),
+                t(1.0, 1.0, 0.9, 1.1, 1.0, 1.05, 1.0, 0.95, 1.0),
+                torch.tensor([True, True, True, False, True, True, True, True, False]))
+    facs_r, planes_r = draw_noise(gen, gen_dev, 9, s, torch.bfloat16, dev)
+    facs_r[::3] = 0.0
+    work_r = _tie_canvas(h, w, gen).to(dev)
+    ragged = bank_case("ragged ties", work_r, ms_r, modes_r, 0.5, s, jitter_r, facs_r, planes_r, time_it=False)
+    if not (ragged["blocks_local"] and ragged["blocks_direct"]):
+        fail(f"the ragged bank does not run both of K2's branches: {ragged}")
+    for r in (flagship, ragged):
+        print(f"bank kernels {r['name']} (N={r['n']}, S={r['s']}, {r['canvas'][0]}x{r['canvas'][1]}x3, bf16, "
+              f"{r['jittered']} cuts jittered, noise): pre-jitter bank bitwise {r['pre_bitwise']}; bank elements "
+              f"one bf16 ulp off the plain composition {r['ulp_diffs']} of {r['elements']} (max {r['max_ulps']} "
+              f"ulps, tol {BANK_ULPS}); explicit jitter adjoint vs autograd: {r['adjoint_diffs']} bf16 cotangents apart, "
+              f"at most {r['adjoint_excess']:.3g} of the tolerance (one ulp + {ADJOINT_CANCEL} max|g|); K2 max_abs_err {r['bwd_err']:.3g} "
+              f"against max|dwork| {r['bwd_scale']:.3g} (tol {r['bwd_tol']:.3g}), against autograd's "
+              f"{r['bwd_err_autograd']:.3g}; K2 blocks summing in shared memory {r['blocks_local']}, adding to "
+              f"device memory {r['blocks_direct']}", flush=True)
+    f = flagship
+    t = lambda k: f"{f[k + '_ms']:.4f} / {f[k + '_event_ms']:.4f}"
+    print(f"bank kernels flagship times (ms, summed kernel time / CUDA events of one call): K1 {t('fwd')} "
+          f"(bound {f['fwd_bound_ms']:.4f}, {f['fwd_bound_by']}) vs plain composition {t('fwd_plain')} vs "
+          f"grid_sample {t('fwd_lib')}; K2 {t('bwd')} (bound {f['bwd_bound_ms']:.4f}, {f['bwd_bound_by']}) vs "
+          f"plain backward {t('bwd_plain')} vs grid_sample input gradient {t('bwd_lib')}", flush=True)
+    return flagship, ragged
+
+
+def stroke_bounds(samples, meta, h, w, n_chunks):
+    """Bounds of K4, K4s and K5 on one scene: {kernel: (ms, "bytes" or
+    "operations")}, and the (pixel, stroke) pairs the bbox test keeps.  The
+    operations are those of the kept pairs (STROKE_FLOPS_* per pair and
+    segment; the backward counted as twice the forward); the bytes read each
+    input and write each output once (K4s's chunk canvases included)."""
+    import torch
+
+    dev = samples.device
+    n, p = samples.shape[:2]
+    tx = torch.arange(0, w, 16, device=dev, dtype=torch.float32)
+    ty = torch.arange(0, h, 16, device=dev, dtype=torch.float32)
+    pix = (h - ty).clamp(max=16)[:, None] * (w - tx).clamp(max=16)[None, :]
+    m = meta[:, :, None, None]
+    hit = (m[:, 5] <= tx + 16) & (m[:, 7] >= tx) & (m[:, 6] <= ty[:, None] + 16) & (m[:, 8] >= ty[:, None])
+    pairs_bwd = int((hit * pix).sum())
+    pairs_fwd = int(((hit & (m[:, 4] != 0)) * pix).sum())
+    per_pair = STROKE_FLOPS_PER_SEGMENT * (p - 1) + STROKE_FLOPS_PER_PAIR
+    canvas = 4 * h * w * 4
+    strokes = samples.numel() * 4 + meta.numel() * 4
+    work = {
+        "fwd": (strokes + 2 * canvas, pairs_fwd * per_pair),
+        "store": (strokes + (2 + n_chunks) * canvas, pairs_fwd * per_pair),
+        "bwd": (strokes + (2 + n_chunks) * canvas + samples.numel() * 4 + n * 5 * 4, 2 * pairs_bwd * per_pair),
+    }
+    bounds = {k: (1e3 * max(b / HBM_BYTES_PER_S, o / F32_FLOPS),
+                  "bytes" if b / HBM_BYTES_PER_S >= o / F32_FLOPS else "operations") for k, (b, o) in work.items()}
+    return bounds, pairs_fwd, pairs_bwd
+
+
 def stroke_case(name, samples, widths, colors, background, time_it):
     """K4, K4s, K5 vs the plain renderer on one scene: forward, chunk
     prefixes, and the gradients w.r.t. samples, widths, colors and the
@@ -298,13 +589,17 @@ def stroke_case(name, samples, widths, colors, background, time_it):
         def plain_bwd():
             torch.autograd.grad(out_plain, leaves, g.permute(1, 2, 0), retain_graph=True)
 
-        res.update(
-            fwd_ms=median_ms(lambda: cuda_strokes.launch_fwd(samples, meta, bg)),
-            store_ms=median_ms(lambda: cuda_strokes.launch_fwd(samples, meta, bg, store=True)),
-            bwd_ms=median_ms(lambda: cuda_strokes.launch_bwd(g, samples, meta, prefixes)),
-            fwd_plain_ms=median_ms(plain_fwd, reps=5),
-            bwd_plain_ms=median_ms(plain_bwd, reps=5),
-        )
+        timed = {
+            "fwd": lambda: cuda_strokes.launch_fwd(samples, meta, bg),
+            "store": lambda: cuda_strokes.launch_fwd(samples, meta, bg, store=True),
+            "bwd": lambda: cuda_strokes.launch_bwd(g, samples, meta, prefixes),
+            "fwd_plain": plain_fwd, "bwd_plain": plain_bwd,
+        }
+        for key, fn in timed.items():
+            reps = 2 if key.endswith("plain") else 5
+            res[f"{key}_ms"], res[f"{key}_event_ms"] = device_ms(fn, reps), median_ms(fn, 4 * reps)
+        res["bounds"], res["pairs_fwd"], res["pairs_bwd"] = stroke_bounds(
+            samples, meta, bg.shape[1], bg.shape[2], prefixes.shape[0])
     return res
 
 
@@ -374,9 +669,15 @@ def phase_stroke_kernels():
         print(f"stroke kernels {r['name']} (N={r['n']}, P={r['p']}, {r['canvas'][0]}x{r['canvas'][1]}): "
               f"K4 max_abs_err {r['fwd_err']:.3g}, K4s {r['store_err']:.3g} (tol {STROKE_FWD_ATOL}); "
               f"K5 {grads}", flush=True)
-    print(f"stroke kernels clipdraw flagship times: K4 {flagship['fwd_ms']:.4f} ms, "
-          f"K4s {flagship['store_ms']:.4f} ms vs plain forward {flagship['fwd_plain_ms']:.4f} ms; "
-          f"K5 {flagship['bwd_ms']:.4f} ms vs plain backward {flagship['bwd_plain_ms']:.4f} ms", flush=True)
+    t = lambda k: f"{flagship[k + '_ms']:.4f} / {flagship[k + '_event_ms']:.4f}"
+    print(f"stroke kernels clipdraw flagship times (ms, summed kernel time / CUDA events of one call): "
+          f"K4 {t('fwd')}, K4s {t('store')} vs plain forward {t('fwd_plain')}; K5 {t('bwd')} vs plain "
+          f"backward {t('bwd_plain')}", flush=True)
+    b = flagship["bounds"]
+    print(f"stroke kernels clipdraw flagship bounds: (pixel, stroke) pairs kept by the bbox test "
+          f"{flagship['pairs_fwd']} forward, {flagship['pairs_bwd']} backward; K4 {b['fwd'][0]:.4f} ms "
+          f"({b['fwd'][1]}), K4s {b['store'][0]:.4f} ms ({b['store'][1]}), K5 {b['bwd'][0]:.4f} ms "
+          f"({b['bwd'][1]}); no single PyTorch call computes them", flush=True)
     return flagship, line, ragged
 
 
@@ -387,7 +688,7 @@ def _draws_to(draws, device, dtype):
         ps = []
         for p in d["perceptors"]:
             facs, planes = p["noise"]
-            ps.append(dict(p, noise=(facs.to(device, dtype), [z.to(device, dtype) for z in planes])))
+            ps.append(dict(p, noise=(facs.to(dtype), [z.to(device, dtype) for z in planes])))
         out.append(dict(d, perceptors=ps))
     return out
 
@@ -698,6 +999,7 @@ def main():
         print(f"build: {secs:.1f} s ({lib})", flush=True)
 
     flagship, small = phase_kernels()
+    bank = phase_bank_kernels()
     strokes = phase_stroke_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, "pixel")
@@ -721,25 +1023,31 @@ def main():
         phase_vqgan_default(tmp)
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
+    warp_src = "pixray_tpu_torch/csrc/warp.cu"
+    bf = bank[0]
     kernels = [
-        {"name": "warp_modes_fwd (K1)", "route": "cuda", "source": "pixray_tpu_torch/csrc/warp.cu",
-         "replaces": replaces.format(549), "launches": launches["warp_fwd"],
-         "max_abs_err": max(flagship["fwd_err"], small["fwd_err"]),
-         "ms": flagship["fwd_ms"], "plain_ms": flagship["fwd_plain_ms"]},
-        {"name": "warp_modes_bwd (K2)", "route": "cuda", "source": "pixray_tpu_torch/csrc/warp.cu",
-         "replaces": replaces.format(693), "launches": launches["warp_bwd"],
-         "max_abs_err": max(flagship["bwd_err"], small["bwd_err"]),
-         "ms": flagship["bwd_ms"], "plain_ms": flagship["bwd_plain_ms"]},
+        {"name": "bank_fwd (K1)", "route": "cuda", "source": warp_src, "replaces": replaces.format(549),
+         "launches": launches["warp_fwd"],
+         "max_abs_err": max([flagship["fwd_err"], small["fwd_err"]] + [r["fwd_err"] for r in bank]),
+         "ms": bf["fwd_ms"], "plain_ms": bf["fwd_plain_ms"], "bound_ms": bf["fwd_bound_ms"],
+         "bound_by": bf["fwd_bound_by"], "library_ms": bf["fwd_lib_ms"]},
+        {"name": "bank_bwd (K2)", "route": "cuda", "source": warp_src, "replaces": replaces.format(693),
+         "launches": launches["warp_bwd"],
+         "max_abs_err": max([flagship["bwd_err"], small["bwd_err"]] + [r["bwd_err"] for r in bank]),
+         "ms": bf["bwd_ms"], "plain_ms": bf["bwd_plain_ms"], "bound_ms": bf["bwd_bound_ms"],
+         "bound_by": bf["bwd_bound_by"], "library_ms": bf["bwd_lib_ms"]},
     ]
     stroke_src = "pixray_tpu_torch/csrc/strokes.cu"
     replaces = "pixray_tpu/ops/pallas_strokes.py:{}"
-    for name, line, counter, err, ms, plain in (
-            ("strokes_fwd (K4)", 116, "strokes_fwd", "fwd_err", "fwd_ms", "fwd_plain_ms"),
-            ("strokes_fwd_store (K4s)", 132, "strokes_fwd_store", "store_err", "store_ms", "fwd_plain_ms"),
-            ("strokes_bwd (K5)", 151, "strokes_bwd", "bwd_err", "bwd_ms", "bwd_plain_ms")):
+    sf = strokes[0]
+    for name, line, counter, err, ms, plain, bound in (
+            ("strokes_fwd (K4)", 116, "strokes_fwd", "fwd_err", "fwd_ms", "fwd_plain_ms", "fwd"),
+            ("strokes_fwd_store (K4s)", 132, "strokes_fwd_store", "store_err", "store_ms", "fwd_plain_ms", "store"),
+            ("strokes_bwd (K5)", 151, "strokes_bwd", "bwd_err", "bwd_ms", "bwd_plain_ms", "bwd")):
         kernels.append({"name": name, "route": "cuda", "source": stroke_src, "replaces": replaces.format(line),
                         "launches": stroke_launches[counter], "max_abs_err": max(r[err] for r in strokes),
-                        "ms": strokes[0][ms], "plain_ms": strokes[0][plain]})
+                        "ms": sf[ms], "plain_ms": sf[plain], "bound_ms": sf["bounds"][bound][0],
+                        "bound_by": sf["bounds"][bound][1], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

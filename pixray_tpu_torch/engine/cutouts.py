@@ -8,15 +8,17 @@ The path ported is the JAX package's default one:
 - 60% "zoom" cuts (random perspective ∘ random resized crop), padded by
   reflection or border on alternate iterations, and 40% "wide" cuts (random
   affine ∘ centre crop ∘ perspective) composited over a random gray;
-- a FIXED count of perspective cuts per branch (``persp_split``): the
-  perspective cuts go through the CUDA warp kernels in one launch, the
-  axis-aligned rest through two matmuls per cut;
-- a channel-major (N, 3, S, S) bank, then hue/saturation jitter and
-  additive noise per channel plane.
+- a FIXED count of perspective cuts per branch (``persp_split``), which
+  fixes the bank's row order (``bank_order``);
+- a channel-major (N, 3, S, S) bank with hue/saturation jitter and
+  additive noise per channel plane: on the card one K1 launch makes it
+  and one K2 launch takes its gradient (``ops/cuda_warp.py``), every cut
+  alike; on the CPU the plain composition.
 
-Random draws are explicit: the cut geometry and jitter parameters come from
-a CPU ``torch.Generator`` (they are tiny and the matrices are built on the
-host), the noise planes from a generator on the canvas's device.  Every
+Random draws are explicit: the cut geometry, jitter parameters and noise
+factors come from a CPU ``torch.Generator`` (they are tiny and travel to the
+card in one parameter buffer), the noise planes from a generator on the
+canvas's device.  Every
 function that draws also accepts the draws, so tests feed the JAX
 package's own draws.
 """
@@ -28,10 +30,10 @@ import math
 import torch
 
 from pixray_tpu_torch.ops import warp as W
-from pixray_tpu_torch.ops.color import draw_jitter_params, random_color_jitter_planes
-from pixray_tpu_torch.ops.cuda_warp import warp_batch_modes
+from pixray_tpu_torch.ops.color import draw_jitter_params
+from pixray_tpu_torch.ops.cuda_warp import cutout_bank, pack_params
 from pixray_tpu_torch.ops.pool import adaptive_avg_pool, adaptive_max_pool
-from pixray_tpu_torch.ops.warp_batch import warp_batch_separable
+from pixray_tpu_torch.ops.warp_batch import MODE_BORDER, MODE_FILL, MODE_REFLECT
 
 NOISE_FAC = 0.1
 ZOOM_FRACTION = 0.6
@@ -143,12 +145,24 @@ def cut_transforms(draws, cut_size: int, aspect: float):
     return zoom, wide
 
 
-def draw_noise(gen, n: int, cut_size: int, dtype, device):
-    """Per-cut noise factors (N, 1, 1) and three (N, S, S) gaussian planes."""
-    facs = (torch.rand((n, 1, 1), generator=gen, device=device) * NOISE_FAC).to(dtype)
-    planes = [torch.randn((n, cut_size, cut_size), generator=gen, device=device, dtype=dtype)
+def draw_noise(gen_host, gen_device, n: int, cut_size: int, dtype, device):
+    """Per-cut noise factors (N, 1, 1) on the host and three (N, S, S)
+    gaussian planes on ``device``, both in ``dtype``."""
+    facs = (torch.rand((n, 1, 1), generator=gen_host) * NOISE_FAC).to(dtype)
+    planes = [torch.randn((n, cut_size, cut_size), generator=gen_device, device=device, dtype=dtype)
               for _ in range(3)]
     return facs, planes
+
+
+def bank_order(n_zoom: int, n_wide: int):
+    """Row order of the bank as indices into cat([zoom, wide]): the
+    perspective zoom cuts, the perspective wide cuts, then the axis-aligned
+    zoom and wide cuts (the JAX bank's order, ``persp_split`` per branch)."""
+    n_zp, _ = persp_split(n_zoom)
+    n_wp, _ = persp_split(n_wide)
+    zoom = torch.arange(n_zoom)
+    wide = n_zoom + torch.arange(n_wide)
+    return torch.cat([zoom[:n_zp], wide[:n_wp], zoom[n_zp:], wide[n_wp:]])
 
 
 def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
@@ -158,44 +172,22 @@ def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
     transforms: (zoom, wide) matrices from ``cut_transforms``.
     reflect_padding: zoom cuts pad by reflection (True) or border (False).
     fill_color: the wide cuts' gray.
-    jitter: (hue_shift, sat_factor, apply) per cut, or None for no jitter.
-    noise: (facs (N, 1, 1), [3 planes (N, S, S)]) or None for no noise.
-    compute_dtype: dtype of the post-warp epilogue (None = float32)."""
+    jitter: (hue_shift, sat_factor, apply) per bank row, or None for no jitter.
+    noise: (facs (N, 1, 1), [3 planes (N, S, S)]) per bank row, or None.
+    compute_dtype: dtype of the bank and its epilogue (None = float32).
+
+    Every cut, perspective or axis-aligned, goes through one bank warp
+    (``cuda_warp.cutout_bank``): on the card K1/K2 with the epilogue inside,
+    on the CPU the plain composition."""
     zoom_ms, wide_ms = transforms
-    n_zp, n_zs = persp_split(zoom_ms.shape[0])
-    n_wp, n_ws = persp_split(wide_ms.shape[0])
-    zoom_mode = 0 if reflect_padding else 1
-
-    def bank_modes(nz, nw):
-        modes = torch.cat([torch.full((nz,), zoom_mode, dtype=torch.int32),
-                           torch.full((nw,), 2, dtype=torch.int32)])
-        fill_mask = torch.cat([torch.zeros(nz, dtype=torch.bool), torch.ones(nw, dtype=torch.bool)])
-        return modes, (fill_mask if nw else None)
-
-    parts = []
-    if n_zp or n_wp:
-        # dense bank: the perspective cuts, through the warp kernels
-        modes, fill_mask = bank_modes(n_zp, n_wp)
-        ms = torch.cat([zoom_ms[:n_zp], wide_ms[:n_wp]])
-        parts.append(warp_batch_modes(work, ms, modes, cut_size, fill_value=fill_color,
-                                      fill_mask=fill_mask))
-    if n_zs or n_ws:
-        # separable bank: the axis-aligned cuts, two matmuls each
-        modes, fill_mask = bank_modes(n_zs, n_ws)
-        ms = torch.cat([zoom_ms[n_zp:], wide_ms[n_wp:]])
-        parts.append(warp_batch_separable(work, ms, modes, cut_size, fill_value=fill_color,
-                                          fill_mask=fill_mask))
-    batch = torch.cat(parts) if len(parts) > 1 else parts[0]
-    if compute_dtype is not None:
-        batch = batch.to(compute_dtype)
-
-    r, g, b = batch[:, 0], batch[:, 1], batch[:, 2]
-    if jitter is not None:
-        r, g, b = random_color_jitter_planes(jitter, r, g, b)
-    if noise is not None:
-        facs, planes = noise
-        r, g, b = (p + facs * z for p, z in zip((r, g, b), planes))
-    return torch.stack([r, g, b], dim=1)
+    nz, nw = zoom_ms.shape[0], wide_ms.shape[0]
+    order = bank_order(nz, nw)
+    ms = torch.cat([zoom_ms, wide_ms])[order]
+    modes = torch.cat([torch.full((nz,), MODE_REFLECT if reflect_padding else MODE_BORDER),
+                       torch.full((nw,), MODE_FILL)])[order]
+    facs, planes = (None, None) if noise is None else noise
+    params = pack_params(W.inv3x3(ms.float()), modes, jitter, facs, pin=work.is_cuda)
+    return cutout_bank(work, params, fill_color, cut_size, planes, compute_dtype)
 
 
 def draw_step_cutouts(gen_host, gen_device, cutn: int, cut_size: int, aspect: float, dtype, device):
@@ -203,5 +195,5 @@ def draw_step_cutouts(gen_host, gen_device, cutn: int, cut_size: int, aspect: fl
     ``render_cutouts`` and ``cut_transforms`` take."""
     transforms = cut_transforms(draw_cut_params(gen_host, cutn, aspect), cut_size, aspect)
     jitter = draw_jitter_params(gen_host, cutn, hue=0.1, saturation=0.1, p=0.8)
-    noise = draw_noise(gen_device, cutn, cut_size, dtype, device)
+    noise = draw_noise(gen_host, gen_device, cutn, cut_size, dtype, device)
     return {"transforms": transforms, "jitter": jitter, "noise": noise}

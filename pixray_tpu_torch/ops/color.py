@@ -69,6 +69,105 @@ def jitter_planes(r, g, b, hue_shift, sat_factor):
     return ro.to(dtype), go.to(dtype), bo.to(dtype)
 
 
+def _split_max(a, b, g):
+    """Gradient of ``torch.maximum(a, b)`` to (a, b): halves at a tie."""
+    half = g / 2
+    return (torch.where(a == b, half, torch.where(a > b, g, 0.0)),
+            torch.where(a == b, half, torch.where(a < b, g, 0.0)))
+
+
+def _split_min(a, b, g):
+    """Gradient of ``torch.minimum(a, b)`` to (a, b): halves at a tie."""
+    return _split_max(b, a, g)
+
+
+def _jclip_adjoint(x, g):
+    """Gradient of ``_jclip(x, 0, 1)`` to x: half at x == 0 and at x == 1."""
+    y = torch.maximum(x, torch.zeros_like(x))
+    gy, _ = _split_min(y, torch.ones_like(y), g)
+    gx, _ = _split_max(x, torch.zeros_like(x), gy)
+    return gx
+
+
+def jitter_planes_adjoint(r, g, b, hue_shift, sat_factor, gr, gg, gb):
+    """The vector-Jacobian product of :func:`jitter_planes`, written out.
+
+    Takes the input planes (any float dtype), the per-cut parameters and the
+    f32 cotangents of the three outputs; returns the f32 cotangents of the
+    three inputs.  These are the formulas the cutout-bank backward kernel
+    (``csrc/warp.cu``) evaluates per pixel, with autograd's tie rules:
+    ``maximum``/``minimum`` (maxc, minc and ``_jclip``) halve the gradient
+    at a tie; the ``maxc == r`` / ``maxc == g`` selects route it to one
+    branch; the double-wheres give zero at gray and dark pixels; ``floor``
+    carries none and ``remainder`` passes it through.  The caller rounds the
+    result to the input dtype, where the ``.float()`` of the forward rounds."""
+    R, G, B = (_jclip(x.float(), 0.0, 1.0) for x in (r, g, b))
+    m1 = torch.maximum(R, G)
+    maxc = torch.maximum(m1, B)
+    n1 = torch.minimum(R, G)
+    minc = torch.minimum(n1, B)
+    v = maxc
+    delta = maxc - minc
+    gray = delta <= 1e-6
+    dark = maxc <= 1e-6
+    md = torch.where(dark, 1.0, maxc)
+    s_raw = delta / md
+    s = torch.where(dark, 0.0, s_raw)
+    sd = torch.where(gray, 1.0, delta)
+    rc, gc, bc = ((maxc - x) / sd for x in (R, G, B))
+    on_r = maxc == R
+    on_g = ~on_r & (maxc == G)
+    on_b = ~on_r & ~on_g
+    h = torch.where(on_r, bc - gc, torch.where(on_g, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.where(gray, 0.0, torch.remainder(h / 6.0, 1.0))
+    h = torch.remainder(h + hue_shift, 1.0)
+    x = s * sat_factor
+    s2 = _jclip(x, 0.0, 1.0)
+    h6 = h * 6.0
+    f = h6 - torch.floor(h6)
+    sector = torch.remainder(torch.floor(h6).to(torch.int32), 6)
+
+    def pick(*per_sector):
+        out = torch.zeros_like(gr)
+        for k, c in enumerate(per_sector):
+            if c is not None:
+                out = torch.where(sector == k, c, out)
+        return out
+
+    # the sector select: which output carries v, p, q and t
+    g_v = pick(gr, gg, gg, gb, gb, gr)
+    g_p = pick(gb, gb, gr, gr, gg, gg)
+    g_q = pick(None, gr, None, gg, None, gb)
+    g_t = pick(gg, None, gb, None, gr, None)
+    # p = v(1 - s2), q = v(1 - s2 f), t = v(1 - s2 (1 - f))
+    g_w = -(g_q * v)
+    g_u = -(g_t * v)
+    g_v = g_v + g_p * (1.0 - s2) + g_q * (1.0 - s2 * f) + g_t * (1.0 - s2 * (1.0 - f))
+    g_s2 = -(g_p * v) + g_w * f + g_u * (1.0 - f)
+    g_f = g_w * s2 - g_u * s2
+    # f = 6h - floor(6h); both remainders pass the gradient; gray → 0
+    g_h0 = torch.where(gray, 0.0, g_f * 6.0) / 6.0
+    g_rc = torch.where(on_g, g_h0, 0.0) - torch.where(on_b, g_h0, 0.0)
+    g_gc = torch.where(on_b, g_h0, 0.0) - torch.where(on_r, g_h0, 0.0)
+    g_bc = torch.where(on_r, g_h0, 0.0) - torch.where(on_g, g_h0, 0.0)
+    # rc = (maxc - R) / sd, likewise gc and bc
+    g_max = g_rc / sd + g_gc / sd + g_bc / sd
+    g_R, g_G, g_B = -(g_rc / sd), -(g_gc / sd), -(g_bc / sd)
+    g_sd = -g_rc * (rc / sd) - g_gc * (gc / sd) - g_bc * (bc / sd)
+    g_delta = torch.where(gray, 0.0, g_sd)
+    # s = delta / maxc away from dark pixels
+    g_s = torch.where(dark, 0.0, _jclip_adjoint(x, g_s2) * sat_factor)
+    g_delta = g_delta + g_s / md
+    g_max = g_max + torch.where(dark, 0.0, -g_s * (s_raw / md)) + g_delta + g_v
+    g_min = -g_delta
+    g_m1, g_b3 = _split_max(m1, B, g_max)
+    g_r1, g_g1 = _split_max(R, G, g_m1)
+    g_n1, g_b4 = _split_min(n1, B, g_min)
+    g_r2, g_g2 = _split_min(R, G, g_n1)
+    return tuple(_jclip_adjoint(xin.float(), d + d1 + d2)
+                 for xin, d, d1, d2 in ((r, g_R, g_r1, g_r2), (g, g_G, g_g1, g_g2), (b, g_B, g_b3, g_b4)))
+
+
 def draw_jitter_params(gen, n: int, hue=0.1, saturation=0.1, p=0.8):
     """Per-cut (hue_shift, sat_factor, apply) draws from a CPU generator."""
     u = torch.rand((3, n), generator=gen)

@@ -1,18 +1,30 @@
-"""CUDA cutout-bank warp: kernels K1 (forward) and K2 (adjoint) on Hopper.
+"""CUDA cutout bank: kernels K1 (forward) and K2 (adjoint) on Hopper.
 
-Replaces ``pixray_tpu/ops/pallas_warp.py``'s ``_fwd_kernel_multi_T`` and
-``_bwd_kernel_multi_TB`` (and, since they take a mode per cut and compute
-the full adjoint, the file's other kernel bodies).  The CUDA source is
+K1 warps every cut of a perceptor's bank from the work canvas and applies
+the epilogue (the compute-dtype rounding, the hue/saturation jitter and the
+noise) in one launch; K2 takes the bank's cotangent through the epilogue's
+adjoint and the warp's adjoint into the canvas gradient in one launch.
+They replace ``pixray_tpu/ops/pallas_warp.py``'s ``_fwd_kernel_multi_T``
+and ``_bwd_kernel_multi_TB`` (and, since they take a mode per cut and
+compute the full adjoint, the file's other kernel bodies), the separable
+matmul route of the axis-aligned cuts, and the epilogue XLA fused around
+them (``pixray_tpu/engine/cutouts.py:397-425``).  The CUDA source is
 ``csrc/warp.cu``; it says what bounds the kernels on the card and how.
 
-Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
-with a plain C interface under ``pixray_tpu_torch/_build/`` at first use
-(rebuilt when the source is newer), loaded with ``ctypes``.  Nothing is
-built or imported for CUDA when this module is imported.
+Build: ``ops/nvcc.py`` (nvcc for ``sm_90a`` into ``_build/`` at first use,
+loaded with ``ctypes``).  Nothing is built or imported for CUDA when this
+module is imported.
 
-Dispatch: :func:`warp_batch_modes` runs the kernels for CUDA tensors and
-the plain version (``ops/warp_batch.py``) only for CPU tensors.  There is no
-fallback: a CUDA tensor either launches the kernel or raises.
+Per-cut parameters travel in one (N, 16) float32 host buffer
+(:func:`pack_params`: inverse matrix, mode, hue shift, saturation factor,
+apply, noise factor), pinned and copied to the card once per bank.
+
+Dispatch: :func:`cutout_bank` and :func:`warp_modes` run the kernels for
+CUDA tensors and the plain version (:func:`cutout_bank_plain`, built on
+``ops/warp_batch.py`` and ``ops/color.py``) only for CPU tensors.  There is
+no fallback: a CUDA tensor either launches the kernel or raises.  With no
+jitter, no noise and float32 output the kernels are the bare warp
+(:func:`warp_modes`, :func:`warp_batch_modes`).
 
 ``LAUNCHES`` counts kernel launches (incremented only where a kernel is
 launched), so a run can show that its path went through the kernels.
@@ -25,12 +37,17 @@ import threading
 
 import torch
 
+from pixray_tpu_torch.ops.color import random_color_jitter_planes
 from pixray_tpu_torch.ops.nvcc import build_library, library_path, source_path
 from pixray_tpu_torch.ops.warp import inv3x3
 from pixray_tpu_torch.ops.warp_batch import modes_with_fill, warp_modes_plain
 
 SOURCE = source_path("warp.cu")
 LIBRARY = library_path("libpixray_warp.so")
+
+PARAM_STRIDE = 16  # floats per cut: inverse (9), mode, hue, saturation, apply, noise factor
+_MODE, _HUE, _SAT, _APPLY, _FAC = 9, 10, 11, 12, 13
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
 
@@ -54,12 +71,154 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.warp_modes_fwd.argtypes = [ptr, ptr, ptr, f32, ptr, i32, i32, i32, i32, i32, ptr]
-            lib.warp_modes_fwd.restype = i32
-            lib.warp_modes_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-            lib.warp_modes_bwd.restype = i32
+            lib.bank_fwd.argtypes = [ptr, ptr, f32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.bank_fwd.restype = i32
+            lib.bank_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.bank_bwd.restype = i32
+            lib.bank_param_stride.argtypes = []
+            lib.bank_param_stride.restype = i32
+            if lib.bank_param_stride() != PARAM_STRIDE:
+                raise RuntimeError(f"csrc/warp.cu packs {lib.bank_param_stride()} floats per cut, "
+                                   f"ops/cuda_warp.py {PARAM_STRIDE}")
             _lib = lib
         return _lib
+
+
+# ------------------------------------------------------------------ parameters
+def pack_params(inv, modes, jitter=None, facs=None, pin: bool = False):
+    """(N, PARAM_STRIDE) float32 host buffer of a bank's per-cut parameters.
+
+    inv: (N, 3, 3) inverse (dst→src) matrices; modes: (N,) 0-3; jitter:
+    (hue_shift, sat_factor, apply) per cut or None; facs: noise factors (N
+    values, already in the compute dtype) or None.  ``pin`` allocates it in
+    page-locked memory, so the copy to the card is one asynchronous DMA."""
+    n = inv.shape[0]
+    buf = torch.zeros((n, PARAM_STRIDE), dtype=torch.float32, pin_memory=pin)
+    buf[:, :9] = inv.detach().reshape(n, 9).float().cpu()
+    buf[:, _MODE] = modes.cpu().float()
+    if jitter is not None:
+        hs, sf, apply = jitter
+        buf[:, _HUE] = hs.cpu().float()
+        buf[:, _SAT] = sf.cpu().float()
+        buf[:, _APPLY] = apply.cpu().float()
+    if facs is not None:
+        buf[:, _FAC] = facs.detach().reshape(n).cpu().float()
+    return buf
+
+
+def unpack_params(params):
+    """The inverse of :func:`pack_params`: a dict of inv (N, 3, 3), modes
+    (N,) int32, hue, sat (N,) float32, apply (N,) bool and facs (N,) float32."""
+    return {
+        "inv": params[:, :9].reshape(-1, 3, 3),
+        "modes": params[:, _MODE].to(torch.int32),
+        "hue": params[:, _HUE],
+        "sat": params[:, _SAT],
+        "apply": params[:, _APPLY] != 0,
+        "facs": params[:, _FAC],
+    }
+
+
+def _device_params(inv, modes):
+    """A warp-only parameter buffer made on the card from (N, 3, 3) and (N,) there."""
+    n = inv.shape[0]
+    return torch.cat([inv.reshape(n, 9), modes.to(torch.float32)[:, None],
+                      inv.new_zeros((n, PARAM_STRIDE - 10))], dim=1).contiguous()
+
+
+# ------------------------------------------------------------------ plain version
+def bank_epilogue_plain(batch, params, planes=None):
+    """The epilogue of a (N, 3, S, S) bank, in the bank's dtype: the jitter
+    of the cuts whose ``apply`` is set, then ``p + fac * z`` per plane."""
+    p = unpack_params(params)
+    r, g, b = batch.unbind(1)
+    if bool(p["apply"].any()):
+        r, g, b = random_color_jitter_planes((p["hue"], p["sat"], p["apply"]), r, g, b)
+    if planes is not None:
+        facs = p["facs"].to(batch.device, r.dtype)[:, None, None]
+        r, g, b = (x + facs * z for x, z in zip((r, g, b), planes))
+    return torch.stack([r, g, b], dim=1)
+
+
+def cutout_bank_plain(work, params, fill: float, out_size: int, planes=None, compute_dtype=None):
+    """The bank as a composition of plain ops: every cut through the gather
+    (``warp_modes_plain``), the cast to ``compute_dtype``, then
+    :func:`bank_epilogue_plain`."""
+    p = unpack_params(params)
+    batch = warp_modes_plain(work, p["inv"].to(work.device), p["modes"].to(work.device), float(fill), out_size)
+    if compute_dtype is not None:
+        batch = batch.to(compute_dtype)
+    return bank_epilogue_plain(batch, params, planes)
+
+
+# ------------------------------------------------------------------ launchers
+def _raise_on(code: int, what: str):
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: CUDA error {code}")
+
+
+def _check(name, t, dev, dtype, shape):
+    if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {dtype} {tuple(shape)} tensor on {dev}; "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def launch_bank_fwd(work, params, fill: float, out_size: int, planes=None, out_dtype=torch.float32,
+                    save_pre: bool = False):
+    """K1: (H, W, 3) f32 canvas and (N, PARAM_STRIDE) parameters on the card →
+    ((N, 3, S, S) bank in ``out_dtype``, the rounded pre-jitter bank or None)."""
+    dev = work.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"unsupported bank dtype {out_dtype}")
+    if work.dim() != 3 or work.shape[2] != 3:
+        raise ValueError(f"work must be (H, W, 3); got {tuple(work.shape)}")
+    h, w, _ = work.shape
+    _check("work", work, dev, torch.float32, work.shape)
+    n = params.shape[0]
+    _check("params", params, dev, torch.float32, (n, PARAM_STRIDE))
+    zs = [None] * 3
+    if planes is not None:
+        for k, z in enumerate(planes):
+            _check(f"noise plane {k}", z, dev, out_dtype, (n, out_size, out_size))
+        zs = list(planes)
+    out = torch.empty((n, 3, out_size, out_size), dtype=out_dtype, device=dev)
+    pre = torch.empty_like(out) if save_pre else None
+    if n == 0:
+        return out, pre
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _library().bank_fwd(work.data_ptr(), params.data_ptr(), float(fill), *map(ptr, zs),
+                               out.data_ptr(), ptr(pre), _DTYPES[out_dtype], n, h, w, out_size, stream)
+    _raise_on(code, "bank_fwd")
+    LAUNCHES["warp_fwd"] += 1
+    return out, pre
+
+
+def launch_bank_bwd(g, pre, params, work_shape, out_size: int):
+    """K2: (N, 3, S, S) cotangent (the bank's dtype), the saved pre-jitter
+    bank (None when no cut is jittered) and the parameters → (H, W, 3) f32."""
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
+    if g.dtype not in _DTYPES:
+        raise ValueError(f"unsupported bank dtype {g.dtype}")
+    h, w, c = work_shape
+    n = params.shape[0]
+    _check("params", params, dev, torch.float32, (n, PARAM_STRIDE))
+    _check("g", g, dev, g.dtype, (n, c, out_size, out_size))
+    if pre is not None:
+        _check("pre", pre, dev, g.dtype, g.shape)
+    dwork = torch.zeros((h, w, c), dtype=torch.float32, device=dev)
+    if n == 0:
+        return dwork
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = _library().bank_bwd(g.data_ptr(), None if pre is None else pre.data_ptr(), params.data_ptr(),
+                               dwork.data_ptr(), _DTYPES[g.dtype], n, h, w, out_size, stream)
+    _raise_on(code, "bank_bwd")
+    LAUNCHES["warp_bwd"] += 1
+    return dwork
 
 
 def _check_inputs(work_like, inv, modes):
@@ -74,72 +233,65 @@ def _check_inputs(work_like, inv, modes):
         raise ValueError(f"inv must be (N, 3, 3) and modes (N,): {tuple(inv.shape)}, {tuple(modes.shape)}")
 
 
-def _raise_on(code: int, what: str):
-    if code != 0:
-        raise RuntimeError(f"{what} launch failed: CUDA error {code}")
-
-
 def launch_fwd(work, inv, modes, fill: float, out_size: int):
-    """K1: (H, W, C) f32 canvas → (N, C, S, S) f32 bank."""
+    """K1 as the bare warp: (H, W, 3) f32 canvas → (N, 3, S, S) f32 bank."""
     _check_inputs(work, inv, modes)
-    if work.dtype != torch.float32 or work.dim() != 3 or not work.is_contiguous():
-        raise ValueError(f"work must be a contiguous (H, W, C) float32 tensor; got "
-                         f"{work.dtype} {tuple(work.shape)}")
-    h, w, c = work.shape
-    n = inv.shape[0]
-    out = torch.empty((n, c, out_size, out_size), dtype=torch.float32, device=work.device)
-    if n == 0:
-        return out
-    stream = torch.cuda.current_stream(work.device).cuda_stream
-    code = _library().warp_modes_fwd(work.data_ptr(), inv.data_ptr(), modes.data_ptr(),
-                                     float(fill), out.data_ptr(), n, h, w, c, out_size, stream)
-    _raise_on(code, "warp_modes_fwd")
-    LAUNCHES["warp_fwd"] += 1
-    return out
+    return launch_bank_fwd(work, _device_params(inv, modes), fill, out_size)[0]
 
 
 def launch_bwd(g, inv, modes, work_shape, out_size: int):
-    """K2: (N, C, S, S) f32 cotangent → (H, W, C) f32 canvas gradient."""
+    """K2 as the bare warp's adjoint: (N, 3, S, S) f32 cotangent → (H, W, 3) f32."""
     _check_inputs(g, inv, modes)
-    h, w, c = work_shape
-    n = inv.shape[0]
-    if g.dtype != torch.float32 or g.shape != (n, c, out_size, out_size) or not g.is_contiguous():
-        raise ValueError(f"g must be a contiguous float32 {(n, c, out_size, out_size)} tensor; "
-                         f"got {g.dtype} {tuple(g.shape)}")
-    dwork = torch.zeros((h, w, c), dtype=torch.float32, device=g.device)
-    if n == 0:
-        return dwork
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    code = _library().warp_modes_bwd(g.data_ptr(), inv.data_ptr(), modes.data_ptr(),
-                                     dwork.data_ptr(), n, h, w, c, out_size, stream)
-    _raise_on(code, "warp_modes_bwd")
-    LAUNCHES["warp_bwd"] += 1
-    return dwork
+    return launch_bank_bwd(g, None, _device_params(inv, modes), work_shape, out_size)
 
 
-class WarpModesFunction(torch.autograd.Function):
+class CutoutBankFunction(torch.autograd.Function):
     """K1 forward, K2 backward.  The gradient flows to ``work`` only."""
 
     @staticmethod
-    def forward(ctx, work, inv, modes, fill, out_size):
-        ctx.save_for_backward(inv, modes)
+    def forward(ctx, work, params, fill, out_size, out_dtype, jittered, z0, z1, z2):
+        planes = None if z0 is None else (z0, z1, z2)
+        out, pre = launch_bank_fwd(work, params, fill, out_size, planes, out_dtype, save_pre=jittered)
+        ctx.save_for_backward(params, pre)
         ctx.work_shape = tuple(work.shape)
         ctx.out_size = out_size
-        return launch_fwd(work, inv, modes, fill, out_size)
+        ctx.out_dtype = out_dtype
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        inv, modes = ctx.saved_tensors
-        dwork = launch_bwd(g.float().contiguous(), inv, modes, ctx.work_shape, ctx.out_size)
-        return dwork, None, None, None, None
+        params, pre = ctx.saved_tensors
+        g = g.to(ctx.out_dtype).contiguous()
+        dwork = launch_bank_bwd(g, pre, params, ctx.work_shape, ctx.out_size)
+        return dwork, None, None, None, None, None, None, None, None
+
+
+def cutout_bank(work, params, fill: float, out_size: int, planes=None, compute_dtype=None):
+    """(H, W, 3) canvas, per-cut parameters from :func:`pack_params` (host)
+    and optional noise planes (three (N, S, S) in the compute dtype) →
+    (N, 3, S, S) bank in ``compute_dtype`` (None = float32).
+
+    CUDA tensors go through K1/K2; CPU tensors through the plain version."""
+    if work.device.type == "cuda":
+        out_dtype = compute_dtype or torch.float32
+        jittered = bool(params[:, _APPLY].any())
+        params_dev = params.to(work.device, non_blocking=True)
+        zs = (None, None, None) if planes is None else tuple(z.contiguous() for z in planes)
+        return CutoutBankFunction.apply(work.contiguous(), params_dev, float(fill), out_size, out_dtype,
+                                        jittered, *zs)
+    if work.device.type == "cpu":
+        return cutout_bank_plain(work, params, fill, out_size, planes, compute_dtype)
+    raise ValueError(f"unsupported device for the cutout bank: {work.device}")
 
 
 def warp_modes(work, inv, modes, fill: float, out_size: int):
-    """(H, W, C) canvas, (N, 3, 3) inverse matrices, (N,) int32 modes → (N, C, S, S).
+    """(H, W, 3) canvas, (N, 3, 3) inverse matrices, (N,) int32 modes → (N, 3, S, S) f32.
 
     CUDA tensors go through the kernels; CPU tensors through the plain version."""
     if work.device.type == "cuda":
-        return WarpModesFunction.apply(work.contiguous(), inv, modes, float(fill), out_size)
+        _check_inputs(work, inv, modes)
+        return CutoutBankFunction.apply(work.contiguous(), _device_params(inv, modes), float(fill), out_size,
+                                        torch.float32, False, None, None, None)
     if work.device.type == "cpu":
         return warp_modes_plain(work, inv, modes, float(fill), out_size)
     raise ValueError(f"unsupported device for the cutout warp: {work.device}")
