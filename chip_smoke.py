@@ -15,9 +15,10 @@ Phases, each fatal on failure (exit code 1, no result line):
    20x28 canvas), with median times;
 3b. bank kernels (K1, K2 with the bf16 rounding, jitter and noise inside)
    vs the plain composition on the card: the flagship 64-cut bank and a
-   ragged tie-rich bank whose K2 blocks take both accumulation branches;
-   the pre-jitter bank bitwise, the bank within one bf16 ulp, the canvas
-   gradient within BWD_RTOL; kernel, plain, grid_sample times and bounds;
+   ragged tie-rich bank whose K2 blocks take both accumulation branches
+   (counted by K2 itself); the pre-jitter bank of the jittered cuts
+   bitwise, the bank within one bf16 ulp, the canvas gradient within
+   BWD_RTOL; kernel, plain, grid_sample times and bounds;
 4. stroke kernels (K4, K4s, K5) vs the plain stroke renderer on the card,
    forward, chunk prefixes and all four gradients: clipdraw's own init
    (1024 strokes, P=25, 384x216, white), line_sketch (24 strokes, P=65,
@@ -94,8 +95,11 @@ ADJOINT_ULP = 2.0 ** -7  # one bf16 ulp
 ADJOINT_CANCEL = 4e-5  # where its terms cancel far below the pixel's cotangent (1.9e-5 on the CPU)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (HBM3 peak)
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
-BANK_FWD_FLOPS_PER_PIXEL = 100  # coordinates and taps ~25, 3-channel bilinear 24, HSV round trip ~45, noise 6
-BANK_BWD_FLOPS_PER_PIXEL = 160  # taps ~25, HSV state ~35, its adjoint ~75, the 12 tap products 24
+# f32 operations per output pixel of K1/K2: every cut's warp (and noise), and the jittered cuts' jitter
+WARP_FWD_FLOPS_PER_PIXEL = 55  # coordinates and taps ~25, 3-channel bilinear 24, noise 6
+JITTER_FWD_FLOPS_PER_PIXEL = 45  # HSV round trip
+WARP_BWD_FLOPS_PER_PIXEL = 49  # taps ~25, the 12 tap products 24
+JITTER_BWD_FLOPS_PER_PIXEL = 110  # HSV state ~35, its adjoint ~75
 STROKE_FLOPS_PER_SEGMENT = 18  # per kept (pixel, stroke) pair: projection, clamp, distance, min
 STROKE_FLOPS_PER_PAIR = 18  # sqrt, coverage, the 4-channel over
 AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTest
@@ -269,46 +273,10 @@ def bf16_ulps(a, b):
     return (key(a) - key(b)).abs()
 
 
-def footprint_blocks(inv, modes, h, w, s, tile=16, budget=2048):
-    """(blocks that sum in shared memory, blocks that add to device memory)
-    of K2: the canvas footprint of each cut x tile block's valid taps after
-    each mode's remap, against the kernel's 8 KB (2048-float) budget."""
-    import torch
-
-    from pixray_tpu_torch.ops.warp_batch import reflect_coord, source_coords
-
-    sx, sy = source_coords(inv, s)
-    m = modes[:, None, None]
-    big = 1 << 30
-
-    def extent(c, size):
-        t = torch.where(m == 0, reflect_coord(c, size), torch.where(m == 1, c.clamp(0.0, size - 1.0), c))
-        c0 = torch.floor(t).clamp(-2, size + 1).nan_to_num(-2).long()
-        ok0, ok1 = (c0 >= 0) & (c0 < size), (c0 + 1 >= 0) & (c0 + 1 < size)
-        lo = torch.where(ok0, c0, torch.where(ok1, c0 + 1, big))
-        hi = torch.where(ok1, c0 + 1, torch.where(ok0, c0, -big))
-        return lo, hi
-
-    xlo, xhi = extent(sx, w)
-    ylo, yhi = extent(sy, h)
-    valid = (xlo < big) & (ylo < big)
-    n, pad = inv.shape[0], (-s) % tile
-    tiles = (s + pad) // tile
-
-    def per_block(v, fill, reduce):
-        v = torch.nn.functional.pad(torch.where(valid, v, fill), (0, pad, 0, pad), value=fill)
-        return reduce(v.reshape(n, tiles, tile, tiles, tile), dim=(2, 4))
-
-    x0, x1 = per_block(xlo, big, torch.amin), per_block(xhi, -big, torch.amax)
-    y0, y1 = per_block(ylo, big, torch.amin), per_block(yhi, -big, torch.amax)
-    touched = x1 >= x0
-    local = touched & ((x1 - x0 + 1) * (y1 - y0 + 1) * 3 <= budget)
-    return int(local.sum()), int((touched & ~local).sum())
-
-
 def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_it):
     """The bank's K1/K2 (bf16, jitter, noise) vs the plain version on the
-    card: the pre-jitter bank bitwise; the bank within BANK_ULPS of the
+    card: the pre-jitter bank (the jittered cuts' rows, the only ones K1
+    writes) bitwise; the bank within BANK_ULPS of the
     plain composition; the canvas gradient within BWD_RTOL of max|dwork| of
     the plain one made with K2's formulas (the explicit jitter adjoint,
     itself within a bf16 ulp of autograd per cotangent, see ADJOINT_ULP)."""
@@ -335,7 +303,8 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
     ulps = bf16_ulps(out_k, out_p)
     g = torch.randn((n, 3, out_size, out_size), device=dev, generator=torch.Generator(device=dev).manual_seed(9))
     g = g.to(bf16)
-    dwork_k = cuda_warp.launch_bank_bwd(g, pre_k, params_dev, tuple(work.shape), out_size)
+    branches = torch.zeros(2, dtype=torch.int32, device=dev)
+    dwork_k = cuda_warp.launch_bank_bwd(g, pre_k, params_dev, tuple(work.shape), out_size, branches)
     # the plain references: autograd through the whole composition, and the
     # explicit jitter adjoint (K2's formulas) rounded to bf16, then autograd
     # through the plain warp
@@ -355,9 +324,11 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
     adj_diff = (d_exp.float() - d_auto.float()).abs()
     adj_tol = ADJOINT_ULP * d_auto.float().abs() + ADJOINT_CANCEL * g.float().abs().amax(1, keepdim=True)
     scale = max(float(dwork_e.abs().max()), 1e-6)
-    local, direct = footprint_blocks(inv.to(dev), modes.to(dev), h, w, out_size)
+    local, direct = branches.tolist()
+    applied = jitter[2].to(dev)
+    jittered = int(jitter[2].sum())
     res = {"name": name, "n": n, "s": out_size, "canvas": [h, w],
-           "jittered": int(jitter[2].sum()), "pre_bitwise": torch.equal(pre_k, pre_p),
+           "jittered": jittered, "pre_bitwise": torch.equal(pre_k[applied], pre_p[applied]),
            "ulp_diffs": int((ulps > 0).sum()), "max_ulps": int(ulps.max()), "elements": ulps.numel(),
            "adjoint_diffs": int((adj_diff > 0).sum()), "adjoint_excess": float((adj_diff / adj_tol).max()),
            "fwd_err": float((out_k.float() - out_p.float()).abs().max()),
@@ -365,7 +336,7 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
            "bwd_tol": BWD_RTOL * scale, "bwd_err_autograd": float((dwork_k - dwork_p).abs().max()),
            "blocks_local": local, "blocks_direct": direct}
     if not res["pre_bitwise"]:
-        bad = int((pre_k != pre_p).sum())
+        bad = int((pre_k[applied] != pre_p[applied]).sum())
         fail(f"K1's pre-jitter bank differs from the plain one in {bad} elements on {name}: {res}")
     if not res["max_ulps"] <= BANK_ULPS:
         fail(f"K1's bank differs from the plain composition by {res['max_ulps']} ulps on {name}: {res}")
@@ -374,10 +345,13 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
     if not res["bwd_err"] <= res["bwd_tol"]:
         fail(f"K2 disagrees with the plain gradient on {name}: {res}")
     if time_it:
-        f_bytes = h * w * 3 * 4 + params.numel() * 4 + 3 * n * out_size ** 2 * 2 * 3
-        b_bytes = 2 * n * 3 * out_size ** 2 * 2 + params.numel() * 4 + h * w * 3 * 4
-        f_ops = BANK_FWD_FLOPS_PER_PIXEL * n * out_size ** 2
-        b_ops = BANK_BWD_FLOPS_PER_PIXEL * n * out_size ** 2
+        # bf16 planes: the noise and the bank of every cut, the pre-jitter
+        # bank of the jittered cuts only (K1 writes, K2 reads no other)
+        plane, canvas, rows = out_size ** 2 * 2, h * w * 3 * 4, params.numel() * 4
+        f_bytes = canvas + rows + 3 * n * plane * 2 + 3 * jittered * plane
+        b_bytes = 3 * n * plane + 3 * jittered * plane + rows + canvas
+        f_ops = (WARP_FWD_FLOPS_PER_PIXEL * n + JITTER_FWD_FLOPS_PER_PIXEL * jittered) * out_size ** 2
+        b_ops = (WARP_BWD_FLOPS_PER_PIXEL * n + JITTER_BWD_FLOPS_PER_PIXEL * jittered) * out_size ** 2
 
         def plain_fwd():
             with torch.no_grad():
@@ -484,19 +458,21 @@ def phase_bank_kernels():
         fail(f"the ragged bank does not run both of K2's branches: {ragged}")
     for r in (flagship, ragged):
         print(f"bank kernels {r['name']} (N={r['n']}, S={r['s']}, {r['canvas'][0]}x{r['canvas'][1]}x3, bf16, "
-              f"{r['jittered']} cuts jittered, noise): pre-jitter bank bitwise {r['pre_bitwise']}; bank elements "
-              f"one bf16 ulp off the plain composition {r['ulp_diffs']} of {r['elements']} (max {r['max_ulps']} "
-              f"ulps, tol {BANK_ULPS}); explicit jitter adjoint vs autograd: {r['adjoint_diffs']} bf16 cotangents apart, "
-              f"at most {r['adjoint_excess']:.3g} of the tolerance (one ulp + {ADJOINT_CANCEL} max|g|); K2 max_abs_err {r['bwd_err']:.3g} "
-              f"against max|dwork| {r['bwd_scale']:.3g} (tol {r['bwd_tol']:.3g}), against autograd's "
-              f"{r['bwd_err_autograd']:.3g}; K2 blocks summing in shared memory {r['blocks_local']}, adding to "
-              f"device memory {r['blocks_direct']}", flush=True)
+              f"{r['jittered']} cuts jittered, noise): pre-jitter bank of the jittered cuts bitwise "
+              f"{r['pre_bitwise']}; bank elements one bf16 ulp off the plain composition {r['ulp_diffs']} of "
+              f"{r['elements']} (max {r['max_ulps']} ulps, tol {BANK_ULPS}); explicit jitter adjoint vs autograd: "
+              f"{r['adjoint_diffs']} bf16 cotangents apart, at most {r['adjoint_excess']:.3g} of the tolerance "
+              f"(one ulp + {ADJOINT_CANCEL} max|g|); K2 max_abs_err {r['bwd_err']:.3g} against max|dwork| "
+              f"{r['bwd_scale']:.3g} (tol {r['bwd_tol']:.3g}), against autograd's {r['bwd_err_autograd']:.3g}; "
+              f"K2 blocks summing in shared memory {r['blocks_local']}, adding to device memory "
+              f"{r['blocks_direct']}", flush=True)
     f = flagship
     t = lambda k: f"{f[k + '_ms']:.4f} / {f[k + '_event_ms']:.4f}"
     print(f"bank kernels flagship times (ms, summed kernel time / CUDA events of one call): K1 {t('fwd')} "
-          f"(bound {f['fwd_bound_ms']:.4f}, {f['fwd_bound_by']}) vs plain composition {t('fwd_plain')} vs "
-          f"grid_sample {t('fwd_lib')}; K2 {t('bwd')} (bound {f['bwd_bound_ms']:.4f}, {f['bwd_bound_by']}) vs "
-          f"plain backward {t('bwd_plain')} vs grid_sample input gradient {t('bwd_lib')}", flush=True)
+          f"(bound {f['fwd_bound_ms']:.4f}, {f['fwd_bound_by']}, {f['fwd_bytes'] / 1e6:.2f} MB) vs plain "
+          f"composition {t('fwd_plain')} vs grid_sample {t('fwd_lib')}; K2 {t('bwd')} (bound "
+          f"{f['bwd_bound_ms']:.4f}, {f['bwd_bound_by']}, {f['bwd_bytes'] / 1e6:.2f} MB) vs plain backward "
+          f"{t('bwd_plain')} vs grid_sample input gradient {t('bwd_lib')}", flush=True)
     return flagship, ragged
 
 

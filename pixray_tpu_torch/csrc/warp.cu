@@ -20,9 +20,9 @@
 // 4-tap gather (~40 flops per pixel) and the jitter ~60 more.  At the
 // flagship (224x224x3 f32 canvas, 64 cuts of 224x224, bf16) the forward
 // reads the 0.6 MB canvas (L2-resident) and 19.3 MB of noise planes and
-// writes the 19.3 MB bank plus the 19.3 MB pre-jitter bank the backward
-// needs; the backward reads the 19.3 MB cotangent and the saved bank and
-// writes the 0.6 MB gradient.  What the design does about it: every
+// writes the 19.3 MB bank plus the pre-jitter bank of the jittered cuts
+// (14.2 MB at 47 of 64), which the backward needs; the backward reads the
+// 19.3 MB cotangent and that saved bank and writes the 0.6 MB gradient.  What the design does about it: every
 // intermediate of the epilogue (the f32 bank, its bf16 copy, the HSV
 // planes, the jittered planes, the noise product) stays in registers, and
 // each thread moves 8 bytes per load and store (4 bf16 pixels; 16 bytes
@@ -55,7 +55,7 @@
 //
 // Per-cut parameters come in one f32 row of kParamStride per cut:
 // inverse matrix (9), mode, hue shift, saturation factor, apply, noise
-// factor.  Modes: 0 reflection (with the -1e-6 of the reference), 1 border
+// factor, at the offsets bank_layout() exports.  Modes: 0 reflection (with the -1e-6 of the reference), 1 border
 // clamp, 2 zeros, 3 zeros composited over `fill` by the closed-form coverage
 // at the raw coordinates.  All pointers are device pointers; nothing is
 // allocated here.
@@ -69,6 +69,7 @@
 namespace {
 
 constexpr int kParamStride = 16;
+constexpr int kMode = 9, kHue = 10, kSat = 11, kApply = 12, kFac = 13;  // after the 9 of the matrix
 constexpr int kThreads = 256;
 constexpr int kTile = 16;            // backward output tile, kTile x kTile = kThreads pixels
 constexpr int kSmemFloats = 2048;    // backward footprint budget: 8 KB, a 26 x 26 canvas patch
@@ -89,11 +90,11 @@ __device__ __forceinline__ Cut load_cut(const float* __restrict__ params, int n)
   Cut c;
 #pragma unroll
   for (int k = 0; k < 9; ++k) c.m[k] = __ldg(p + k);
-  c.mode = (int)__ldg(p + 9);
-  c.hue = __ldg(p + 10);
-  c.sat = __ldg(p + 11);
-  c.apply = __ldg(p + 12) != 0.f;
-  c.fac = __ldg(p + 13);
+  c.mode = (int)__ldg(p + kMode);
+  c.hue = __ldg(p + kHue);
+  c.sat = __ldg(p + kSat);
+  c.apply = __ldg(p + kApply) != 0.f;
+  c.fac = __ldg(p + kFac);
   return c;
 }
 
@@ -337,7 +338,8 @@ __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[Ve
 
 // work (H, W, 3) f32; params (N, kParamStride) f32; z0..z2 (N, S, S) noise
 // planes or null; out (N, 3, S, S); pre (N, 3, S, S) the rounded pre-jitter
-// bank, or null.  Each thread makes kN consecutive pixels of one cut.
+// bank, written for the jittered cuts only (the backward reads no other),
+// or null.  Each thread makes kN consecutive pixels of one cut.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params, float fill,
@@ -394,7 +396,7 @@ bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params
 #pragma unroll
   for (int ci = 0; ci < 3; ++ci) {
     store_vec(out + base + (long)ci * k, o[ci], vec, count);
-    if (pre != nullptr) store_vec(pre + base + (long)ci * k, p[ci], vec, count);
+    if (pre != nullptr && c.apply) store_vec(pre + base + (long)ci * k, p[ci], vec, count);
   }
 }
 
@@ -411,13 +413,15 @@ __device__ __forceinline__ int warp_max(int v) {
 }
 
 // g (N, 3, S, S) cotangent; pre (N, 3, S, S) saved pre-jitter bank (read
-// only for jittered cuts); dwork (H, W, 3) f32, zeroed by the caller.  One
-// block: one cut x one kTile x kTile output tile, one pixel per thread.
+// only for jittered cuts); dwork (H, W, 3) f32, zeroed by the caller;
+// branches (2,) int or null: blocks that summed in shared memory, blocks that
+// added to device memory, counted when given (a check, not the main path).
+// One block: one cut x one kTile x kTile output tile, one pixel per thread.
 // Eight blocks per SM (32 registers a thread) hide the atomics' latency best.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 8)
 bank_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
-                float* __restrict__ dwork, int h, int w, int s) {
+                float* __restrict__ dwork, int* __restrict__ branches, int h, int w, int s) {
   extern __shared__ float acc[];
   __shared__ int red[4][kThreads / 32];
   const int tiles_x = (s + kTile - 1) / kTile;
@@ -480,6 +484,7 @@ bank_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float*
   if (xmax < xmin) return;  // no tap of this tile lies on the canvas (uniform over the block)
   const int fw = xmax - xmin + 1, fh = ymax - ymin + 1;
   const bool local = (long)fw * fh * 3 <= kSmemFloats;
+  if (branches != nullptr && threadIdx.x == 0) atomicAdd(branches + (local ? 0 : 1), 1);
   if (local) {
     for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) acc[q] = 0.f;
     __syncthreads();
@@ -533,12 +538,12 @@ int launch_fwd(const float* work, const float* params, float fill, const void* z
 }
 
 template <typename T>
-int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, int n, int h, int w,
-               int s, cudaStream_t stream) {
+int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, int* branches, int n, int h,
+               int w, int s, cudaStream_t stream) {
   const int smem = kSmemFloats * (int)sizeof(float);
   const int tiles = ((s + kTile - 1) / kTile) * ((s + kTile - 1) / kTile);
   dim3 grid(tiles, n);
-  bank_bwd_kernel<T><<<grid, kThreads, smem, stream>>>((const T*)g, (const T*)pre, params, dwork, h, w, s);
+  bank_bwd_kernel<T><<<grid, kThreads, smem, stream>>>((const T*)g, (const T*)pre, params, dwork, branches, h, w, s);
   return (int)cudaGetLastError();
 }
 
@@ -553,10 +558,14 @@ extern "C" int bank_fwd(const float* work, const float* params, float fill, cons
   return launch_fwd<float>(work, params, fill, z0, z1, z2, out, pre, n, h, w, s, (cudaStream_t)stream);
 }
 
-extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, int dtype,
-                        int n, int h, int w, int s, void* stream) {
-  if (dtype == 1) return launch_bwd<bf16>(g, pre, params, dwork, n, h, w, s, (cudaStream_t)stream);
-  return launch_bwd<float>(g, pre, params, dwork, n, h, w, s, (cudaStream_t)stream);
+extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, int* branches,
+                        int dtype, int n, int h, int w, int s, void* stream) {
+  if (dtype == 1) return launch_bwd<bf16>(g, pre, params, dwork, branches, n, h, w, s, (cudaStream_t)stream);
+  return launch_bwd<float>(g, pre, params, dwork, branches, n, h, w, s, (cudaStream_t)stream);
 }
 
-extern "C" int bank_param_stride() { return kParamStride; }
+// the per-cut row's layout: stride, then the offsets of mode, hue, saturation, apply, noise factor
+extern "C" void bank_layout(int* out) {
+  const int layout[6] = {kParamStride, kMode, kHue, kSat, kApply, kFac};
+  for (int k = 0; k < 6; ++k) out[k] = layout[k];
+}

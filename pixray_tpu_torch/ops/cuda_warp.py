@@ -47,6 +47,7 @@ LIBRARY = library_path("libpixray_warp.so")
 
 PARAM_STRIDE = 16  # floats per cut: inverse (9), mode, hue, saturation, apply, noise factor
 _MODE, _HUE, _SAT, _APPLY, _FAC = 9, 10, 11, 12, 13
+_LAYOUT = (PARAM_STRIDE, _MODE, _HUE, _SAT, _APPLY, _FAC)  # as csrc/warp.cu's bank_layout() reports it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
@@ -73,13 +74,15 @@ def _library():
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.bank_fwd.argtypes = [ptr, ptr, f32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
             lib.bank_fwd.restype = i32
-            lib.bank_bwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.bank_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
             lib.bank_bwd.restype = i32
-            lib.bank_param_stride.argtypes = []
-            lib.bank_param_stride.restype = i32
-            if lib.bank_param_stride() != PARAM_STRIDE:
-                raise RuntimeError(f"csrc/warp.cu packs {lib.bank_param_stride()} floats per cut, "
-                                   f"ops/cuda_warp.py {PARAM_STRIDE}")
+            lib.bank_layout.argtypes = [ptr]
+            lib.bank_layout.restype = None
+            layout = (ctypes.c_int * len(_LAYOUT))()
+            lib.bank_layout(layout)
+            if tuple(layout) != _LAYOUT:
+                raise RuntimeError(f"csrc/warp.cu lays out a cut's parameters as {tuple(layout)} "
+                                   f"(stride, mode, hue, sat, apply, fac), ops/cuda_warp.py as {_LAYOUT}")
             _lib = lib
         return _lib
 
@@ -117,13 +120,6 @@ def unpack_params(params):
         "apply": params[:, _APPLY] != 0,
         "facs": params[:, _FAC],
     }
-
-
-def _device_params(inv, modes):
-    """A warp-only parameter buffer made on the card from (N, 3, 3) and (N,) there."""
-    n = inv.shape[0]
-    return torch.cat([inv.reshape(n, 9), modes.to(torch.float32)[:, None],
-                      inv.new_zeros((n, PARAM_STRIDE - 10))], dim=1).contiguous()
 
 
 # ------------------------------------------------------------------ plain version
@@ -166,7 +162,9 @@ def _check(name, t, dev, dtype, shape):
 def launch_bank_fwd(work, params, fill: float, out_size: int, planes=None, out_dtype=torch.float32,
                     save_pre: bool = False):
     """K1: (H, W, 3) f32 canvas and (N, PARAM_STRIDE) parameters on the card →
-    ((N, 3, S, S) bank in ``out_dtype``, the rounded pre-jitter bank or None)."""
+    ((N, 3, S, S) bank in ``out_dtype``, the rounded pre-jitter bank or None).
+    The pre-jitter bank holds the jittered cuts' rows only; the others are
+    left unwritten, since K2 reads no other."""
     dev = work.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
@@ -196,9 +194,12 @@ def launch_bank_fwd(work, params, fill: float, out_size: int, planes=None, out_d
     return out, pre
 
 
-def launch_bank_bwd(g, pre, params, work_shape, out_size: int):
+def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None):
     """K2: (N, 3, S, S) cotangent (the bank's dtype), the saved pre-jitter
-    bank (None when no cut is jittered) and the parameters → (H, W, 3) f32."""
+    bank (None when no cut is jittered) and the parameters → (H, W, 3) f32.
+    ``branches``, a (2,) int32 tensor on the card, if given, gains the count
+    of blocks that summed in shared memory and of those that added straight
+    to device memory."""
     dev = g.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
@@ -210,39 +211,35 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int):
     _check("g", g, dev, g.dtype, (n, c, out_size, out_size))
     if pre is not None:
         _check("pre", pre, dev, g.dtype, g.shape)
+    if branches is not None:
+        _check("branches", branches, dev, torch.int32, (2,))
     dwork = torch.zeros((h, w, c), dtype=torch.float32, device=dev)
     if n == 0:
         return dwork
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = _library().bank_bwd(g.data_ptr(), None if pre is None else pre.data_ptr(), params.data_ptr(),
-                               dwork.data_ptr(), _DTYPES[g.dtype], n, h, w, out_size, stream)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    code = _library().bank_bwd(g.data_ptr(), ptr(pre), params.data_ptr(), dwork.data_ptr(), ptr(branches),
+                               _DTYPES[g.dtype], n, h, w, out_size, stream)
     _raise_on(code, "bank_bwd")
     LAUNCHES["warp_bwd"] += 1
     return dwork
 
 
-def _check_inputs(work_like, inv, modes):
-    dev = work_like.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA warp kernels need CUDA tensors, got {dev}")
-    for name, t, dtype in (("inv", inv, torch.float32), ("modes", modes, torch.int32)):
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} tensor on {dev}; "
-                             f"got {t.dtype} on {t.device}")
+def _warp_params(inv, modes, dev):
+    """The bare warp's parameter rows (no jitter, no noise) on ``dev``."""
     if inv.dim() != 3 or inv.shape[1:] != (3, 3) or modes.shape != (inv.shape[0],):
         raise ValueError(f"inv must be (N, 3, 3) and modes (N,): {tuple(inv.shape)}, {tuple(modes.shape)}")
+    return pack_params(inv, modes).to(dev)
 
 
 def launch_fwd(work, inv, modes, fill: float, out_size: int):
     """K1 as the bare warp: (H, W, 3) f32 canvas → (N, 3, S, S) f32 bank."""
-    _check_inputs(work, inv, modes)
-    return launch_bank_fwd(work, _device_params(inv, modes), fill, out_size)[0]
+    return launch_bank_fwd(work, _warp_params(inv, modes, work.device), fill, out_size)[0]
 
 
 def launch_bwd(g, inv, modes, work_shape, out_size: int):
     """K2 as the bare warp's adjoint: (N, 3, S, S) f32 cotangent → (H, W, 3) f32."""
-    _check_inputs(g, inv, modes)
-    return launch_bank_bwd(g, None, _device_params(inv, modes), work_shape, out_size)
+    return launch_bank_bwd(g, None, _warp_params(inv, modes, g.device), work_shape, out_size)
 
 
 class CutoutBankFunction(torch.autograd.Function):
@@ -289,9 +286,8 @@ def warp_modes(work, inv, modes, fill: float, out_size: int):
 
     CUDA tensors go through the kernels; CPU tensors through the plain version."""
     if work.device.type == "cuda":
-        _check_inputs(work, inv, modes)
-        return CutoutBankFunction.apply(work.contiguous(), _device_params(inv, modes), float(fill), out_size,
-                                        torch.float32, False, None, None, None)
+        return CutoutBankFunction.apply(work.contiguous(), _warp_params(inv, modes, work.device), float(fill),
+                                        out_size, torch.float32, False, None, None, None)
     if work.device.type == "cpu":
         return warp_modes_plain(work, inv, modes, float(fill), out_size)
     raise ValueError(f"unsupported device for the cutout warp: {work.device}")

@@ -5,8 +5,9 @@
 
 ``--root`` imports ``pixray_tpu_torch`` from another checkout (default:
 this one), so that two trees are measured in one call on one card, in
-turns (parent, change, change, parent).  Per bench row (``chip_smoke.py``'s
-restatement of ``bench.py``'s configs):
+turns (parent, change, change, parent); the harness (this file and
+``chip_smoke.py``'s timers and configs) is always this checkout's.  Per
+bench row (``chip_smoke.py``'s restatement of ``bench.py``'s configs):
 
 - steps/s: 9 warm-up and 24 timed steps, a host read of the loss after
   each, as ``chip_smoke.py`` times them;
@@ -21,17 +22,18 @@ restatement of ``bench.py``'s configs):
 
 Before the rows, at the flagship bank (the 224x224x3 work canvas of a
 384x216 canvas, 64 cuts of 224, bf16, the step's own draws), each as summed
-kernel time and median CUDA-event time of one call: ``render_cutouts``
-forward and backward; the bank kernels alone (``launch_bank_fwd`` /
-``launch_bank_bwd``) where the tree has them; the bare warp
-(``cuda_warp.launch_fwd`` / ``launch_bwd``, f32, the bank's 45 perspective
-cuts); and ``grid_sample`` over the 64 cuts and its input gradient.
-Prints one JSON line and writes it to ``chiprun_out/profile_<label>.json``.
+kernel time and median CUDA-event time of one call, through the interfaces
+every tree of the port has: ``render_cutouts`` forward and backward, and
+the bare warp (``cuda_warp.launch_fwd`` / ``launch_bwd``, f32, the bank's
+45 perspective cuts).  The bank kernels with their epilogue, and
+``grid_sample``, are timed by ``chip_smoke.py``.  Prints one JSON line and
+writes it to ``chiprun_out/profile_<label>.json``.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -113,10 +115,9 @@ def _device_profile(events, steps):
     }
 
 
-def profile_row(label, config, tmp):
+def profile_row(cs, label, config, tmp):
     import torch
 
-    import chip_smoke as cs
     from pixray_tpu_torch.config import apply_settings
     from pixray_tpu_torch.engine.core import Engine
 
@@ -158,23 +159,19 @@ def profile_row(label, config, tmp):
             **_device_profile(prof.events(), PROFILE_STEPS)}
 
 
-def _times(fn):
+def _times(cs, fn):
     """(summed kernel ms of one call, median CUDA-event ms of one call)."""
-    import chip_smoke as cs
-
     return {"device_ms": cs.device_ms(fn), "event_ms": cs.median_ms(fn)}
 
 
-def flagship_bank():
-    """render_cutouts at the flagship bank; the bank kernels alone where the
-    tree has them; the bare warp at the bank's 45 perspective cuts; and
-    grid_sample over the 64 cuts (forward, and its input gradient)."""
+def flagship_bank(cs):
+    """render_cutouts forward and backward at the flagship bank, and the
+    bare warp at the bank's 45 perspective cuts."""
     import torch
 
     from pixray_tpu_torch.engine import cutouts as C
     from pixray_tpu_torch.ops import cuda_warp
     from pixray_tpu_torch.ops.warp import inv3x3
-    from pixray_tpu_torch.ops.warp_batch import source_coords
 
     dev = torch.device("cuda")
     gen, gen_dev = torch.Generator().manual_seed(0), torch.Generator(device=dev).manual_seed(0)
@@ -194,53 +191,17 @@ def flagship_bank():
     def bwd():
         torch.autograd.grad(out, w_req, g, retain_graph=True)
 
-    def fwd_bwd():
-        w = work.clone().requires_grad_(True)
-        torch.autograd.grad(C.render_cutouts(w, draws["transforms"], 224, **kw), w, g)
-
     zoom, wide = draws["transforms"]
     nzp, nwp = C.persp_split(zoom.shape[0])[0], C.persp_split(wide.shape[0])[0]
-    ms = torch.cat([zoom[:nzp], wide[:nwp]])
-    inv = inv3x3(ms.float()).to(dev).contiguous()
+    inv = inv3x3(torch.cat([zoom[:nzp], wide[:nwp]]).float()).to(dev).contiguous()
     modes = torch.tensor([i % 2 for i in range(nzp)] + [3] * nwp, dtype=torch.int32, device=dev)
-    g45 = torch.randn((ms.shape[0], 3, 224, 224), device=dev, generator=gen_dev)
-    res = {name: _times(fn) for name, fn in (("render_cutouts_fwd", fwd), ("render_cutouts_bwd", bwd),
-                                             ("render_cutouts_fwd_bwd", fwd_bwd))}
-    res["warp_only_fwd_45"] = _times(lambda: cuda_warp.launch_fwd(work, inv, modes, 0.37, 224))
-    res["warp_only_bwd_45"] = _times(lambda: cuda_warp.launch_bwd(g45, inv, modes, (224, 224, 3), 224))
-
-    order = C.bank_order(zoom.shape[0], wide.shape[0]) if hasattr(C, "bank_order") else None
-    if order is not None:
-        inv64 = inv3x3(torch.cat([zoom, wide])[order].float())
-        modes64 = torch.tensor([0] * zoom.shape[0] + [3] * wide.shape[0])[order]
-        facs, planes = draws["noise"]
-        params = cuda_warp.pack_params(inv64, modes64, draws["jitter"], facs).to(dev)
-        _, pre = cuda_warp.launch_bank_fwd(work, params, 0.37, 224, planes, torch.bfloat16, save_pre=True)
-        res["bank_fwd_64"] = _times(lambda: cuda_warp.launch_bank_fwd(work, params, 0.37, 224, planes,
-                                                                      torch.bfloat16, save_pre=True))
-        res["bank_bwd_64"] = _times(lambda: cuda_warp.launch_bank_bwd(g, pre, params, (224, 224, 3), 224))
-    else:
-        inv64 = inv3x3(torch.cat([zoom, wide]).float())
-
-    # grid_sample over the 64 cuts (bilinear, reflection about the pixel
-    # edges, f32) from the one canvas, broadcast over the cuts; its grid
-    # made outside the timed calls
-    sx, sy = source_coords(inv64.to(dev), 224)
-    grid = torch.stack([(2 * sx + 1) / 224 - 1, (2 * sy + 1) / 224 - 1], dim=-1).contiguous()
-    n = grid.shape[0]
-    chw = work.permute(2, 0, 1).contiguous()
-    chw_req = chw.clone().requires_grad_(True)
-    kw_gs = dict(mode="bilinear", padding_mode="reflection", align_corners=False)
-    lib_out = torch.nn.functional.grid_sample(chw_req[None].expand(n, -1, -1, -1), grid, **kw_gs)
-    g_lib = g.float()
-
-    def lib_fwd():
-        with torch.no_grad():
-            torch.nn.functional.grid_sample(chw[None].expand(n, -1, -1, -1), grid, **kw_gs)
-
-    res["grid_sample_fwd_64"] = _times(lib_fwd)
-    res["grid_sample_bwd_64"] = _times(lambda: torch.autograd.grad(lib_out, chw_req, g_lib, retain_graph=True))
-    return res
+    g45 = torch.randn((inv.shape[0], 3, 224, 224), device=dev, generator=gen_dev)
+    return {
+        "render_cutouts_fwd": _times(cs, fwd),
+        "render_cutouts_bwd": _times(cs, bwd),
+        "warp_only_fwd_45": _times(cs, lambda: cuda_warp.launch_fwd(work, inv, modes, 0.37, 224)),
+        "warp_only_bwd_45": _times(cs, lambda: cuda_warp.launch_bwd(g45, inv, modes, (224, 224, 3), 224)),
+    }
 
 
 def main():
@@ -249,11 +210,13 @@ def main():
     ap.add_argument("--label", default="tree")
     ap.add_argument("--rows", default="pixel,clipdraw,vqgan")
     args = ap.parse_args()
-    sys.path[:0] = [os.path.abspath(args.root), HERE]
+    sys.path.insert(0, os.path.abspath(args.root))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
 
     import torch
 
-    import chip_smoke as cs
     import pixray_tpu_torch
     from pixray_tpu_torch.engine import cutouts
 
@@ -264,13 +227,13 @@ def main():
     card = cs.card_line()
     cs.build_all()
     out = {"label": args.label, "package": os.path.dirname(pixray_tpu_torch.__file__), "card": card,
-           "flagship_bank": flagship_bank()}
+           "flagship_bank": flagship_bank(cs)}
     _install_markers(cutouts)
     configs = {"pixel": cs.PIXEL_CONFIG, "clipdraw": cs.CLIPDRAW_CONFIG, "vqgan": cs.VQGAN_CONFIG}
     out["rows"] = []
     for row in args.rows.split(","):
         with tempfile.TemporaryDirectory() as tmp:
-            out["rows"].append(profile_row(row, configs[row], tmp))
+            out["rows"].append(profile_row(cs, row, configs[row], tmp))
         torch.cuda.empty_cache()
     line = json.dumps(out)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
