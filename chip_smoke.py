@@ -19,11 +19,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    (counted by K2 itself); the pre-jitter bank of the jittered cuts
    bitwise, the bank within one bf16 ulp, the canvas gradient within
    BWD_RTOL; kernel, plain, grid_sample times and bounds;
-4. stroke kernels (K4, K4s, K5) vs the plain stroke renderer on the card,
-   forward, chunk prefixes and all four gradients: clipdraw's own init
-   (1024 strokes, P=25, 384x216, white), line_sketch (24 strokes, P=65,
-   paper background) and a ragged case (9 strokes on 40x140: off-canvas,
-   zero-length, exact-tie and alpha-0 strokes), with median times;
+4. stroke kernels (K4, K4s, K5) vs the plain stroke renderer on the card:
+   forward, all four gradients, and K4s's saved state against its plain
+   twins (each tile's stroke list exactly, its chunk-entry tile canvases
+   within the forward's tolerance), on clipdraw's own init (1024 strokes,
+   P=25, 384x216, white), line_sketch (24 strokes, P=65, paper background;
+   also P=321 and, on 192x108, P=769, which take fewer strokes per chunk),
+   a ragged case (9 strokes on 40x140: off-canvas, zero-length, exact-tie
+   and alpha-0 strokes), a crowded case (300 short strokes in a 32x32
+   region of 64x96: lists across build rounds and many chunks beside empty
+   tiles) and the flagship's strokes
+   moved off the canvas (the background back bitwise, zero stroke
+   gradients, dbg == g); kernel times, plain times and bounds for
+   clipdraw, line_sketch and off-canvas (the walk alone);
 5. agreement: TinyTest pixel and clipdraw runs, and a tiny_test VQGAN
    under TinyTest + TinyTest48, on the card against the same runs on the
    CPU (plain versions), same latent, weights and draws, per-step losses;
@@ -102,6 +110,10 @@ WARP_BWD_FLOPS_PER_PIXEL = 49  # taps ~25, the 12 tap products 24
 JITTER_BWD_FLOPS_PER_PIXEL = 110  # HSV state ~35, its adjoint ~75
 STROKE_FLOPS_PER_SEGMENT = 18  # per kept (pixel, stroke) pair: projection, clamp, distance, min
 STROKE_FLOPS_PER_PAIR = 18  # sqrt, coverage, the 4-channel over
+# K5 per kept pair, the distance kept from its one pass: alpha and the transmittance 10,
+# the cotangents 18, the five per-stroke terms and their sums 10, the canvas over 12
+STROKE_BWD_FLOPS_PER_PAIR = 50
+STROKE_BWD_FLOPS_PER_RAMP = 16  # per pair on the anti-aliasing ramp: the two end points' gradients
 AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTest
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
 
@@ -161,23 +173,55 @@ def median_ms(fn, reps=20):
     return statistics.median(times)
 
 
-def device_ms(fn, reps=5):
-    """Summed kernel time of one call of ``fn`` (torch.profiler): the
-    device's work, where a host clock or CUDA events around an eager call
-    of hundreds of kernels measure the host's launch rate."""
+def profiled_events(step, steps):
+    """The device events of ``steps`` calls of ``step`` under torch.profiler,
+    each call ended by a synchronize.  One call before them is the
+    profiler's warm-up step: it starts tracing the card late, and a fresh
+    window loses its first kernels."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    traces = []
+    with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=steps),
+                                on_trace_ready=lambda p: traces.append(list(p.events()))) as prof:
+        for _ in range(steps + 1):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    if not traces:
+        fail("the profiler finished no window")
+    # the schedule's own step annotations also sit on the device's timeline
+    return [ev for ev in traces[-1] if ev.device_type == torch.autograd.DeviceType.CUDA
+            and not ev.name.startswith("ProfilerStep")]
+
+
+def kernel_times(fn, reps=5, tries=3):
+    """{kernel name: summed device ms per call of ``fn``} (torch.profiler):
+    the device's work, where a host clock or CUDA events around an eager
+    call of hundreds of kernels measure the host's launch rate.  A window
+    in which some kernel's count is not a whole multiple of ``reps`` (the
+    profiler dropped events) is taken again."""
+    def step():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    kernels = [ev for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        fail("the profiler recorded no kernel")
-    return sum(ev.time_range.elapsed_us() for ev in kernels) / 1e3 / reps
+
+    for _ in range(tries):
+        sums, counts = {}, {}
+        for ev in profiled_events(step, 1):
+            sums[ev.name] = sums.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+            counts[ev.name] = counts.get(ev.name, 0) + 1
+        if counts and all(c % reps == 0 for c in counts.values()):
+            return {name: us / 1e3 / reps for name, us in sums.items()}
+    fail(f"the profiler dropped kernels in {tries} windows: {counts}")
+
+
+def device_ms(fn, reps=5, name=None):
+    """Summed kernel time of one call of ``fn``; ``name``: only the kernels
+    whose name holds it."""
+    times = kernel_times(fn, reps)
+    if name is not None and not any(name in k for k in times):
+        fail(f"the profiler recorded no kernel named {name}")
+    return sum(ms for k, ms in times.items() if name is None or name in k)
 
 
 def kernel_case(work, ms, modes, fill, out_size, time_it):
@@ -476,40 +520,104 @@ def phase_bank_kernels():
     return flagship, ragged
 
 
-def stroke_bounds(samples, meta, h, w, n_chunks):
+def stroke_bounds(samples, widths, colors, h, w, state, chunk):
     """Bounds of K4, K4s and K5 on one scene: {kernel: (ms, "bytes" or
-    "operations")}, and the (pixel, stroke) pairs the bbox test keeps.  The
-    operations are those of the kept pairs (STROKE_FLOPS_* per pair and
-    segment; the backward counted as twice the forward); the bytes read each
-    input and write each output once (K4s's chunk canvases included)."""
+    "operations")}, and the counts they rest on.  The function needs a
+    (pixel, stroke) pair only where the pixel centre lies in the stroke's
+    margined bbox, and a (pixel, segment) distance only where it lies in the
+    segment's: past the margin coverage is 0 and the segment cannot hold a
+    covering minimum.  Forward: STROKE_FLOPS_PER_SEGMENT per near (pixel,
+    segment) pair and STROKE_FLOPS_PER_PAIR per kept pair, alpha-0 strokes
+    left out.  Backward: each near distance once, STROKE_BWD_FLOPS_PER_PAIR
+    per kept pair and STROKE_BWD_FLOPS_PER_RAMP per pair on the
+    anti-aliasing ramp (0 < coverage < 1, alpha != 0).  Bytes: each input
+    read and each output written once, the saved state as K4s writes it and
+    K5 reads it (each tile's count, its list and its used chunk-entry
+    canvases); also the pairs of the tile-level test alone."""
     import torch
+
+    from pixray_tpu_torch.ops.strokes import TILE, pack_meta, stroke_coverage
 
     dev = samples.device
     n, p = samples.shape[:2]
-    tx = torch.arange(0, w, 16, device=dev, dtype=torch.float32)
-    ty = torch.arange(0, h, 16, device=dev, dtype=torch.float32)
-    pix = (h - ty).clamp(max=16)[:, None] * (w - tx).clamp(max=16)[None, :]
-    m = meta[:, :, None, None]
-    hit = (m[:, 5] <= tx + 16) & (m[:, 7] >= tx) & (m[:, 6] <= ty[:, None] + 16) & (m[:, 8] >= ty[:, None])
-    pairs_bwd = int((hit * pix).sum())
-    pairs_fwd = int(((hit & (m[:, 4] != 0)) * pix).sum())
-    per_pair = STROKE_FLOPS_PER_SEGMENT * (p - 1) + STROKE_FLOPS_PER_PAIR
+    meta = pack_meta(samples, widths, colors)
+    painted = meta[:, 4] != 0
+    ys = torch.arange(h, device=dev, dtype=torch.float32) + 0.5
+    xs = torch.arange(w, device=dev, dtype=torch.float32) + 0.5
+
+    def centres_in(lo, hi):  # boxes (..., 2) -> the pixel centres inside each
+        in_x = ((lo[..., 0, None] <= xs) & (xs <= hi[..., 0, None])).sum(-1)
+        in_y = ((lo[..., 1, None] <= ys) & (ys <= hi[..., 1, None])).sum(-1)
+        return in_x * in_y
+
+    per_stroke = centres_in(meta[:, 5:7], meta[:, 7:9])
+    margin = (widths / 2.0 + 1.0)[:, None, None]
+    a, b = samples[:, :-1], samples[:, 1:]
+    per_segment = centres_in(torch.minimum(a, b) - margin, torch.maximum(a, b) + margin).sum(1)
+    ramp, step = 0, max(1, (1 << 26) // ((p - 1) * h * w))
+    with torch.no_grad():
+        for i in range(0, n, step):
+            cov = stroke_coverage(samples[i:i + step], widths[i:i + step], h, w)
+            ramp += int(((cov > 0) & (cov < 1) & painted[i:i + step, None, None]).sum())
+    pairs_fwd, pairs_bwd = int(per_stroke[painted].sum()), int(per_stroke.sum())
+    near_fwd, near_bwd = int(per_segment[painted].sum()), int(per_segment.sum())
+    counts = state.counts.long()
+    th, tw = TILE
+    ty, tx = torch.arange(0, h, th, device=dev), torch.arange(0, w, tw, device=dev)
+    tile_pix = ((h - ty).clamp(max=th)[:, None] * (w - tx).clamp(max=tw)[None, :]).reshape(-1)
+    slots = int(((counts + chunk - 1) // chunk).sum())
+    state_bytes = 4 * (counts.numel() + int(counts.sum())) + 4 * 4 * th * tw * slots
     canvas = 4 * h * w * 4
-    strokes = samples.numel() * 4 + meta.numel() * 4
+    strokes = 4 * (samples.numel() + 5 * n + 4 * n)  # samples, widths + colors, the samples' box
+    fwd_ops = STROKE_FLOPS_PER_SEGMENT * near_fwd + STROKE_FLOPS_PER_PAIR * pairs_fwd
+    bwd_ops = (STROKE_FLOPS_PER_SEGMENT * near_bwd + STROKE_BWD_FLOPS_PER_PAIR * pairs_bwd
+               + STROKE_BWD_FLOPS_PER_RAMP * ramp)
     work = {
-        "fwd": (strokes + 2 * canvas, pairs_fwd * per_pair),
-        "store": (strokes + (2 + n_chunks) * canvas, pairs_fwd * per_pair),
-        "bwd": (strokes + (2 + n_chunks) * canvas + samples.numel() * 4 + n * 5 * 4, 2 * pairs_bwd * per_pair),
+        "fwd": (strokes + 2 * canvas, fwd_ops),
+        "store": (strokes + 2 * canvas + state_bytes, fwd_ops),
+        "bwd": (strokes + state_bytes + 2 * canvas + 4 * (samples.numel() + 5 * n), bwd_ops),
     }
     bounds = {k: (1e3 * max(b / HBM_BYTES_PER_S, o / F32_FLOPS),
                   "bytes" if b / HBM_BYTES_PER_S >= o / F32_FLOPS else "operations") for k, (b, o) in work.items()}
-    return bounds, pairs_fwd, pairs_bwd
+    return {"bounds": bounds, "pairs_fwd": pairs_fwd, "pairs_bwd": pairs_bwd, "near_fwd": near_fwd,
+            "near_bwd": near_bwd, "ramp": ramp, "state_bytes": state_bytes,
+            "pairs_tile": int((counts * tile_pix).sum())}
 
 
-def stroke_case(name, samples, widths, colors, background, time_it):
-    """K4, K4s, K5 vs the plain renderer on one scene: forward, chunk
-    prefixes, and the gradients w.r.t. samples, widths, colors and the
-    premultiplied background for a seeded cotangent."""
+def check_tile_state(name, state, samples, widths, colors, bg_hwc, chunk):
+    """K4s's saved state against its plain twins: each tile's list equal to
+    tile_stroke_lists, the used chunk-entry tile canvases against
+    tile_chunk_canvases.  Returns (max_abs_err of the canvases, list entries,
+    canvases compared)."""
+    import torch
+
+    from pixray_tpu_torch.ops.strokes import pack_meta, tile_chunk_canvases, tile_stroke_lists
+
+    h, w = bg_hwc.shape[:2]
+    with torch.no_grad():
+        lists = tile_stroke_lists(pack_meta(samples, widths, colors), h, w)
+        plain = tile_chunk_canvases(samples, widths, colors, bg_hwc, lists, chunk=chunk)
+    counts = state.counts.cpu().long()
+    kernel_lists = state.lists.cpu().long()
+    if counts.tolist() != [len(l) for l in lists]:
+        fail(f"K4s's list lengths differ from tile_stroke_lists on {name}: "
+             f"{counts.tolist()} vs {[len(l) for l in lists]}")
+    for t, l in enumerate(lists):
+        if not torch.equal(kernel_lists[t, : len(l)], l.cpu()):
+            fail(f"K4s's list of tile {t} differs from tile_stroke_lists on {name}")
+    slots = plain.shape[1]
+    used = torch.arange(slots, device=plain.device)[None] < ((state.counts.long() + chunk - 1) // chunk)[:, None]
+    diff = (state.canvases[:, :slots] - plain).abs().amax(dim=(2, 3, 4))
+    err = float(diff[used].max()) if bool(used.any()) else 0.0
+    return err, int(counts.sum()), int(used.sum())
+
+
+def stroke_case(name, samples, widths, colors, background, time_it, background_only=False):
+    """K4, K4s, K5 vs the plain renderer on one scene: forward, the saved
+    tile lists and canvases, and the gradients w.r.t. samples, widths,
+    colors and the premultiplied background for a seeded cotangent.
+    ``background_only``: every stroke is off the canvas, so the output must
+    be the background bitwise, the stroke gradients 0 and dbg == g."""
     import torch
 
     from pixray_tpu_torch.ops import cuda_strokes
@@ -518,65 +626,64 @@ def stroke_case(name, samples, widths, colors, background, time_it):
     dev = samples.device
     bg_hwc = premultiply(background).contiguous()
     bg = bg_hwc.permute(2, 0, 1).contiguous()
-    meta = cuda_strokes.pack_meta(samples, widths, colors)
-
-    out4 = cuda_strokes.launch_fwd(samples, meta, bg)
-    out4s, prefixes = cuda_strokes.launch_fwd(samples, meta, bg, store=True)
-    plain_prefixes = []
+    h, w = bg.shape[1:]
+    chunk = cuda_strokes.chunk_size(samples.shape[1])
     with torch.no_grad():
-        plain = composite_premult(samples, widths, colors, bg_hwc, prefixes=plain_prefixes)
-    torch.cuda.synchronize()
-    plain = plain.permute(2, 0, 1)
-    if out4.shape != plain.shape or not torch.isfinite(out4).all():
-        fail(f"K4 output malformed on {name}: {tuple(out4.shape)}")
-    fwd_err = float((out4 - plain).abs().max())
-    store_err = max([float((out4s - plain).abs().max())] + [
-        float((k - p.permute(2, 0, 1)).abs().max()) for k, p in zip(prefixes, plain_prefixes)])
-    if len(plain_prefixes) != prefixes.shape[0]:
-        fail(f"K4s stored {prefixes.shape[0]} prefixes, the plain version {len(plain_prefixes)}")
-
+        plain = composite_premult(samples, widths, colors, bg_hwc).permute(2, 0, 1)
     g = torch.randn(tuple(bg.shape), device=dev, generator=torch.Generator(device=dev).manual_seed(11))
-    dsamples, dmeta, dbg = cuda_strokes.launch_bwd(g, samples, meta, prefixes)
     leaves = [t.clone().requires_grad_(True) for t in (samples, widths, colors, bg_hwc)]
     out_plain = composite_premult(*leaves)
     plain_grads = torch.autograd.grad(out_plain, leaves, g.permute(1, 2, 0), retain_graph=time_it)
     torch.cuda.synchronize()
-    res = {"name": name, "n": int(samples.shape[0]), "p": int(samples.shape[1]),
-           "canvas": list(bg.shape[1:]), "fwd_err": fwd_err, "store_err": store_err}
-    kernel_grads = (dsamples, dmeta[:, 0], dmeta[:, 1:5], dbg.permute(1, 2, 0))
+    out4 = cuda_strokes.launch_fwd(samples, widths, colors, bg)
+    out4s, state = cuda_strokes.launch_fwd(samples, widths, colors, bg, store=True)
+    dsamples, dmeta, dbg = cuda_strokes.launch_bwd(g, samples, widths, colors, state)
+    torch.cuda.synchronize()
+    if out4.shape != plain.shape or not torch.isfinite(out4).all():
+        fail(f"K4 output malformed on {name}: {tuple(out4.shape)}")
+    canvas_err, listed, slots = check_tile_state(name, state, samples, widths, colors, bg_hwc, chunk)
+    r = {"name": name, "n": int(samples.shape[0]), "p": int(samples.shape[1]), "canvas": [h, w], "chunk": chunk,
+         "fwd_err": float((out4 - plain).abs().max()), "canvas_err": canvas_err, "listed": listed, "slots": slots}
+    r["store_err"] = max(float((out4s - plain).abs().max()), canvas_err)
     bwd = {}
+    kernel_grads = (dsamples, dmeta[:, 0], dmeta[:, 1:5], dbg.permute(1, 2, 0))
     for gname, k, p in zip(("samples", "widths", "colors", "bg"), kernel_grads, plain_grads):
-        err = float((k - p).abs().max())
-        tol = BWD_RTOL * max(float(p.abs().max()), 1e-6)
-        bwd[gname] = (err, tol)
-        if not err <= tol:
-            fail(f"K5 d{gname} disagrees with the plain gradient on {name}: {err} > {tol}; {res}")
-    res["bwd"] = bwd
-    res["bwd_err"] = max(e for e, _ in bwd.values())
-    if not fwd_err <= STROKE_FWD_ATOL:
-        fail(f"K4 disagrees with the plain renderer on {name}: {res}")
-    if not store_err <= STROKE_FWD_ATOL:
-        fail(f"K4s disagrees with the plain renderer on {name}: {res}")
+        bwd[gname] = (float((k - p).abs().max()), BWD_RTOL * max(float(p.abs().max()), 1e-6))
+        if not bwd[gname][0] <= bwd[gname][1]:
+            fail(f"K5 d{gname} disagrees with the plain gradient on {name}: {bwd[gname]}; {r}")
+    r["bwd"], r["bwd_err"] = bwd, max(e for e, _ in bwd.values())
+    if not r["fwd_err"] <= STROKE_FWD_ATOL:
+        fail(f"K4 disagrees with the plain renderer on {name}: {r}")
+    if not r["store_err"] <= STROKE_FWD_ATOL:
+        fail(f"K4s or its saved tile canvases disagree with the plain version on {name}: {r}")
+    if background_only:
+        exact = (torch.equal(out4, bg) and torch.equal(out4s, bg) and not dsamples.any() and not dmeta.any()
+                 and torch.equal(dbg, g) and listed == 0)
+        if not exact:
+            fail(f"the off-canvas strokes changed the canvas or took a gradient on {name}: {r}")
     if time_it:
+        timed = {
+            "fwd": lambda: cuda_strokes.launch_fwd(samples, widths, colors, bg),
+            "store": lambda: cuda_strokes.launch_fwd(samples, widths, colors, bg, store=True),
+            "bwd": lambda: cuda_strokes.launch_bwd(g, samples, widths, colors, state),
+        }
+        for key, fn in timed.items():
+            kernel = "strokes_bwd_kernel" if key == "bwd" else "strokes_fwd_kernel"
+            times = kernel_times(fn)
+            r[f"{key}_ms"] = sum(ms for k, ms in times.items() if kernel in k)
+            r[f"{key}_call_ms"], r[f"{key}_event_ms"] = sum(times.values()), median_ms(fn)
+        r.update(stroke_bounds(samples, widths, colors, h, w, state, chunk))
+
         def plain_fwd():
             with torch.no_grad():
-                composite_premult(samples, widths, colors, bg_hwc, prefixes=[])
+                composite_premult(samples, widths, colors, bg_hwc)
 
         def plain_bwd():
             torch.autograd.grad(out_plain, leaves, g.permute(1, 2, 0), retain_graph=True)
 
-        timed = {
-            "fwd": lambda: cuda_strokes.launch_fwd(samples, meta, bg),
-            "store": lambda: cuda_strokes.launch_fwd(samples, meta, bg, store=True),
-            "bwd": lambda: cuda_strokes.launch_bwd(g, samples, meta, prefixes),
-            "fwd_plain": plain_fwd, "bwd_plain": plain_bwd,
-        }
-        for key, fn in timed.items():
-            reps = 2 if key.endswith("plain") else 5
-            res[f"{key}_ms"], res[f"{key}_event_ms"] = device_ms(fn, reps), median_ms(fn, 4 * reps)
-        res["bounds"], res["pairs_fwd"], res["pairs_bwd"] = stroke_bounds(
-            samples, meta, bg.shape[1], bg.shape[2], prefixes.shape[0])
-    return res
+        for key, fn in (("fwd_plain", plain_fwd), ("bwd_plain", plain_bwd)):
+            r[f"{key}_ms"], r[f"{key}_event_ms"] = device_ms(fn, 2), median_ms(fn, 8)
+    return r
 
 
 def _drawer_scene(drawer_cls, settings, seed, background):
@@ -630,32 +737,54 @@ def phase_stroke_kernels():
 
     from pixray_tpu_torch.drawers.clipdraw import ClipDrawer
     from pixray_tpu_torch.drawers.line_sketch import PAPER_COLOR, LineDrawer
+    from pixray_tpu_torch.ops.strokes import crowded_scene
 
     w, h = CLIPDRAW_CONFIG["size"]
     clip_settings = SimpleNamespace(size=[w, h], strokes=1024, min_stroke_width=1, max_stroke_width=5)
-    flagship = stroke_case("clipdraw", *_drawer_scene(ClipDrawer, clip_settings, 0, torch.ones((h, w, 3))),
-                           time_it=True)
-    line_settings = SimpleNamespace(size=[w, h], strokes=24, stroke_length=8, min_stroke_width=0.5,
-                                    max_stroke_width=2, allow_paper_color=True)
-    paper = torch.tensor(PAPER_COLOR).expand(h, w, 3)
-    line = stroke_case("line_sketch", *_drawer_scene(LineDrawer, line_settings, 1, paper), time_it=False)
-    ragged = stroke_case("ragged", *_ragged_scene(), time_it=False)
-    for r in (flagship, line, ragged):
-        grads = ", ".join(f"d{k} {e:.3g} (tol {t:.3g})" for k, (e, t) in r["bwd"].items())
-        print(f"stroke kernels {r['name']} (N={r['n']}, P={r['p']}, {r['canvas'][0]}x{r['canvas'][1]}): "
-              f"K4 max_abs_err {r['fwd_err']:.3g}, K4s {r['store_err']:.3g} (tol {STROKE_FWD_ATOL}); "
-              f"K5 {grads}", flush=True)
-    t = lambda k: f"{flagship[k + '_ms']:.4f} / {flagship[k + '_event_ms']:.4f}"
-    print(f"stroke kernels clipdraw flagship times (ms, summed kernel time / CUDA events of one call): "
-          f"K4 {t('fwd')}, K4s {t('store')} vs plain forward {t('fwd_plain')}; K5 {t('bwd')} vs plain "
-          f"backward {t('bwd_plain')}", flush=True)
-    b = flagship["bounds"]
-    print(f"stroke kernels clipdraw flagship bounds: (pixel, stroke) pairs kept by the bbox test "
-          f"{flagship['pairs_fwd']} forward, {flagship['pairs_bwd']} backward; K4 {b['fwd'][0]:.4f} ms "
-          f"({b['fwd'][1]}), K4s {b['store'][0]:.4f} ms ({b['store'][1]}), K5 {b['bwd'][0]:.4f} ms "
-          f"({b['bwd'][1]}); no single PyTorch call computes them", flush=True)
-    return flagship, line, ragged
+    clip_scene = _drawer_scene(ClipDrawer, clip_settings, 0, torch.ones((h, w, 3)))
+    flagship = stroke_case("clipdraw", *clip_scene, time_it=True)
+    paper = torch.tensor(PAPER_COLOR)
 
+    def line_scene(stroke_length, size):
+        settings = SimpleNamespace(size=size, strokes=24, stroke_length=stroke_length, min_stroke_width=0.5,
+                                   max_stroke_width=2, allow_paper_color=True)
+        return _drawer_scene(LineDrawer, settings, 1, paper.expand(size[1], size[0], 3))
+
+    line = stroke_case("line_sketch", *line_scene(8, [w, h]), time_it=True)
+    # long strokes: fewer per chunk, so that K5's chunk fits shared memory
+    # (P = 321, just past the P = 294 up to which 16 fit; P = 769, 6 per chunk)
+    line_long = stroke_case("line_sketch stroke_length 40", *line_scene(40, [w, h]), time_it=False)
+    line_longer = stroke_case("line_sketch stroke_length 96", *line_scene(96, [w // 2, h // 2]), time_it=False)
+    ragged = stroke_case("ragged", *_ragged_scene(), time_it=False)
+    dev = torch.device("cuda")
+    crowded = stroke_case("crowded", *(torch.tensor(a, device=dev) for a in crowded_scene()[2:]), time_it=False)
+    # the flagship's strokes moved two canvas widths to the right: the walk alone
+    samples, widths, colors, _ = clip_scene
+    off_bg = torch.rand((h, w, 4), device=samples.device, generator=torch.Generator(device=samples.device).manual_seed(5))
+    off = stroke_case("off-canvas", samples + torch.tensor([2.0 * w, 0.0], device=samples.device), widths, colors,
+                      off_bg, time_it=True, background_only=True)
+    scenes = (flagship, line, line_long, line_longer, ragged, crowded, off)
+    for r in scenes:
+        grads = ", ".join(f"d{k} {e:.3g} (tol {tol:.3g})" for k, (e, tol) in r["bwd"].items())
+        print(f"stroke kernels {r['name']} (N={r['n']}, P={r['p']}, {r['canvas'][0]}x{r['canvas'][1]}, "
+              f"{r['chunk']} strokes per chunk): lists equal tile_stroke_lists ({r['listed']} entries); "
+              f"{r['slots']} saved tile canvases max_abs_err {r['canvas_err']:.3g}; K4 max_abs_err "
+              f"{r['fwd_err']:.3g}, K4s {r['store_err']:.3g} (tol {STROKE_FWD_ATOL}); K5 {grads}", flush=True)
+    print("stroke kernels off-canvas: output equals the background bitwise, stroke gradients 0, dbg == g", flush=True)
+    for r in (flagship, line, off):
+        k = lambda key: f"{r[key + '_ms']:.4f} ({r[key + '_call_ms']:.4f} / {r[key + '_event_ms']:.4f})"
+        b = r["bounds"]
+        print(f"stroke kernels {r['name']} times (ms: kernel (the launcher's kernels / CUDA events of one call)): "
+              f"K4 {k('fwd')}, K4s {k('store')}, K5 {k('bwd')}; bounds K4 {b['fwd'][0]:.4f} ({b['fwd'][1]}), "
+              f"K4s {b['store'][0]:.4f} ({b['store'][1]}), K5 {b['bwd'][0]:.4f} ({b['bwd'][1]}); (pixel, stroke) "
+              f"pairs in the stroke's margined bbox {r['pairs_fwd']} forward, {r['pairs_bwd']} backward "
+              f"({r['pairs_tile']} by the tile test alone), (pixel, segment) pairs in the segment's "
+              f"{r['near_fwd']} / {r['near_bwd']}, on the ramp {r['ramp']}; saved state "
+              f"{r['state_bytes'] / 1e6:.3f} MB", flush=True)
+        p = lambda key: f"{r[key + '_ms']:.4f} / {r[key + '_event_ms']:.4f}"
+        print(f"stroke kernels {r['name']} plain (ms, summed kernel time / CUDA events of one call): forward "
+              f"{p('fwd_plain')}, backward {p('bwd_plain')}; no single PyTorch call computes them", flush=True)
+    return scenes
 
 
 def _draws_to(draws, device, dtype):
@@ -1016,14 +1145,14 @@ def main():
     stroke_src = "pixray_tpu_torch/csrc/strokes.cu"
     replaces = "pixray_tpu/ops/pallas_strokes.py:{}"
     sf = strokes[0]
-    for name, line, counter, err, ms, plain, bound in (
-            ("strokes_fwd (K4)", 116, "strokes_fwd", "fwd_err", "fwd_ms", "fwd_plain_ms", "fwd"),
-            ("strokes_fwd_store (K4s)", 132, "strokes_fwd_store", "store_err", "store_ms", "fwd_plain_ms", "store"),
-            ("strokes_bwd (K5)", 151, "strokes_bwd", "bwd_err", "bwd_ms", "bwd_plain_ms", "bwd")):
+    for name, line, counter, err, key, plain in (
+            ("strokes_fwd (K4)", 116, "strokes_fwd", "fwd_err", "fwd", "fwd_plain_ms"),
+            ("strokes_fwd_store (K4s)", 132, "strokes_fwd_store", "store_err", "store", "fwd_plain_ms"),
+            ("strokes_bwd (K5)", 151, "strokes_bwd", "bwd_err", "bwd", "bwd_plain_ms")):
         kernels.append({"name": name, "route": "cuda", "source": stroke_src, "replaces": replaces.format(line),
                         "launches": stroke_launches[counter], "max_abs_err": max(r[err] for r in strokes),
-                        "ms": sf[ms], "plain_ms": sf[plain], "bound_ms": sf["bounds"][bound][0],
-                        "bound_by": sf["bounds"][bound][1], "library_ms": None})
+                        "ms": sf[key + "_ms"], "plain_ms": sf[plain], "bound_ms": sf["bounds"][key][0],
+                        "bound_by": sf["bounds"][key][1], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

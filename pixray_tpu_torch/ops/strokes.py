@@ -13,6 +13,11 @@ and ``minimum(maximum(...))`` split the gradient evenly at ties, as
 ``jnp.min`` and ``jnp.clip`` do.  One difference: the projection parameter
 of each segment takes no gradient (the envelope form of K5 and of the TPU
 kernel; see ``_point_segment_dist2``).
+
+``tile_stroke_lists`` and ``tile_chunk_canvases`` are the plain twins of
+the state K4s saves for K5 (each tile's list of the strokes that meet it,
+and the tile's canvas at the entry of each chunk of that list), and
+``crowded_scene`` a scene that stresses those lists; no path runs them.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 CHUNK = 16
+TILE = (8, 16)  # (height, width) of the kernels' pixel tile: 16x8 measured fastest (PERF.md)
 
 
 def bezier_basis(segment_counts, max_segments: int, samples_per_segment: int = 8) -> torch.Tensor:
@@ -98,16 +104,21 @@ def _point_segment_dist2(px, py, ax, ay, bx, by):
     return (px - cx) ** 2 + (py - cy) ** 2
 
 
-def stroke_coverage(samples, widths, h: int, w: int):
-    """(C, P, 2) polylines, (C,) widths → (C, H, W) anti-aliased coverage."""
-    ys = torch.arange(h, dtype=samples.dtype, device=samples.device) + 0.5
-    xs = torch.arange(w, dtype=samples.dtype, device=samples.device) + 0.5
-    px, py = xs[None, None, None, :], ys[None, None, :, None]
+def _coverage_at(samples, widths, px, py):
+    """(C, P, 2) polylines, (C,) widths, pixel centres px (C|1, 1, 1, W),
+    py (C|1, 1, H, 1) → (C, H, W) anti-aliased coverage."""
     seg = lambda k, i: samples[:, k : samples.shape[1] - 1 + k, i][:, :, None, None]
     d2 = _point_segment_dist2(px, py, seg(0, 0), seg(0, 1), seg(1, 0), seg(1, 1))  # (C, P-1, H, W)
     dist = torch.sqrt(torch.amin(d2, dim=1) + 1e-12)
     # linear 1px anti-aliasing ramp around the stroke boundary
     return clip_like_jnp(widths[:, None, None] / 2.0 + 0.5 - dist, 0.0, 1.0)
+
+
+def stroke_coverage(samples, widths, h: int, w: int):
+    """(C, P, 2) polylines, (C,) widths → (C, H, W) anti-aliased coverage."""
+    ys = torch.arange(h, dtype=samples.dtype, device=samples.device) + 0.5
+    xs = torch.arange(w, dtype=samples.dtype, device=samples.device) + 0.5
+    return _coverage_at(samples, widths, xs[None, None, None, :], ys[None, None, :, None])
 
 
 def _over(top, bottom):
@@ -166,3 +177,86 @@ def render_strokes(points, widths, colors, basis, h: int, w: int, background, ch
         raise ValueError(f"background {tuple(background.shape)} is not {h}x{w}")
     canvas = composite_premult(sample_paths(basis, points), widths, colors, canvas, chunk)
     return unpremultiply(canvas)
+
+
+def pack_meta(samples, widths, colors):
+    """(N, 9) rows [width, r, g, b, a, bx0, by0, bx1, by1]: per-stroke scalars
+    and the bbox with the anti-aliasing margin (JAX ``_pack_meta``; the
+    kernels compute the same values from the samples' box in f32)."""
+    margin = widths[:, None] / 2.0 + 1.0  # ramp reaches width/2 + 0.5; +slack
+    mn = torch.amin(samples, dim=1)  # (N, 2) [x, y]
+    mx = torch.amax(samples, dim=1)
+    return torch.cat([widths[:, None], colors, mn - margin, mx + margin], dim=-1).float().contiguous()
+
+
+def _tile_grid(h: int, w: int, tile):
+    """Tile origins, row-major over the tiles: (T,) y0 and x0 as int64."""
+    th, tw = tile
+    ty, tx = torch.arange(0, h, th), torch.arange(0, w, tw)
+    return ty[:, None].expand(-1, len(tx)).reshape(-1), tx[None, :].expand(len(ty), -1).reshape(-1)
+
+
+def tile_stroke_lists(meta, h: int, w: int, tile=TILE):
+    """Per tile of the (H, W) canvas, row-major over the tiles: the ascending
+    indices of the strokes whose margined bbox (``pack_meta``) meets the tile
+    [x0, x0 + tw] x [y0, y0 + th].  Alpha-0 strokes are kept."""
+    th, tw = tile
+    y0, x0 = (t.to(meta.device, meta.dtype)[None] for t in _tile_grid(h, w, tile))
+    m = meta[:, :, None]
+    hit = (m[:, 5] <= x0 + tw) & (m[:, 7] >= x0) & (m[:, 6] <= y0 + th) & (m[:, 8] >= y0)  # (N, T)
+    return [torch.nonzero(col).flatten() for col in hit.T]
+
+
+def tile_chunk_canvases(samples, widths, colors, canvas, lists, chunk: int = CHUNK, tile=TILE):
+    """The tile-local canvases at the entry of each ``chunk``-stroke piece of
+    each tile's list: (T, S, 4, th, tw), S = the most pieces of any tile;
+    the pieces a tile lacks, and pixels past the canvas edge, are 0.
+
+    (N, P, 2) samples, (N,) widths, (N, 4) colors, (H, W, 4) premultiplied
+    canvas, ``lists`` from ``tile_stroke_lists``.  A stroke off a tile's list
+    paints a = 0 on the tile, which leaves it bitwise unchanged, so a tile
+    composited over its own list alone is the full canvas there."""
+    h, w = canvas.shape[:2]
+    th, tw = tile
+    dev, dt = samples.device, samples.dtype
+    y0, x0 = (t.to(dev) for t in _tile_grid(h, w, tile))
+    n_tiles = len(lists)
+    counts = torch.tensor([len(l) for l in lists], device=dev)
+    k_max = int(counts.max()) if n_tiles else 0
+    idx = torch.zeros((n_tiles, k_max), dtype=torch.long, device=dev)
+    for t, l in enumerate(lists):
+        idx[t, : len(l)] = l
+    yi = y0[:, None] + torch.arange(th, device=dev)  # (T, th)
+    xi = x0[:, None] + torch.arange(tw, device=dev)  # (T, tw)
+    inside = (yi < h)[:, :, None] & (xi < w)[:, None, :]
+    c = canvas[yi.clamp(max=h - 1)[:, :, None], xi.clamp(max=w - 1)[:, None, :]].permute(0, 3, 1, 2)
+    c = c * inside[:, None]  # (T, 4, th, tw)
+    py, px = (yi.to(dt) + 0.5)[:, None, :, None], (xi.to(dt) + 0.5)[:, None, None, :]
+    out = c.new_zeros((n_tiles, -(-k_max // chunk), 4, th, tw))
+    for k in range(k_max):
+        listed = (k < counts)[:, None, None]
+        if k % chunk == 0:
+            out[:, k // chunk] = c * listed[:, None]
+        s = idx[:, k]
+        cov = _coverage_at(samples[s], widths[s], px, py)  # (T, th, tw)
+        a = cov * colors[s, 3, None, None] * (listed & inside)
+        c = torch.cat([colors[s, :3, None, None] * a[:, None], a[:, None]], 1) + (1.0 - a[:, None]) * c
+    return out
+
+
+def crowded_scene():
+    """300 short strokes (P = 9, every 17th with alpha 0) inside the 32x32
+    region [40, 72) x [24, 56) of a 64x96 canvas, as float32 numpy arrays:
+    (h, w, samples (N, P, 2), widths (N,), colors (N, 4), background
+    (H, W, 3)).  The lists of its middle tiles take strokes from both of a
+    kernel's 128-stroke build rounds into many chunks, and empty tiles lie
+    beside them."""
+    rng = np.random.default_rng(7)
+    n, p = 300, 9
+    start = rng.uniform([40.0, 24.0], [72.0, 56.0], (n, 1, 2))
+    samples = np.clip(start + np.cumsum(rng.uniform(-2.0, 2.0, (n, p, 2)), 1), [40.0, 24.0], [72.0, 56.0])
+    widths = rng.uniform(0.5, 2.0, n)
+    colors = rng.uniform(0.0, 1.0, (n, 4))
+    colors[::17, 3] = 0.0
+    bg = rng.uniform(0.0, 1.0, (64, 96, 3))
+    return (64, 96) + tuple(np.asarray(a, np.float32) for a in (samples, widths, colors, bg))

@@ -3,6 +3,8 @@
 
     python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan]
 
+(``--rows ""`` measures no row.)
+
 ``--root`` imports ``pixray_tpu_torch`` from another checkout (default:
 this one), so that two trees are measured in one call on one card, in
 turns (parent, change, change, parent); the harness (this file and
@@ -14,7 +16,9 @@ bench row (``chip_smoke.py``'s restatement of ``bench.py``'s configs):
 - the split of a step over 10 steps, each ended by a synchronize: host ms
   drawing, host ms enqueueing ``Engine.train``, ms the device runs on after
   the host is done (medians);
-- ``torch.profiler`` over 5 steps: device events and kernels per step,
+- ``torch.profiler`` over 5 steps after a warm-up step of the profiler
+  (``chip_smoke.profiled_events``), each step ended by a synchronize:
+  device events and kernels per step,
   device busy per step (the union of device intervals), and the cutout
   module's device ms per step (``render_cutouts``' forward and its backward,
   bracketed by 1-cycle ``torch.cuda._sleep`` marker kernels on the stream)
@@ -26,7 +30,14 @@ kernel time and median CUDA-event time of one call, through the interfaces
 every tree of the port has: ``render_cutouts`` forward and backward, and
 the bare warp (``cuda_warp.launch_fwd`` / ``launch_bwd``, f32, the bank's
 45 perspective cuts).  The bank kernels with their epilogue, and
-``grid_sample``, are timed by ``chip_smoke.py``.  Prints one JSON line and
+``grid_sample``, are timed by ``chip_smoke.py``.  Then the stroke path at
+the clipdraw flagship scene (``ClipDrawer``'s own init: 1024 strokes, P =
+25, 384x216, white) through ``cuda_strokes.render_strokes_auto``, the
+interface every tree of the port has: its forward with a gradient to take
+(K4s) and its backward (K5), each as the stroke kernel's own device time,
+the summed kernel time and the median CUDA-event time of one call; and the
+same with the strokes moved two canvas widths off the canvas, where the
+kernels do nothing but walk.  Prints one JSON line and
 writes it to ``chiprun_out/profile_<label>.json``.
 """
 
@@ -146,17 +157,13 @@ def profile_row(cs, label, config, tmp):
         enqueue_ms.append(1e3 * (t2 - t1))
         after_ms.append(1e3 * (t3 - t2))
         step_ms.append(1e3 * (t3 - t0))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            engine.train(it)
-            it += 1
-        torch.cuda.synchronize()
+    steps = iter(range(it, it + PROFILE_STEPS + 1))
+    events = cs.profiled_events(lambda: engine.train(next(steps)), PROFILE_STEPS)
     med = statistics.median
     return {"row": label, "steps_per_s": rate, "losses_first_last": [losses[0], losses[-1]],
             "launches": launches, "step_ms": med(step_ms), "host_draws_ms": med(draws_ms),
             "host_enqueue_ms": med(enqueue_ms), "device_after_host_ms": med(after_ms),
-            **_device_profile(prof.events(), PROFILE_STEPS)}
+            **_device_profile(events, PROFILE_STEPS)}
 
 
 def _times(cs, fn):
@@ -204,6 +211,45 @@ def flagship_bank(cs):
     }
 
 
+def flagship_strokes(cs):
+    """render_strokes_auto forward (K4s) and backward (K5) at the clipdraw
+    flagship scene, on the canvas and moved off it."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from pixray_tpu_torch.drawers.clipdraw import ClipDrawer
+    from pixray_tpu_torch.ops import cuda_strokes
+
+    w, h = cs.CLIPDRAW_CONFIG["size"]
+    drawer = ClipDrawer(SimpleNamespace(size=[w, h], strokes=1024, min_stroke_width=1, max_stroke_width=5))
+    drawer.snap_canvas([w, h])
+    z = drawer.init_params(torch.Generator().manual_seed(0))
+    dev = torch.device("cuda")
+    basis = drawer.model_params["basis"].to(dev)
+    bg = torch.ones((h, w, 3), device=dev)
+    out = {}
+    for label, shift in (("on_canvas", 0.0), ("off_canvas", 2.0 * w)):
+        leaves = (z["points"].to(dev) + torch.tensor([shift, 0.0], device=dev), z["widths"].to(dev),
+                  z["colors"].to(dev))
+        leaves = [t.clone().requires_grad_(True) for t in leaves]
+        img = cuda_strokes.render_strokes_auto(*leaves, basis, h, w, bg)
+        g = torch.randn(img.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+
+        def fwd():
+            cuda_strokes.render_strokes_auto(*leaves, basis, h, w, bg)
+
+        def bwd():
+            torch.autograd.grad(img, leaves, g, retain_graph=True)
+
+        out[label] = {}
+        for name, fn, kernel in (("fwd", fwd, "strokes_fwd_kernel"), ("bwd", bwd, "strokes_bwd_kernel")):
+            times = cs.kernel_times(fn)
+            out[label][name] = {"kernel_ms": sum(ms for k, ms in times.items() if kernel in k),
+                                "device_ms": sum(times.values()), "event_ms": cs.median_ms(fn)}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pixray_tpu_torch is measured")
@@ -227,11 +273,11 @@ def main():
     card = cs.card_line()
     cs.build_all()
     out = {"label": args.label, "package": os.path.dirname(pixray_tpu_torch.__file__), "card": card,
-           "flagship_bank": flagship_bank(cs)}
+           "flagship_bank": flagship_bank(cs), "flagship_strokes": flagship_strokes(cs)}
     _install_markers(cutouts)
     configs = {"pixel": cs.PIXEL_CONFIG, "clipdraw": cs.CLIPDRAW_CONFIG, "vqgan": cs.VQGAN_CONFIG}
     out["rows"] = []
-    for row in args.rows.split(","):
+    for row in filter(None, args.rows.split(",")):
         with tempfile.TemporaryDirectory() as tmp:
             out["rows"].append(profile_row(cs, row, configs[row], tmp))
         torch.cuda.empty_cache()
@@ -242,6 +288,11 @@ def main():
     for name, t in out["flagship_bank"].items():
         print(f"{args.label} flagship {name}: {t['device_ms']:.4f} ms of kernels, {t['event_ms']:.4f} ms "
               f"CUDA events; on {card}", flush=True)
+    for scene, t in out["flagship_strokes"].items():
+        print(f"{args.label} clipdraw strokes {scene}: render_strokes_auto forward {t['fwd']['kernel_ms']:.4f} ms "
+              f"in K4s, {t['fwd']['device_ms']:.4f} ms of kernels, {t['fwd']['event_ms']:.4f} ms CUDA events; "
+              f"backward {t['bwd']['kernel_ms']:.4f} ms in K5, {t['bwd']['device_ms']:.4f} ms of kernels, "
+              f"{t['bwd']['event_ms']:.4f} ms CUDA events; on {card}", flush=True)
     for r in out["rows"]:
         print(f"{args.label} {r['row']}: {r['steps_per_s']:.3f} steps/s; step {r['step_ms']:.3f} ms = draws "
               f"{r['host_draws_ms']:.3f} + enqueue {r['host_enqueue_ms']:.3f} + device after host "

@@ -26,7 +26,7 @@ from pixray_tpu.ops.pallas_strokes import _pack_meta, render_strokes_fused
 from pixray_tpu.ops.strokes import bezier_basis as j_bezier_basis
 from pixray_tpu.ops.strokes import render_strokes as j_render_strokes
 from pixray_tpu_torch.ops import cuda_strokes
-from pixray_tpu_torch.ops.strokes import bezier_basis, render_strokes
+from pixray_tpu_torch.ops.strokes import bezier_basis, pack_meta, render_strokes
 
 NAMES = ("points", "widths", "colors", "bg")
 
@@ -179,7 +179,7 @@ def test_pack_meta_matches_jax():
     _, _, basis, (pts, widths, colors, _) = SCENES["random"]()
     samples = np.einsum("npv,nvd->npd", basis, pts).astype(np.float32)
     ref = _pack_meta(jnp.asarray(samples), jnp.asarray(widths), jnp.asarray(colors))
-    meta = cuda_strokes.pack_meta(torch.tensor(samples), torch.tensor(widths), torch.tensor(colors))
+    meta = pack_meta(torch.tensor(samples), torch.tensor(widths), torch.tensor(colors))
     np.testing.assert_allclose(meta.numpy(), np.asarray(ref), rtol=1e-6)
 
 
@@ -202,9 +202,10 @@ def test_cuda_wrapper_refuses_other_devices():
         cuda_strokes.render_strokes_auto(pts, torch.empty(2, device="meta"), torch.empty((2, 4), device="meta"),
                                          torch.empty((2, 9, 4), device="meta"), 8, 8,
                                          torch.empty((8, 8, 3), device="meta"))
-    samples = torch.zeros((2, 9, 2))
-    meta = torch.zeros((2, 9))
+    samples, widths, colors = torch.zeros((2, 9, 2)), torch.ones(2), torch.ones((2, 4))
     with pytest.raises(ValueError):  # the launchers themselves take only CUDA tensors
-        cuda_strokes.launch_fwd(samples, meta, torch.zeros((4, 8, 8)))
+        cuda_strokes.launch_fwd(samples, widths, colors, torch.zeros((4, 8, 8)), store=True)
+    state = cuda_strokes.TileState(torch.zeros((2, 2)), torch.ones((2, 2)), torch.zeros(1, dtype=torch.int32),
+                                   torch.zeros((1, 2), dtype=torch.int32), torch.zeros((1, 1, *cuda_strokes.CANVAS_SLOT)))
     with pytest.raises(ValueError):
-        cuda_strokes.launch_bwd(torch.zeros((4, 8, 8)), samples, meta, torch.zeros((1, 4, 8, 8)))
+        cuda_strokes.launch_bwd(torch.zeros((4, 8, 8)), samples, widths, colors, state)
