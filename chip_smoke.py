@@ -11,8 +11,12 @@ Phases, each fatal on failure (exit code 1, no result line):
 3. warp kernels (K1, K2) in their bare-warp configuration (f32, no
    jitter, no noise) vs the plain gather on the card, forward (bitwise) and
    backward, at the 45 perspective cuts of a 64-cut bank (224x224x3 canvas,
-   S=224, modes 0/1/3 with a fill) and a ragged small case (N=5, S=17,
-   20x28 canvas), with median times;
+   S=224, modes 0/1/3 with a fill), at the whole 64-cut bank (K3c's
+   function at the X1/X2 ablations' shapes) and a ragged small case (N=5,
+   S=17, 20x28 canvas), with kernel and median times and bounds;
+3a. warp_batch (K3e/K3f's single-mode function) at crosscheck's case (8
+   cuts of a 224x597x3 canvas into 224): every padding mode against the
+   plain warp, the reflection case timed beside grid_sample;
 3b. bank kernels (K1, K2 with the bf16 rounding, jitter and noise inside)
    vs the plain composition on the card: the flagship 64-cut bank and a
    ragged tie-rich bank whose K2 blocks take both accumulation branches
@@ -35,18 +39,25 @@ Phases, each fatal on failure (exit code 1, no result line):
 5. agreement: TinyTest pixel and clipdraw runs, and a tiny_test VQGAN
    under TinyTest + TinyTest48, on the card against the same runs on the
    CPU (plain versions), same latent, weights and draws, per-step losses;
+5b. blocked: the pixel, clipdraw and vqgan rows with --steps_per_call 8
+   against two runs with 1, from one seed and one state after step 0, 16
+   steps (vqgan 8): the first replayed step bitwise, the rest within the
+   eager runs' own spread; the port's kernels listed by torch.profiler in
+   one graph replay; capture time, host ms per block, steps/s;
 6. main path: the bench's headline row (pixel drawer, 384x216, "sunrise",
    random-weight ViT-B/32, 64 cuts) through apply_settings + Engine, 9
-   warm-up and 24 timed steps; asserts finite, descending losses, one K1 and
-   one K2 launch per step, and the checkin PNG;
+   warm-up and 24 timed steps, blocked (step 0 eager, then blocks of 8 as
+   CUDA graph replays); asserts the blocks, finite, descending losses, one
+   K1 and one K2 launch per step (the warm-up step before the capture
+   included; a replay counts what its capture recorded), and the checkin PNG;
 7. clipdraw path: the bench's clipdraw row (1024 strokes, same prompt,
-   model, cuts and canvas), 9 + 24 steps; asserts finite, descending losses,
+   model, cuts and canvas), 9 + 24 steps, blocked; asserts finite, descending losses,
    one K4s + K5 + K1 + K2 launch per step, K4 at checkin, the PNG and the
    SVG of --save_svg;
-8. line_sketch: a few steps with a trainable paper color; asserts finite
-   losses, launches, and that the paper color moved;
+8. line_sketch: 9 steps (one block) with a trainable paper color; asserts
+   finite losses, launches, and that the paper color moved;
 9. vqgan path: the bench's vqgan row (imagenet_f16_16384, random weights,
-   under ViT-B/32 + ViT-B/16, 64 cuts, 384x208), 9 + 24 steps; asserts
+   under ViT-B/32 + ViT-B/16, 64 cuts, 384x208), 9 + 24 steps, blocked; asserts
    finite losses, two K1 and two K2 launches per step, that the latent
    moved within the codebook box onto other codes, and the 384x208 PNG;
 10. decoder times: the VQGAN's decode forward and gradient to the latent
@@ -54,9 +65,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    f32 copy (CUDA events);
 11. default run: ``pixray_tpu_torch.run(prompts=...)`` with every other
    setting at its default (vqgan, ViT-B/32 + ViT-B/16, 30 cuts, the init
-   noise resized and encoded, an LR drop), cut to 12 steps; asserts the
-   resolved settings, finite losses, the encoded init on codebook rows,
-   the LR drop, the checkins and frames, and the launches.
+   noise resized and encoded, an LR drop), cut to 12 steps (1-8 one
+   block); asserts the resolved settings, finite losses, the encoded init
+   on codebook rows, the LR drop, the checkins and frames, the step video
+   (steps/output.mp4, or the GIF where no MP4 encoder exists), and the
+   launches.
 
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -88,7 +101,7 @@ CLIPDRAW_CONFIG = dict(PIXEL_CONFIG, drawer="clipdraw")  # CONFIGS["clipdraw"], 
 VQGAN_CONFIG = dict(PIXEL_CONFIG, drawer="vqgan", clip_models="ViT-B/32,ViT-B/16")
 WARMUP_STEPS = 9  # bench.py:73-74
 TIMED_STEPS = 24
-LINE_SKETCH_STEPS = 4
+LINE_SKETCH_STEPS = 9  # step 0, then one block
 DEFAULT_RUN_STEPS = 12  # pixray_tpu_torch.run's defaults, cut to 12 iterations
 
 CODEBOOK_ATOL = 1e-5  # an encoded latent row against its nearest codebook row
@@ -107,6 +120,7 @@ F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 WARP_FWD_FLOPS_PER_PIXEL = 55  # coordinates and taps ~25, 3-channel bilinear 24, noise 6
 JITTER_FWD_FLOPS_PER_PIXEL = 45  # HSV round trip
 WARP_BWD_FLOPS_PER_PIXEL = 49  # taps ~25, the 12 tap products 24
+BARE_WARP_FWD_FLOPS_PER_PIXEL = 49  # the bare warp (f32, no jitter, no noise): coordinates and taps, bilinear
 JITTER_BWD_FLOPS_PER_PIXEL = 110  # HSV state ~35, its adjoint ~75
 STROKE_FLOPS_PER_SEGMENT = 18  # per kept (pixel, stroke) pair: projection, clamp, distance, min
 STROKE_FLOPS_PER_PAIR = 18  # sqrt, coverage, the 4-channel over
@@ -115,7 +129,18 @@ STROKE_FLOPS_PER_PAIR = 18  # sqrt, coverage, the 4-channel over
 STROKE_BWD_FLOPS_PER_PAIR = 50
 STROKE_BWD_FLOPS_PER_RAMP = 16  # per pair on the anti-aliasing ramp: the two end points' gradients
 AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTest
+# blocked vs eager on the card: within this many times the spread of two eager runs, at least the floor
+BLOCKED_SPREAD = 4.0
+BLOCKED_FLOOR = 1e-5
+BLOCKED_STEPS = 16  # after step 0; vqgan 8
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the f32 operations over the f32 peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def fail(msg: str):
@@ -266,12 +291,18 @@ def kernel_case(work, ms, modes, fill, out_size, time_it):
         def plain_bwd():
             torch.autograd.grad(out_plain, w_plain, g, retain_graph=True)
 
+        fwd = lambda: cuda_warp.launch_fwd(work, inv, modes, fill, out_size)
+        bwd = lambda: cuda_warp.launch_bwd(g, inv, modes, tuple(work.shape), out_size)
         res.update(
-            fwd_ms=median_ms(lambda: cuda_warp.launch_fwd(work, inv, modes, fill, out_size)),
-            fwd_plain_ms=median_ms(lambda: warp_modes_plain(work, inv, modes, fill, out_size)),
-            bwd_ms=median_ms(lambda: cuda_warp.launch_bwd(g, inv, modes, tuple(work.shape), out_size)),
-            bwd_plain_ms=median_ms(plain_bwd),
+            fwd_ms=median_ms(fwd), fwd_plain_ms=median_ms(lambda: warp_modes_plain(work, inv, modes, fill, out_size)),
+            bwd_ms=median_ms(bwd), bwd_plain_ms=median_ms(plain_bwd),
+            fwd_kernel_ms=device_ms(fwd, name="bank_fwd_kernel"), bwd_kernel_ms=device_ms(bwd, name="bank_bwd_kernel"),
         )
+        # f32 bank and cotangent, the canvas and its gradient, one parameter row per cut
+        h, w = work.shape[:2]
+        rows, canvas, bank = n * 16 * 4, h * w * c * 4, n * c * out_size ** 2 * 4
+        res["fwd_bound"] = bound(canvas + rows + bank, BARE_WARP_FWD_FLOPS_PER_PIXEL * n * out_size ** 2)
+        res["bwd_bound"] = bound(bank + rows + canvas, WARP_BWD_FLOPS_PER_PIXEL * n * out_size ** 2)
     return res
 
 
@@ -296,6 +327,17 @@ def phase_kernels():
           f"fwd {flagship['fwd_ms']:.4f} ms vs plain {flagship['fwd_plain_ms']:.4f} ms, "
           f"bwd {flagship['bwd_ms']:.4f} ms vs plain {flagship['bwd_plain_ms']:.4f} ms", flush=True)
 
+    # the whole 64-cut bank, zoom cuts by reflection or border, wide cuts over a
+    # fill: K3c's function at tools/exp8_fwd_kernel.py's shapes (the X1/X2 ablations)
+    ms64 = torch.cat([zoom, wide])
+    modes64 = torch.tensor([i % 2 for i in range(zoom.shape[0])] + [3] * wide.shape[0], dtype=torch.int32)
+    bank64 = kernel_case(work, ms64, modes64, 0.37, 224, time_it=True)
+    for name, r in (("flagship", flagship), ("flagship 64", bank64)):
+        print(f"kernels {name} times (N={r['n']}, f32 bare warp; ms, kernel / CUDA events of one call): "
+              f"K1 {r['fwd_kernel_ms']:.4f} / {r['fwd_ms']:.4f} (bound {r['fwd_bound'][0]:.4f}, {r['fwd_bound'][1]}), "
+              f"K2 {r['bwd_kernel_ms']:.4f} / {r['bwd_ms']:.4f} (bound {r['bwd_bound'][0]:.4f}, "
+              f"{r['bwd_bound'][1]}); plain {r['fwd_plain_ms']:.4f} / {r['bwd_plain_ms']:.4f}", flush=True)
+
     zoom, wide = cut_transforms(draw_cut_params(gen, 8, 28 / 20), 17, 28 / 20)
     ms_small = torch.cat([zoom[:3], wide[:2]])
     modes_small = torch.tensor([0, 1, 2, 3, 3], dtype=torch.int32)
@@ -303,7 +345,88 @@ def phase_kernels():
     small = kernel_case(work_small, ms_small, modes_small, 0.6, 17, time_it=False)
     print(f"kernels ragged (N=5, S=17, 20x28x3): K1 max_abs_err {small['fwd_err']:.3g}, "
           f"K2 max_abs_err {small['bwd_err']:.3g} (tol {small['bwd_tol']:.3g})", flush=True)
-    return flagship, small
+    return flagship, small, bank64
+
+
+def phase_warp_batch():
+    """``cuda_warp.warp_batch`` (K3e/K3f's function: one padding mode for
+    every cut, K1/K2 as the bare warp) at pixray_tpu/tools/crosscheck.py's
+    case: 8 cuts, each a random resized crop of a random perspective (0.4),
+    of a 224x597x3 canvas into 224x224, fill 0.5.  Every mode against the
+    plain warp on the card (forward bitwise, gradient within BWD_RTOL); the
+    reflection case timed with its bounds, the plain version and
+    grid_sample."""
+    import torch
+
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.ops import warp as W
+    from pixray_tpu_torch.ops.warp_batch import source_coords, warp_modes_plain
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2)
+    h, w, s_, n, fill = 224, 597, 224, 8, 0.5
+    u = lambda *shape: torch.rand(shape, generator=gen)
+    persp = W.random_perspective(h, w, 0.4, u(n, 4, 2))
+    crop = W.random_resized_crop(h, w, s_, u(n) * 0.6 + 0.3, u(n) * (math.log(1.2) - math.log(0.85)) + math.log(0.85),
+                                 u(n), u(n))
+    ms = W.mm3(crop, persp)
+    work = torch.rand((h, w, 3), generator=gen).to(dev)
+    g = torch.rand((n, 3, s_, s_), generator=gen).to(dev)
+    inv = W.inv3x3(ms.float()).to(dev)
+    errs = {}
+    for mode, code in cuda_warp.PADDING_MODES.items():
+        modes = torch.full((n,), code, dtype=torch.int32, device=dev)
+        w_k = work.clone().requires_grad_(True)
+        out_k = cuda_warp.warp_batch(w_k, ms, s_, mode, fill)
+        (d_k,) = torch.autograd.grad(out_k, w_k, g)
+        w_p = work.clone().requires_grad_(True)
+        out_p = warp_modes_plain(w_p, inv, modes, fill, s_)
+        (d_p,) = torch.autograd.grad(out_p, w_p, g)
+        errs[mode] = (float((out_k - out_p).abs().max()), float((d_k - d_p).abs().max()),
+                      BWD_RTOL * max(float(d_p.abs().max()), 1e-6))
+        if not (errs[mode][0] <= FWD_ATOL and errs[mode][1] <= errs[mode][2]):
+            fail(f"warp_batch {mode} disagrees with the plain warp: {errs[mode]}")
+    w_req = work.clone().requires_grad_(True)
+    out = cuda_warp.warp_batch(w_req, ms, s_, "reflection", fill)
+    w_plain = work.clone().requires_grad_(True)
+    modes = torch.zeros((n,), dtype=torch.int32, device=dev)
+    out_plain = warp_modes_plain(w_plain, inv, modes, fill, s_)
+    sx, sy = source_coords(inv, s_)
+    grid = torch.stack([(2 * sx + 1) / w - 1, (2 * sy + 1) / h - 1], dim=-1).contiguous()
+    chw = work.permute(2, 0, 1).contiguous()
+    chw_req = chw.clone().requires_grad_(True)
+    kw_gs = dict(mode="bilinear", padding_mode="reflection", align_corners=False)
+    lib_out = torch.nn.functional.grid_sample(chw_req[None].expand(n, -1, -1, -1), grid, **kw_gs)
+
+    def no_grad(fn):
+        def call():
+            with torch.no_grad():
+                fn()
+        return call
+
+    timed = {
+        "fwd": (no_grad(lambda: cuda_warp.warp_batch(work, ms, s_, "reflection", fill)), "bank_fwd_kernel"),
+        "bwd": (lambda: torch.autograd.grad(out, w_req, g, retain_graph=True), "bank_bwd_kernel"),
+        "fwd_plain": (no_grad(lambda: warp_modes_plain(work, inv, modes, fill, s_)), None),
+        "bwd_plain": (lambda: torch.autograd.grad(out_plain, w_plain, g, retain_graph=True), None),
+        "fwd_lib": (no_grad(lambda: torch.nn.functional.grid_sample(chw[None].expand(n, -1, -1, -1), grid,
+                                                                     **kw_gs)), None),
+        "bwd_lib": (lambda: torch.autograd.grad(lib_out, chw_req, g, retain_graph=True), None),
+    }
+    res = {"errs": errs}
+    for key, (fn, kernel) in timed.items():
+        res[key + "_ms"], res[key + "_event_ms"] = device_ms(fn, name=kernel), median_ms(fn)
+    rows, canvas, bank = n * 16 * 4, h * w * 3 * 4, n * 3 * s_ * s_ * 4
+    res["fwd_bound"] = bound(canvas + rows + bank, BARE_WARP_FWD_FLOPS_PER_PIXEL * n * s_ * s_)
+    res["bwd_bound"] = bound(bank + rows + canvas, WARP_BWD_FLOPS_PER_PIXEL * n * s_ * s_)
+    t = lambda k: f"{res[k + '_ms']:.4f} / {res[k + '_event_ms']:.4f}"
+    print("warp_batch (K3e/K3f) 8 cuts of 224x597x3 into 224, every mode vs the plain warp: "
+          + ", ".join(f"{m} fwd {e[0]:.3g} bwd {e[1]:.3g} (tol {e[2]:.3g})" for m, e in errs.items()), flush=True)
+    print(f"warp_batch (K3e/K3f) reflection times (ms, kernel / CUDA events of one call): K1 {t('fwd')} (bound "
+          f"{res['fwd_bound'][0]:.4f}, {res['fwd_bound'][1]}), K2 {t('bwd')} (bound {res['bwd_bound'][0]:.4f}, "
+          f"{res['bwd_bound'][1]}); plain {t('fwd_plain')} / {t('bwd_plain')}; grid_sample {t('fwd_lib')}, "
+          f"its input gradient {t('bwd_lib')}", flush=True)
+    return res
 
 
 def bf16_ulps(a, b):
@@ -333,14 +456,14 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
 
     dev, bf16 = work.device, torch.bfloat16
     inv = inv3x3(ms.float())
-    params = cuda_warp.pack_params(inv, modes, jitter, facs)
+    params = cuda_warp.pack_params(inv, modes, jitter, facs, fill=fill)
     params_dev = params.to(dev)
     n, (h, w, _) = ms.shape[0], work.shape
 
-    out_k, pre_k = cuda_warp.launch_bank_fwd(work, params_dev, fill, out_size, planes, bf16, save_pre=True)
+    out_k, pre_k = cuda_warp.launch_bank_fwd(work, params_dev, out_size, planes, bf16, save_pre=True)
     with torch.no_grad():
         pre_p = warp_modes_plain(work, inv.to(dev), modes.to(dev, torch.int32), fill, out_size).to(bf16)
-        out_p = cuda_warp.cutout_bank_plain(work, params, fill, out_size, planes, bf16)
+        out_p = cuda_warp.cutout_bank_plain(work, params, out_size, planes, bf16)
     torch.cuda.synchronize()
     if out_k.shape != (n, 3, out_size, out_size) or not torch.isfinite(out_k.float()).all():
         fail(f"K1 bank malformed on {name}: {tuple(out_k.shape)}")
@@ -353,7 +476,7 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
     # explicit jitter adjoint (K2's formulas) rounded to bf16, then autograd
     # through the plain warp
     w_req = work.clone().requires_grad_(True)
-    out_plain = cuda_warp.cutout_bank_plain(w_req, params, fill, out_size, planes, bf16)
+    out_plain = cuda_warp.cutout_bank_plain(w_req, params, out_size, planes, bf16)
     (dwork_p,) = torch.autograd.grad(out_plain, w_req, g, retain_graph=time_it)
     pre_leaf = pre_p.clone().requires_grad_(True)
     (d_auto,) = torch.autograd.grad(cuda_warp.bank_epilogue_plain(pre_leaf, params, planes), pre_leaf, g)
@@ -399,7 +522,7 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
 
         def plain_fwd():
             with torch.no_grad():
-                cuda_warp.cutout_bank_plain(work, params, fill, out_size, planes, bf16)
+                cuda_warp.cutout_bank_plain(work, params, out_size, planes, bf16)
 
         def plain_bwd():
             torch.autograd.grad(out_plain, w_req, g, retain_graph=True)
@@ -426,7 +549,7 @@ def bank_case(name, work, ms, modes, fill, out_size, jitter, facs, planes, time_
             torch.autograd.grad(lib_out, chw_req, g32, retain_graph=True)
 
         timed = {
-            "fwd": lambda: cuda_warp.launch_bank_fwd(work, params_dev, fill, out_size, planes, bf16, save_pre=True),
+            "fwd": lambda: cuda_warp.launch_bank_fwd(work, params_dev, out_size, planes, bf16, save_pre=True),
             "bwd": lambda: cuda_warp.launch_bank_bwd(g, pre_k, params_dev, tuple(work.shape), out_size),
             "fwd_plain": plain_fwd, "bwd_plain": plain_bwd, "fwd_lib": lib_fwd, "bwd_lib": lib_bwd,
         }
@@ -852,9 +975,14 @@ def phase_agreement(tmp, drawer_config, label, state_dicts=None, **extra):
 
 def drive_path(config, tmp, steps, warmup):
     """An Engine on the card, stepped ``steps`` times with a host read of the
-    loss after each (as bench.py reads it); every launch counter is set to 0
-    just before the steps and read just after.  Returns (engine, losses,
-    launches, init seconds, seconds of the steps after ``warmup``)."""
+    loss after each (as bench.py reads it), blocked unless the config says
+    ``steps_per_call`` 1; every launch counter is set to 0 just before the
+    steps and read just after.  Returns (engine, losses, launches, init
+    seconds, seconds after ``warmup``, steps the device ran in those
+    seconds).  A blocked engine dispatches a block at its first step and
+    the next one before it, so the steps timed are those dispatched after
+    the synchronize at ``warmup`` (every one of them finished by the final
+    synchronize), not the steps walked."""
     import torch
 
     from pixray_tpu_torch.config import apply_settings
@@ -865,6 +993,7 @@ def drive_path(config, tmp, steps, warmup):
     t0 = time.perf_counter()
     engine = Engine(settings, device="cuda")
     init_s = time.perf_counter() - t0
+    dispatched = lambda it: getattr(engine, "steps_dispatched", it)  # a tree without blocks: one per step
 
     cuda_warp.reset_launch_counts()
     cuda_strokes.reset_launch_counts()
@@ -872,15 +1001,30 @@ def drive_path(config, tmp, steps, warmup):
     for it in range(steps):
         if it == warmup:
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t0, first = time.perf_counter(), dispatched(it)
         engine.train(it)
         losses.append(float(engine.last_loss_values.float().sum()))
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
+    timed = dispatched(steps) - first
     launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES}
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite losses: {losses}")
-    return engine, losses, launches, init_s, elapsed
+    return engine, losses, launches, init_s, elapsed, timed
+
+
+def steps_run(engine, steps):
+    """Steps whose kernels launched: ``steps`` and the warm-up step before a capture."""
+    blk = engine.step_block
+    return steps + (1 if blk is not None and blk.graph is not None else 0)
+
+
+def check_blocked(label, engine, blocks):
+    """The run dispatched exactly ``blocks`` ((first step, steps) each) as graph replays."""
+    blk = engine.step_block
+    if engine.dispatched_blocks != blocks or (blocks and (blk is None or blk.graph is None)):
+        fail(f"{label}: blocks {engine.dispatched_blocks}, expected {blocks} through a captured graph")
+    return blk.capture_s if blocks else None
 
 
 def check_descent(label, losses):
@@ -910,31 +1054,39 @@ def check_png(label, path, size=None):
         fail(f"{label}: {path} is {got[0]}x{got[1]}, expected {size[0]}x{size[1]}")
 
 
+# steps 0 (the checkin) eager, then blocks of 8 to the end of the 33 steps
+PATH_BLOCKS = [(1 + 8 * k, 8) for k in range(4)]
+
+
 def phase_main_path(tmp, card):
     steps = WARMUP_STEPS + TIMED_STEPS
-    _, losses, launches, init_s, elapsed = drive_path(dict(PIXEL_CONFIG, iterations=steps + 16), tmp,
-                                                      steps, WARMUP_STEPS)
+    engine, losses, launches, init_s, elapsed, timed = drive_path(dict(PIXEL_CONFIG, iterations=steps), tmp,
+                                                                  steps, WARMUP_STEPS)
+    capture_s = check_blocked("pixel", engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
     first5, last5 = check_descent("pixel", losses)
-    check_launches("pixel", launches, {"warp_fwd": steps, "warp_bwd": steps, "strokes_fwd": 0,
+    check_launches("pixel", launches, {"warp_fwd": ran, "warp_bwd": ran, "strokes_fwd": 0,
                                        "strokes_fwd_store": 0, "strokes_bwd": 0})
     png = os.path.join(tmp, "output.png")
     check_png("pixel", png)
-    rate = TIMED_STEPS / elapsed
-    print(f"main path: pixel 384x216, ViT-B/32 (random weights), 64 cuts: init {init_s:.1f} s, "
-          f"{rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over {TIMED_STEPS} steps after "
-          f"{WARMUP_STEPS} warm-up, on {card}", flush=True)
+    rate = timed / elapsed
+    print(f"main path: pixel 384x216, ViT-B/32 (random weights), 64 cuts, blocked: init {init_s:.1f} s, "
+          f"capture {capture_s:.2f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over the {timed} steps "
+          f"dispatched after {WARMUP_STEPS} warm-up, on {card}", flush=True)
     print(f"main path losses: first5 {first5:.4f} -> last5 {last5:.4f}; launches {launches}; "
           f"checkin {png}", flush=True)
-    return launches
+    return launches, ran
 
 
 def phase_clipdraw_path(tmp, card):
     steps = WARMUP_STEPS + TIMED_STEPS
-    engine, losses, launches, init_s, elapsed = drive_path(
+    engine, losses, launches, init_s, elapsed, timed = drive_path(
         dict(CLIPDRAW_CONFIG, iterations=steps, save_svg=True), tmp, steps, WARMUP_STEPS)
+    capture_s = check_blocked("clipdraw", engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
     first5, last5 = check_descent("clipdraw", losses)
-    check_launches("clipdraw", launches, {"warp_fwd": steps, "warp_bwd": steps, "strokes_fwd_store": steps,
-                                          "strokes_bwd": steps, "strokes_fwd": "some"})
+    check_launches("clipdraw", launches, {"warp_fwd": ran, "warp_bwd": ran, "strokes_fwd_store": ran,
+                                          "strokes_bwd": ran, "strokes_fwd": "some"})
     png = os.path.join(tmp, "output.png")
     check_png("clipdraw", png)
     engine.cur_iteration = steps
@@ -942,13 +1094,13 @@ def phase_clipdraw_path(tmp, card):
     svg = os.path.join(tmp, "output.svg")
     if not (os.path.exists(svg) and open(svg).read().count("<path ") == 1024):
         fail("clipdraw: the SVG of --save_svg is missing or incomplete")
-    rate = TIMED_STEPS / elapsed
-    print(f"clipdraw path: 1024 strokes, 384x216, ViT-B/32 (random weights), 64 cuts: init {init_s:.1f} s, "
-          f"{rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over {TIMED_STEPS} steps after "
-          f"{WARMUP_STEPS} warm-up, on {card}", flush=True)
+    rate = timed / elapsed
+    print(f"clipdraw path: 1024 strokes, 384x216, ViT-B/32 (random weights), 64 cuts, blocked: init "
+          f"{init_s:.1f} s, capture {capture_s:.2f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over the "
+          f"{timed} steps dispatched after {WARMUP_STEPS} warm-up, on {card}", flush=True)
     print(f"clipdraw losses: first5 {first5:.4f} -> last5 {last5:.4f}; launches {launches}; "
           f"checkin {png}; svg {svg}", flush=True)
-    return launches
+    return launches, ran
 
 
 def phase_line_sketch(tmp):
@@ -956,16 +1108,114 @@ def phase_line_sketch(tmp):
 
     from pixray_tpu_torch.drawers.line_sketch import PAPER_COLOR
 
-    config = dict(PIXEL_CONFIG, drawer="line_sketch", allow_paper_color=True, iterations=LINE_SKETCH_STEPS + 16)
-    engine, losses, launches, _, _ = drive_path(config, tmp, LINE_SKETCH_STEPS, 0)
+    config = dict(PIXEL_CONFIG, drawer="line_sketch", allow_paper_color=True, iterations=LINE_SKETCH_STEPS)
+    engine, losses, launches, _, _, _ = drive_path(config, tmp, LINE_SKETCH_STEPS, 0)
+    check_blocked("line_sketch", engine, [(1, 8)])
+    ran = steps_run(engine, LINE_SKETCH_STEPS)
     check_launches("line_sketch", launches, {
-        "warp_fwd": LINE_SKETCH_STEPS, "warp_bwd": LINE_SKETCH_STEPS, "strokes_fwd_store": LINE_SKETCH_STEPS,
-        "strokes_bwd": LINE_SKETCH_STEPS, "strokes_fwd": "some"})
+        "warp_fwd": ran, "warp_bwd": ran, "strokes_fwd_store": ran, "strokes_bwd": ran, "strokes_fwd": "some"})
     moved = float((engine.z["paper"].cpu() - torch.tensor(PAPER_COLOR)).abs().max())
     if not moved > 0:
         fail("line_sketch: the trainable paper color did not move")
-    print(f"line_sketch: 24 strokes x 8 segments (P=65), trainable paper, {LINE_SKETCH_STEPS} steps: "
+    print(f"line_sketch: 24 strokes x 8 segments (P=65), trainable paper, {LINE_SKETCH_STEPS} steps (1-8 "
+          f"one block): "
           f"losses {[round(v, 4) for v in losses]}, paper moved {moved:.3g}; launches {launches}", flush=True)
+
+
+def phase_blocked(tmp, config, label, steps, card):
+    """``--steps_per_call 8`` against 1 on the card, from one seed, ``steps``
+    steps after step 0: a blocked engine and two eager ones.  Step 0 is
+    eager in all three (its checkin ends any block); then the eager engines
+    take the blocked one's latent and optimizer state, so that the three
+    start step 1 from one state with the same draws.  Step 1, the first
+    replayed step, must give the eager step's losses bitwise (its forward
+    is deterministic); the later steps may move apart only by the
+    reordering of K2's and K5's float atomics, so the blocked run must stay
+    within BLOCKED_SPREAD times the spread of the two eager runs (at least
+    BLOCKED_FLOOR).  Then ``torch.profiler`` over one replay of the graph
+    must list the port's kernels once per step and perceptor."""
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine.core import Engine
+    from pixray_tpu_torch.engine.latent import leaves
+    from pixray_tpu_torch.engine.optimizers import state_tensors
+
+    cfg = dict(config, iterations=steps + 1, outdir=tmp)
+    runs = {name: Engine(apply_settings(dict(cfg, steps_per_call=spc), apply_side_effects=False), device="cuda")
+            for name, spc in (("blocked", 8), ("eager", 1), ("eager2", 1))}
+    host_ms = []
+    blocked = runs["blocked"]
+    dispatch = blocked._dispatch_block
+
+    def timed_dispatch(cur_it, n):
+        t0 = time.perf_counter()
+        out = dispatch(cur_it, n)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    blocked._dispatch_block = timed_dispatch
+    for engine in runs.values():
+        engine.train(0)
+    with torch.no_grad():
+        for name in ("eager", "eager2"):
+            for dst, src in zip(leaves(runs[name].z) + state_tensors(runs[name].opt_state),
+                                leaves(blocked.z) + state_tensors(blocked.opt_state)):
+                dst.copy_(src)
+    losses, rates = {}, {}
+    for name, engine in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[name] = []
+        for it in range(1, steps + 1):
+            engine.train(it)
+            losses[name].append(engine.last_loss_values.float().cpu())
+        torch.cuda.synchronize()
+        rates[name] = steps / (time.perf_counter() - t0)
+    blk = blocked.step_block
+    expected = [(1 + 8 * k, 8) for k in range(steps // 8)]
+    if blocked.dispatched_blocks != expected or blk is None or blk.graph is None:
+        fail(f"blocked {label}: blocks {blocked.dispatched_blocks}, expected {expected} as graph replays")
+    if runs["eager"].dispatched_blocks:
+        fail(f"blocked {label}: the --steps_per_call 1 run dispatched blocks")
+    stack = {name: torch.stack(v) for name, v in losses.items()}
+    first_equal = torch.equal(stack["blocked"][0], stack["eager"][0])
+    dev = float((stack["blocked"] - stack["eager"]).abs().max())
+    spread = float((stack["eager2"] - stack["eager"]).abs().max())
+    tol = max(BLOCKED_SPREAD * spread, BLOCKED_FLOOR)
+    per_step = [float(d) for d in (stack["blocked"] - stack["eager"]).abs().amax(dim=1)]
+    if not first_equal:
+        fail(f"blocked {label}: the first replayed step's losses differ from the eager step's: "
+             f"{stack['blocked'][0].tolist()} vs {stack['eager'][0].tolist()}")
+    if not dev <= tol:
+        fail(f"blocked {label}: the blocked run moved {dev} from the eager run (tol {tol}, eager spread {spread}); "
+             f"per step {per_step}")
+    # the port's kernels inside one replay
+    events = profiled_events(blk.graph.replay, 1)
+    per_tower = blk.n * len(blocked.perceptors) * blocked.args.batches
+    want = {"bank_fwd_kernel": per_tower, "bank_bwd_kernel": per_tower}
+    if blocked.args.drawer in ("clipdraw", "line_sketch"):
+        want.update(strokes_fwd_kernel=blk.n, strokes_bwd_kernel=blk.n)
+    seen = {k: sum(k in ev.name for ev in events) for k in want}
+    if seen != want:
+        fail(f"blocked {label}: one replay ran {seen}, expected {want}")
+    # the host's cost of a replay's launch: on an idle card, and behind a running replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blk.graph.replay()
+    t1 = time.perf_counter()
+    blk.graph.replay()
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    print(f"blocked {label}: --steps_per_call 8 vs 1 on the card, {steps} steps after step 0 (blocks {expected}): "
+          f"first replayed step bitwise {first_equal}; max |loss diff| blocked vs eager {dev:.3g}, eager vs eager "
+          f"{spread:.3g} (tol {tol:.3g}); per step {[float(f'{d:.3g}') for d in per_step]}; one replay under "
+          f"torch.profiler: {seen} ({len(events)} device events); capture {blk.capture_s:.3f} s; host ms per block "
+          f"dispatch {[round(t, 2) for t in host_ms]} (the first includes the capture); host ms to launch a replay "
+          f"{1e3 * (t1 - t0):.3f} on an idle card, {1e3 * (t2 - t1):.3f} behind a running one; steps/s over the "
+          f"{steps} steps: blocked {rates['blocked']:.3f} ({steps / (steps / rates['blocked'] - blk.capture_s):.3f} "
+          f"without the capture), eager {rates['eager']:.3f}, {rates['eager2']:.3f}; on {card}", flush=True)
+    return {"dev": dev, "spread": spread, "tol": tol, "replay": seen}
 
 
 def phase_vqgan_path(tmp, card):
@@ -978,9 +1228,11 @@ def phase_vqgan_path(tmp, card):
     (PERF.md).  What is held instead: the latent moved, stayed in the
     box, and landed on other codes."""
     steps = WARMUP_STEPS + TIMED_STEPS
-    engine, losses, launches, init_s, elapsed = drive_path(dict(VQGAN_CONFIG, iterations=steps + 16), tmp,
-                                                           steps, WARMUP_STEPS)
-    check_launches("vqgan", launches, {"warp_fwd": 2 * steps, "warp_bwd": 2 * steps, "strokes_fwd": 0,
+    engine, losses, launches, init_s, elapsed, timed = drive_path(dict(VQGAN_CONFIG, iterations=steps), tmp,
+                                                                  steps, WARMUP_STEPS)
+    capture_s = check_blocked("vqgan", engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
+    check_launches("vqgan", launches, {"warp_fwd": 2 * ran, "warp_bwd": 2 * ran, "strokes_fwd": 0,
                                        "strokes_fwd_store": 0, "strokes_bwd": 0})
     drawer = engine.drawer
     quantize = drawer.model.quantize
@@ -991,11 +1243,12 @@ def phase_vqgan_path(tmp, card):
         fail(f"vqgan: after {steps} steps {changed} of {z.shape[0]} codes changed; latent inside the box: {inside}")
     png = os.path.join(tmp, "output.png")
     check_png("vqgan", png, (384, 208))
-    rate = TIMED_STEPS / elapsed
+    rate = timed / elapsed
     first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
     print(f"vqgan path: imagenet_f16_16384 (random weights) 384x208, ViT-B/32 + ViT-B/16 (random weights), "
-          f"64 cuts each: init {init_s:.1f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over "
-          f"{TIMED_STEPS} steps after {WARMUP_STEPS} warm-up, on {card}", flush=True)
+          f"64 cuts each, blocked: init {init_s:.1f} s, capture {capture_s:.2f} s, {rate:.3f} steps/s "
+          f"({1000 / rate:.2f} ms/step) over the {timed} steps dispatched after {WARMUP_STEPS} warm-up, "
+          f"on {card}", flush=True)
     print(f"vqgan losses (finite; not gated on descent): first5 {first5:.4f} -> last5 {last5:.4f}, "
           f"{changed} of {z.shape[0]} codes changed; names {engine.loss_names}; launches {launches}; "
           f"checkin {png}", flush=True)
@@ -1034,12 +1287,25 @@ def phase_vqgan_default(tmp):
     check_png("default run", os.path.join(tmp, "output.png"), (384, 208))
     for it in (0, 10, DEFAULT_RUN_STEPS):
         check_png("default run", os.path.join(tmp, "steps", f"frame_{it:04d}.png"), (384, 208))
-    check_launches("default run", launches, {"warp_fwd": 2 * DEFAULT_RUN_STEPS, "warp_bwd": 2 * DEFAULT_RUN_STEPS,
+    # step 0 (checkin) eager, 1-8 one block ending on the LR drop, 9-11 eager (a truncated span)
+    check_blocked("default run", engine, [(1, 8)])
+    ran = steps_run(engine, DEFAULT_RUN_STEPS)
+    check_launches("default run", launches, {"warp_fwd": 2 * ran, "warp_bwd": 2 * ran,
                                              "strokes_fwd": 0, "strokes_fwd_store": 0, "strokes_bwd": 0})
+    steps_dir = os.path.join(tmp, "steps")
+    videos = [f for f in ("output.mp4", "output.gif") if os.path.exists(os.path.join(steps_dir, f))]
+    if not videos:
+        fail(f"default run: no step video in {sorted(os.listdir(steps_dir))}")
+    with open(os.path.join(steps_dir, videos[0]), "rb") as f:
+        head = f.read(12)
+    if not (head[:4] == b"GIF8" if videos[0].endswith(".gif") else head[4:8] == b"ftyp"):
+        fail(f"default run: {videos[0]} is not a {videos[0][-3:]} file")
     print(f"default run: vqgan {engine.side_x}x{engine.side_y} (noise resized from {args.size[0]}x{args.size[1]} "
           f"and encoded: {flat.shape[0]} codebook rows, max off {off:.3g}), {args.clip_models}, "
-          f"{args.num_cuts} cuts, {DEFAULT_RUN_STEPS} steps, LR drop at {args.learning_rate_drops}; final losses "
-          f"{dict(zip(engine.loss_names, [round(v, 4) for v in values.tolist()]))}; frames 0, 10, 12", flush=True)
+          f"{args.num_cuts} cuts, {DEFAULT_RUN_STEPS} steps (1-8 one block), LR drop at "
+          f"{args.learning_rate_drops}; final losses "
+          f"{dict(zip(engine.loss_names, [round(v, 4) for v in values.tolist()]))}; frames 0, 10, 12; step video "
+          f"steps/{videos[0]}", flush=True)
 
 
 def phase_decoder_times(model):
@@ -1103,7 +1369,8 @@ def main():
     for lib, secs in build_all().items():
         print(f"build: {secs:.1f} s ({lib})", flush=True)
 
-    flagship, small = phase_kernels()
+    flagship, small, bank64 = phase_kernels()
+    warp_batch = phase_warp_batch()
     bank = phase_bank_kernels()
     strokes = phase_stroke_kernels()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1114,10 +1381,14 @@ def main():
         phase_agreement(tmp, VQGAN_CONFIG, "vqgan tiny_test",
                         state_dicts={"vqgan": wide_codebook_weights("tiny_test")},
                         vqgan_model="tiny_test", clip_models="TinyTest,TinyTest48")
+    for config, label, steps in ((PIXEL_CONFIG, "pixel", BLOCKED_STEPS), (CLIPDRAW_CONFIG, "clipdraw", BLOCKED_STEPS),
+                                 (VQGAN_CONFIG, "vqgan", 8)):
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_blocked(tmp, config, label, steps, card)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(tmp, card)
+        launches, _ = phase_main_path(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
-        stroke_launches = phase_clipdraw_path(tmp, card)
+        stroke_launches, _ = phase_clipdraw_path(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_line_sketch(tmp)
     with tempfile.TemporaryDirectory() as tmp:

@@ -130,7 +130,7 @@ def setup_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--checkpoint_every", type=str, help="session checkpoint cadence (not ported)", default=0, dest="checkpoint_every")
     a("--resume_from", type=str, help="resume a session (not ported)", default=None, dest="resume_from")
     a("--profile_dir", type=str, help="profiler traces (not ported)", default=None, dest="profile_dir")
-    a("--steps_per_call", type=int, help="optimizer steps per dispatch (JAX package only)", default=0, dest="steps_per_call")
+    a("--steps_per_call", type=int, help="optimizer steps per dispatch (0=auto blocks of 8 DEFAULT; 1=single-step; N>1=fixed block size); on the card a block is one replay of a captured CUDA graph; host events (save/LR drops) split blocks automatically", default=0, dest="steps_per_call")
     a("--save_svg", type=str2bool, help="export vector drawers to SVG at the end of the run", default=False, dest="save_svg")
     return parser
 

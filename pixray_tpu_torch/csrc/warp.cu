@@ -55,7 +55,9 @@
 //
 // Per-cut parameters come in one f32 row of kParamStride per cut:
 // inverse matrix (9), mode, hue shift, saturation factor, apply, noise
-// factor, at the offsets bank_layout() exports.  Modes: 0 reflection (with the -1e-6 of the reference), 1 border
+// factor, fill, at the offsets bank_layout() exports.  The fill travels in
+// the row, not as a kernel argument, so that a captured CUDA graph of the
+// step reads each step's gray from the parameter rows it is given.  Modes: 0 reflection (with the -1e-6 of the reference), 1 border
 // clamp, 2 zeros, 3 zeros composited over `fill` by the closed-form coverage
 // at the raw coordinates.  All pointers are device pointers; nothing is
 // allocated here.
@@ -69,7 +71,7 @@
 namespace {
 
 constexpr int kParamStride = 16;
-constexpr int kMode = 9, kHue = 10, kSat = 11, kApply = 12, kFac = 13;  // after the 9 of the matrix
+constexpr int kMode = 9, kHue = 10, kSat = 11, kApply = 12, kFac = 13, kFill = 14;  // after the 9 of the matrix
 constexpr int kThreads = 256;
 constexpr int kTile = 16;            // backward output tile, kTile x kTile = kThreads pixels
 constexpr int kSmemFloats = 2048;    // backward footprint budget: 8 KB, a 26 x 26 canvas patch
@@ -81,7 +83,7 @@ using bf16 = __nv_bfloat16;
 struct Cut {
   float m[9];
   int mode;
-  float hue, sat, fac;
+  float hue, sat, fac, fill;
   bool apply;
 };
 
@@ -95,6 +97,7 @@ __device__ __forceinline__ Cut load_cut(const float* __restrict__ params, int n)
   c.sat = __ldg(p + kSat);
   c.apply = __ldg(p + kApply) != 0.f;
   c.fac = __ldg(p + kFac);
+  c.fill = __ldg(p + kFill);
   return c;
 }
 
@@ -342,7 +345,7 @@ __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[Ve
 // or null.  Each thread makes kN consecutive pixels of one cut.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params, float fill,
+bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params,
                 const T* __restrict__ z0, const T* __restrict__ z1, const T* __restrict__ z2,
                 T* __restrict__ out, T* __restrict__ pre, int h, int w, int s, bool vec) {
   constexpr int kN = Vec<T>::kN;
@@ -365,7 +368,7 @@ bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params
 #pragma unroll
   for (int e = 0; e < kN; ++e) {
     if (e >= count) break;
-    const Taps tp = compute_taps(c, i, j, h, w, fill);
+    const Taps tp = compute_taps(c, i, j, h, w, c.fill);
     float v[3];
 #pragma unroll
     for (int ci = 0; ci < 3; ++ci) {
@@ -525,7 +528,7 @@ bank_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float*
 bool aligned8(const void* p) { return p == nullptr || ((uintptr_t)p & 7u) == 0; }
 
 template <typename T>
-int launch_fwd(const float* work, const float* params, float fill, const void* z0, const void* z1,
+int launch_fwd(const float* work, const float* params, const void* z0, const void* z1,
                const void* z2, void* out, void* pre, int n, int h, int w, int s, cudaStream_t stream) {
   constexpr int kN = Vec<T>::kN;
   const int k = s * s;
@@ -533,7 +536,7 @@ int launch_fwd(const float* work, const float* params, float fill, const void* z
   const int groups = (k + kN - 1) / kN;
   dim3 grid((groups + kThreads - 1) / kThreads, n);
   bank_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      work, params, fill, (const T*)z0, (const T*)z1, (const T*)z2, (T*)out, (T*)pre, h, w, s, vec);
+      work, params, (const T*)z0, (const T*)z1, (const T*)z2, (T*)out, (T*)pre, h, w, s, vec);
   return (int)cudaGetLastError();
 }
 
@@ -550,12 +553,12 @@ int launch_bwd(const void* g, const void* pre, const float* params, float* dwork
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (out, pre and the noise planes share it).
-extern "C" int bank_fwd(const float* work, const float* params, float fill, const void* z0,
+extern "C" int bank_fwd(const float* work, const float* params, const void* z0,
                         const void* z1, const void* z2, void* out, void* pre, int dtype, int n, int h,
                         int w, int s, void* stream) {
   if (dtype == 1)
-    return launch_fwd<bf16>(work, params, fill, z0, z1, z2, out, pre, n, h, w, s, (cudaStream_t)stream);
-  return launch_fwd<float>(work, params, fill, z0, z1, z2, out, pre, n, h, w, s, (cudaStream_t)stream);
+    return launch_fwd<bf16>(work, params, z0, z1, z2, out, pre, n, h, w, s, (cudaStream_t)stream);
+  return launch_fwd<float>(work, params, z0, z1, z2, out, pre, n, h, w, s, (cudaStream_t)stream);
 }
 
 extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, int* branches,
@@ -564,8 +567,8 @@ extern "C" int bank_bwd(const void* g, const void* pre, const float* params, flo
   return launch_bwd<float>(g, pre, params, dwork, branches, n, h, w, s, (cudaStream_t)stream);
 }
 
-// the per-cut row's layout: stride, then the offsets of mode, hue, saturation, apply, noise factor
+// the per-cut row's layout: stride, then the offsets of mode, hue, saturation, apply, noise factor, fill
 extern "C" void bank_layout(int* out) {
-  const int layout[6] = {kParamStride, kMode, kHue, kSat, kApply, kFac};
-  for (int k = 0; k < 6; ++k) out[k] = layout[k];
+  const int layout[7] = {kParamStride, kMode, kHue, kSat, kApply, kFac, kFill};
+  for (int k = 0; k < 7; ++k) out[k] = layout[k];
 }

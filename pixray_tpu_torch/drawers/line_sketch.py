@@ -102,11 +102,12 @@ class LineDrawer:
     def _paper(self, z):
         if "paper" in z:
             return z["paper"]
-        return torch.tensor(PAPER_COLOR, dtype=torch.float32, device=z["points"].device)
+        # filled on the device (no copy from the host, so a CUDA graph can capture it)
+        return torch.stack([z["points"].new_full((), c) for c in PAPER_COLOR])
 
     def synth(self, model_params, z):
         bg = self._paper(z).expand(self.canvas_height, self.canvas_width, 3)
-        colors = z["points"].new_tensor([0.0, 0.0, 0.0, 1.0]).expand(self.num_paths, 4)
+        colors = torch.cat([z["points"].new_zeros((self.num_paths, 3)), z["points"].new_ones((self.num_paths, 1))], 1)
         out = render_strokes_auto(z["points"], z["widths"], colors, model_params["basis"],
                                   self.canvas_height, self.canvas_width, bg)
         return out[..., :3]

@@ -6,6 +6,18 @@ with the JAX engine's cadence (checkin at ``save_every`` and at the end,
 LR drops with a fresh optimizer state, best-loss tracking read one step
 late so the host never waits on the step it just queued).
 
+Blocked dispatch, as the JAX engine runs it (``--steps_per_call``: 0 means
+blocks of 8 steps, 1 single steps, N > 1 blocks of N): between host events
+(checkins, LR drops) ``_block_size`` groups the steps into full-size
+blocks, and a block is one dispatch, ``step.StepBlock``: one replay of a
+captured CUDA graph of its steps on the card, its steps in a loop on the
+CPU.  The host draws a block's steps in the eager order, so a blocked run
+draws exactly what a single-step run draws; it dispatches the next block
+before it reads the current block's losses (in one transfer), unless a
+host event comes between.  ``train(cur_it, draws=...)`` with explicit
+draws is always one eager step.  On the card ``--steps_per_call 1`` is the
+only way to the eager step.
+
 ``device`` is explicit and defaults to ``"cuda"``; asking for CUDA where
 there is none raises (there is no CPU fallback).  The towers and the VQGAN
 compute in bfloat16 on CUDA when ``--precision bf16`` (the default), the
@@ -16,7 +28,8 @@ line_sketch); a drawer with ``load_model`` gets the device and dtype for
 its weights; a drawer with ``get_opts`` brings its own optimizer (one Adam
 per group), as in the JAX engine.  ``--init_noise pixels`` off the
 drawer's grid is resized with PIL's Lanczos, as in the JAX engine.
-``--save_svg`` writes the drawer's vector export at the end of ``run``.
+``run`` ends, also after an interrupt, with the step video of the checkin
+frames (``--save_intermediates``) and ``--save_svg``'s vector export.
 
 Settings the ported slices do not implement raise ``NotImplementedError``
 here rather than being ignored.
@@ -37,7 +50,8 @@ from pixray_tpu_torch.engine.latent import ravel, tree_map
 from pixray_tpu_torch.engine.optimizers import build_optimizer
 from pixray_tpu_torch.engine.prompts import build_prompt_tables
 from pixray_tpu_torch.engine.schedule import BestTracker
-from pixray_tpu_torch.engine.step import PerceptorSpec, StepConfig, train_step
+from pixray_tpu_torch.engine.step import (PerceptorSpec, StepBlock, StepConfig, draws_to_inputs, pack_step,
+                                          train_step)
 from pixray_tpu_torch.io import output as OUT
 from pixray_tpu_torch.models.perceptor import Perceptor
 from pixray_tpu_torch.utils import get_file_path
@@ -51,6 +65,7 @@ _UNPORTED = [
     ("resume_from", None), ("checkpoint_every", 0), ("profile_dir", None),
     ("init_weight_pix", 0.0),
 ]
+BLOCK_STEPS = 8  # --steps_per_call 0: blocks of 8 steps, as in the JAX engine
 
 
 def resolve_seed(seed_setting):
@@ -150,6 +165,12 @@ class Engine:
         self.cur_iteration = 0
         self.last_loss_values = None
         self._pending_loss = None
+        self._block = None  # the dispatched block being walked, and the one after it
+        self._next_block = None
+        self.step_block = None  # the StepBlock (its graph, once captured), made at the first block
+        self._display_streaming = False  # run() streams no partial results (not ported)
+        self.steps_dispatched = 0  # steps whose work has been enqueued, blocked or eager
+        self.dispatched_blocks = []  # (first step, steps) of every block dispatched
         print("Optimising using:", args.optimiser)
         if args.prompts:
             print("Using text prompts:", args.prompts)
@@ -165,7 +186,8 @@ class Engine:
             lr = drawer_lr if drawer_lr is not None else self.args.learning_rate
             self.optimizer = build_optimizer(self.args.optimiser, lr)
         self.opt_state = self.optimizer.init(self.z)
-        self.lr_scale = 1.0 / self.tracker.drop_divisor
+        # a device tensor: a captured block reads it, and an LR drop fills it
+        self.lr_scale = torch.full((), 1.0 / self.tracker.drop_divisor, dtype=torch.float32, device=self.device)
 
     def _init_noise(self, args):
         from pixray_tpu_torch.utils.noise import random_noise_array
@@ -180,36 +202,144 @@ class Engine:
         return arr
 
     # ------------------------------------------------------------------ draws
-    def draw_step(self) -> list[dict]:
-        """One draws dict per batch of the next step (see ``step.loss_fn``)."""
+    def draw_step(self, planes_out=None) -> list[dict]:
+        """One draws dict per batch of the next step (see ``step.pack_step``);
+        ``planes_out`` (per batch, per perceptor: three planes) receives the
+        noise planes."""
         out = []
-        for _ in range(self.args.batches):
+        for b in range(self.args.batches):
             fill = float(torch.rand((), generator=self.gen))
             out.append({
                 "fill": fill,
                 "perceptors": [
                     C.draw_step_cutouts(self.gen, self.gen_device, self.args.num_cuts,
                                         p.input_resolution, self.args.aspect_width,
-                                        self.compute_dtype or torch.float32, self.device)
-                    for p in self.perceptors
+                                        self.compute_dtype or torch.float32, self.device,
+                                        planes_out=None if planes_out is None else planes_out[b][i])
+                    for i, p in enumerate(self.perceptors)
                 ],
             })
         return out
+
+    # ------------------------------------------------------------------ blocks
+    def _want(self) -> int:
+        return BLOCK_STEPS if self.args.steps_per_call == 0 else self.args.steps_per_call
+
+    def _block_size(self, cur_it: int) -> int:
+        """How many steps may run as one dispatch starting at ``cur_it`` (the
+        JAX engine's rules): post-step host events (checkin, LR drop,
+        checkpoint, display streaming) may fall only on a block's last step;
+        ``auto_stop``, ``--video`` and a drawer with ``post_step`` disable
+        blocking; ``--steps_per_call 1`` forces single steps."""
+        args = self.args
+        if getattr(args, "steps_per_call", 0) == 1:
+            return 1
+        n = self._want()
+        if args.make_video or args.auto_stop or hasattr(self.drawer, "post_step"):
+            return 1
+        n = min(n, args.iterations - cur_it)
+        # (animation, which caps a block at its frame's span, is not ported)
+        if n < 2:
+            return 1
+        for it in range(cur_it, cur_it + n - 1):  # post-step events: all but the last step
+            if it % args.save_every == 0 or it in args.learning_rate_drops:
+                n = it - cur_it + 1
+                break
+            ck = getattr(args, "checkpoint_every", 0)
+            if ck and it and it % ck == 0:
+                n = it - cur_it + 1
+                break
+            de = args.display_every
+            if self._display_streaming and de and (it + 1) % de == 0:
+                n = it - cur_it + 1
+                break
+        # (pre-step events inside a block: the overlay, which is not ported)
+        return max(n, 1)
+
+    def _has_host_event(self, it: int) -> bool:
+        """Host work is due after step ``it`` (checkin, LR drop, checkpoint,
+        display), so no block may be dispatched past it: those paths read
+        the latent of step ``it``.  The display test is the JAX engine's."""
+        args = self.args
+        if it % args.save_every == 0 or it in args.learning_rate_drops:
+            return True
+        ck = getattr(args, "checkpoint_every", 0)
+        if ck and it and it % ck == 0:
+            return True
+        de = args.display_every
+        return bool(de and (it + 1) % de == 0)
+
+    def _dispatch_block(self, cur_it: int, n: int) -> dict:
+        """Draw, stage and dispatch ``n`` steps from ``cur_it``; the losses stay pending."""
+        blk = self.step_block
+        if blk is None or blk.n != n:
+            blk = self.step_block = StepBlock(self.step_cfg, self.optimizer, n,
+                                               [self.args.num_cuts] * len(self.perceptors), self.device)
+        host = blk.staging_rows()
+        for s in range(n):
+            pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, host[s])
+        blk.upload(host)
+        result = blk.run(self.z, self.opt_state, self.lr_scale)
+        self.steps_dispatched += n
+        self.dispatched_blocks.append((cur_it, n))
+        return {"start": cur_it, "n": n, "result": result, "totals": None, "valss": None}
+
+    def _consume_block(self, cur_it: int):
+        """(total, values) of step ``cur_it`` from the dispatched block, or None.
+
+        At a block's first step the next block is dispatched, when no host
+        event comes between them, before this block's losses (n,) and (n,
+        L) come to the host in one transfer."""
+        b = self._block
+        if b is None:
+            return None
+        idx = cur_it - b["start"]
+        if not 0 <= idx < b["n"]:
+            self._block = self._next_block = None
+            return None
+        if idx == 0 and b["totals"] is None:
+            want = self._want()
+            nxt = b["start"] + b["n"]
+            # (the JAX engine also stops at an overlay due at nxt: not ported)
+            if (self._next_block is None and not self._has_host_event(nxt - 1)
+                    and self._block_size(nxt) == want and want > 1):
+                self._next_block = self._dispatch_block(nxt, want)
+            b["totals"], b["valss"] = b["result"].host()
+        total, values = b["totals"][idx], b["valss"][idx]
+        if idx == b["n"] - 1:
+            self._block, self._next_block = self._next_block, None
+        return total, values
 
     # ------------------------------------------------------------------ train/run
     def train(self, cur_it: int, draws=None) -> bool:
         """One optimizer step + host scheduling; False when the run should end.
 
-        ``draws`` (one dict per batch) replaces this step's random draws."""
+        The step comes from a dispatched block where one covers ``cur_it``
+        (a full-size block is dispatched here when ``_block_size`` allows
+        one), else it runs eagerly.  ``draws`` (one dict per batch) replaces
+        this step's random draws and makes it one eager step."""
         args = self.args
         rebuild_opts_when_done = False
 
         if cur_it < args.iterations:
-            batch_draws = self.draw_step() if draws is None else draws
-            self.z, self.opt_state, total, values, _img = train_step(
-                self.step_cfg, self.optimizer, self.z, self.opt_state, cur_it, self.lr_scale,
-                batch_draws,
-            )
+            buffered = None
+            if draws is None:
+                buffered = self._consume_block(cur_it)
+                if buffered is None:
+                    # only full-size blocks run blocked (one captured graph);
+                    # a truncated span runs single steps
+                    n = self._block_size(cur_it)
+                    if n == self._want() and n > 1:
+                        self._block = self._dispatch_block(cur_it, n)
+                        buffered = self._consume_block(cur_it)
+            if buffered is not None:
+                total, values = buffered
+            else:
+                batch_draws = self.draw_step() if draws is None else draws
+                inputs = draws_to_inputs(self.step_cfg, batch_draws, cur_it, self.device)
+                total, values, _img = train_step(self.step_cfg, self.optimizer, self.z, self.opt_state,
+                                                 self.lr_scale, inputs)
+                self.steps_dispatched += 1
             self.last_loss_values = values
 
             if cur_it in args.learning_rate_drops:
@@ -234,8 +364,9 @@ class Engine:
         if rebuild_opts_when_done:
             if not self.tracker.register_drop(cur_it):
                 return False
-            self.opt_state = self.optimizer.init(self.z)
-            self.lr_scale = 1.0 / self.tracker.drop_divisor
+            # in place: a captured block reads the state and the scale where they are
+            self.optimizer.reset(self.opt_state)
+            self.lr_scale.fill_(1.0 / self.tracker.drop_divisor)
         return True
 
     @torch.no_grad()
@@ -265,14 +396,20 @@ class Engine:
         print(writestr)
 
     def run(self) -> bool:
-        """Train until ``iterations`` (the final checkin included)."""
+        """Train until ``iterations`` (the final checkin included), or until
+        interrupted; then the step video and the SVG."""
         args = self.args
-        keep_going = True
-        while keep_going:
-            keep_going = self.train(self.cur_iteration)
-            if self.cur_iteration == args.iterations:
-                break
-            self.cur_iteration += 1
+        try:
+            keep_going = True
+            while keep_going:
+                keep_going = self.train(self.cur_iteration)
+                if self.cur_iteration == args.iterations:
+                    break
+                self.cur_iteration += 1
+        except KeyboardInterrupt:
+            pass
+        if args.save_intermediates:
+            OUT.step_to_video(args)
         if args.save_svg:
             self.save_svg()
         return True

@@ -17,8 +17,9 @@ The path ported is the JAX package's default one:
 
 Random draws are explicit: the cut geometry, jitter parameters and noise
 factors come from a CPU ``torch.Generator`` (they are tiny and travel to the
-card in one parameter buffer), the noise planes from a generator on the
-canvas's device.  Every
+card in one block of parameter rows, :func:`pack_cutouts`), the noise
+planes from a generator on the canvas's device (drawn into given planes
+when a block of steps keeps them at fixed addresses).  Every
 function that draws also accepts the draws, so tests feed the JAX
 package's own draws.
 """
@@ -145,12 +146,16 @@ def cut_transforms(draws, cut_size: int, aspect: float):
     return zoom, wide
 
 
-def draw_noise(gen_host, gen_device, n: int, cut_size: int, dtype, device):
+def draw_noise(gen_host, gen_device, n: int, cut_size: int, dtype, device, out=None):
     """Per-cut noise factors (N, 1, 1) on the host and three (N, S, S)
-    gaussian planes on ``device``, both in ``dtype``."""
+    gaussian planes on ``device``, both in ``dtype``.  ``out``: three (N, S,
+    S) planes to draw into (the same numbers as new ones)."""
     facs = (torch.rand((n, 1, 1), generator=gen_host) * NOISE_FAC).to(dtype)
-    planes = [torch.randn((n, cut_size, cut_size), generator=gen_device, device=device, dtype=dtype)
-              for _ in range(3)]
+    if out is None:
+        planes = [torch.randn((n, cut_size, cut_size), generator=gen_device, device=device, dtype=dtype)
+                  for _ in range(3)]
+    else:
+        planes = [torch.randn((n, cut_size, cut_size), generator=gen_device, out=z) for z in out]
     return facs, planes
 
 
@@ -165,6 +170,19 @@ def bank_order(n_zoom: int, n_wide: int):
     return torch.cat([zoom[:n_zp], wide[:n_wp], zoom[n_zp:], wide[n_wp:]])
 
 
+def pack_cutouts(transforms, *, reflect_padding: bool, fill_color: float, jitter=None, facs=None, out=None):
+    """The (N, PARAM_STRIDE) host parameter rows of one bank, in bank order
+    (see :func:`render_cutouts` for the arguments; ``facs`` (N, 1, 1)).
+    ``out``: the host rows to write, else new ones."""
+    zoom_ms, wide_ms = transforms
+    nz, nw = zoom_ms.shape[0], wide_ms.shape[0]
+    order = bank_order(nz, nw)
+    ms = torch.cat([zoom_ms, wide_ms])[order]
+    modes = torch.cat([torch.full((nz,), MODE_REFLECT if reflect_padding else MODE_BORDER),
+                       torch.full((nw,), MODE_FILL)])[order]
+    return pack_params(W.inv3x3(ms.float()), modes, jitter, facs, fill=fill_color, out=out)
+
+
 def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
                    fill_color: float, jitter=None, noise=None, compute_dtype=None):
     """The (N, 3, S, S) cutout bank from the working canvas.
@@ -177,23 +195,21 @@ def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
     compute_dtype: dtype of the bank and its epilogue (None = float32).
 
     Every cut, perspective or axis-aligned, goes through one bank warp
-    (``cuda_warp.cutout_bank``): on the card K1/K2 with the epilogue inside,
-    on the CPU the plain composition."""
-    zoom_ms, wide_ms = transforms
-    nz, nw = zoom_ms.shape[0], wide_ms.shape[0]
-    order = bank_order(nz, nw)
-    ms = torch.cat([zoom_ms, wide_ms])[order]
-    modes = torch.cat([torch.full((nz,), MODE_REFLECT if reflect_padding else MODE_BORDER),
-                       torch.full((nw,), MODE_FILL)])[order]
+    (``cuda_warp.cutout_bank``, which the step calls on the rows of
+    :func:`pack_cutouts`): on the card K1/K2 with the epilogue inside, on
+    the CPU the plain composition."""
     facs, planes = (None, None) if noise is None else noise
-    params = pack_params(W.inv3x3(ms.float()), modes, jitter, facs, pin=work.is_cuda)
-    return cutout_bank(work, params, fill_color, cut_size, planes, compute_dtype)
+    params = pack_cutouts(transforms, reflect_padding=reflect_padding, fill_color=fill_color,
+                          jitter=jitter, facs=facs)
+    return cutout_bank(work, params, cut_size, planes, compute_dtype)
 
 
-def draw_step_cutouts(gen_host, gen_device, cutn: int, cut_size: int, aspect: float, dtype, device):
+def draw_step_cutouts(gen_host, gen_device, cutn: int, cut_size: int, aspect: float, dtype, device,
+                      planes_out=None):
     """All of one perceptor's per-step cutout draws, in the keys
-    ``render_cutouts`` and ``cut_transforms`` take."""
+    ``render_cutouts`` and ``cut_transforms`` take; the noise planes drawn
+    into ``planes_out`` when given."""
     transforms = cut_transforms(draw_cut_params(gen_host, cutn, aspect), cut_size, aspect)
     jitter = draw_jitter_params(gen_host, cutn, hue=0.1, saturation=0.1, p=0.8)
-    noise = draw_noise(gen_host, gen_device, cutn, cut_size, dtype, device)
+    noise = draw_noise(gen_host, gen_device, cutn, cut_size, dtype, device, out=planes_out)
     return {"transforms": transforms, "jitter": jitter, "noise": noise}

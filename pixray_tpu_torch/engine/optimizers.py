@@ -7,6 +7,10 @@ learning rate is state (``set_learning_rate``), like optax's
 ``inject_hyperparams``.  :class:`PerGroupAdam` is the drawers' per-group
 optimizer (``optax.multi_transform`` with one ``optax.adam`` per dict key).
 Other optimizers are not ported yet.
+
+The whole state lives on the parameters' device (the count an int32
+tensor, as optax's is) and ``update`` and ``reset`` change it in place:
+a captured CUDA graph of the step reads and writes it at fixed addresses.
 """
 
 from __future__ import annotations
@@ -16,15 +20,15 @@ from typing import Any
 
 import torch
 
-from pixray_tpu_torch.engine.latent import tree_map
+from pixray_tpu_torch.engine.latent import leaves, tree_map
 
 
 @dataclass
 class AdamState:
-    count: int
+    count: torch.Tensor  # () int32
     mu: Any
     nu: Any
-    learning_rate: float
+    learning_rate: torch.Tensor  # () float32
 
 
 class Adam:
@@ -33,23 +37,37 @@ class Adam:
         self.b1, self.b2, self.eps = b1, b2, eps
 
     def init(self, params) -> AdamState:
+        dev = leaves(params)[0].device
         zeros = lambda: tree_map(torch.zeros_like, params)
-        return AdamState(0, zeros(), zeros(), self.learning_rate)
+        return AdamState(torch.zeros((), dtype=torch.int32, device=dev), zeros(), zeros(),
+                         torch.full((), self.learning_rate, dtype=torch.float32, device=dev))
 
     def update(self, grads, state: AdamState):
-        """Returns (updates, new state); apply with ``params + updates``."""
-        count = state.count + 1
-        mu = tree_map(lambda m, g: self.b1 * m + (1 - self.b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: self.b2 * v + (1 - self.b2) * torch.square(g), state.nu, grads)
-        c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
-        c2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** count
+        """Returns (updates, state); ``state`` is updated in place.  Apply with ``params + updates``."""
+        state.count.add_(1)
+        count = state.count.float()
+        c1 = 1 - torch.pow(self.b1, count)
+        c2 = 1 - torch.pow(self.b2, count)
+        for m, v, g in zip(leaves(state.mu), leaves(state.nu), leaves(grads)):
+            m.copy_(self.b1 * m + (1 - self.b1) * g)
+            v.copy_(self.b2 * v + (1 - self.b2) * torch.square(g))
 
         def step(m, v):
-            mu_hat = m / c1.to(m.device)
-            nu_hat = v / c2.to(v.device)
-            return -state.learning_rate * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+            return -state.learning_rate * ((m / c1) / (torch.sqrt(v / c2) + self.eps))
 
-        return tree_map(step, mu, nu), AdamState(count, mu, nu, state.learning_rate)
+        return tree_map(step, state.mu, state.nu), state
+
+    def reset(self, state: AdamState) -> None:
+        """A fresh state in place (the engine's LR drop)."""
+        state.count.zero_()
+        for t in leaves(state.mu) + leaves(state.nu):
+            t.zero_()
+
+    @staticmethod
+    def clone(state: AdamState) -> AdamState:
+        copy = lambda t: t.clone()
+        return AdamState(state.count.clone(), tree_map(copy, state.mu), tree_map(copy, state.nu),
+                         state.learning_rate.clone())
 
 
 class PerGroupAdam:
@@ -65,7 +83,22 @@ class PerGroupAdam:
 
     def update(self, grads: dict, state: dict):
         out = {k: opt.update(grads[k], state[k]) for k, opt in self.groups.items()}
-        return {k: u for k, (u, _) in out.items()}, {k: s for k, (_, s) in out.items()}
+        return {k: u for k, (u, _) in out.items()}, state
+
+    def reset(self, state: dict) -> None:
+        for k, opt in self.groups.items():
+            opt.reset(state[k])
+
+    @staticmethod
+    def clone(state: dict) -> dict:
+        return {k: Adam.clone(s) for k, s in state.items()}
+
+
+def state_tensors(state) -> list:
+    """Every tensor of an optimizer state (Adam's or per-group), in a fixed order."""
+    if isinstance(state, dict):
+        return [t for k in sorted(state) for t in state_tensors(state[k])]
+    return [state.count, *leaves(state.mu), *leaves(state.nu), state.learning_rate]
 
 
 def build_optimizer(name: str, learning_rate: float) -> Adam:
@@ -75,5 +108,5 @@ def build_optimizer(name: str, learning_rate: float) -> Adam:
 
 
 def set_learning_rate(opt_state: AdamState, learning_rate: float) -> AdamState:
-    opt_state.learning_rate = float(learning_rate)
+    opt_state.learning_rate.fill_(learning_rate)
     return opt_state

@@ -1,13 +1,21 @@
-"""Checkin PNG with ``pixray_*`` provenance text chunks, written with zlib + struct.
+"""Checkin PNG with ``pixray_*`` provenance text chunks, written with zlib +
+struct, and the step video of the checkin frames (port of
+``pixray_tpu/io/output.py``'s ``step_to_video`` / ``encode_frames_to_mp4``).
 
-The same metadata as ``pixray_tpu/utils/provenance.py`` (``Software``, one
-``pixray_<setting>`` chunk per non-default setting, ``pixray_seed_used``),
-without PIL: the card's machine has no image library to rely on.
+The PNG carries the same metadata as ``pixray_tpu/utils/provenance.py``
+(``Software``, one ``pixray_<setting>`` chunk per non-default setting,
+``pixray_seed_used``), without PIL: the main path needs no image library.
+The video tries the JAX package's backends in its order: the ``ffmpeg``
+binary on PATH (fed the frames' PNG files), then ``imageio`` if it imports
+and can write the MP4, else a GIF with the same warning, through PIL,
+imported only there.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import shutil
 import struct
 import subprocess
 import zlib
@@ -73,3 +81,56 @@ def save_png(arr, outfile: str, text=()):
     """(H, W, C) float image in [0, 1] → PNG file with optional text chunks."""
     with open(outfile, "wb") as f:
         f.write(encode_png(to_uint8(arr), text))
+
+
+def _clip_fps(total_frames: int, length_s: int = 14, min_fps: int = 10, max_fps: int = 60) -> int:
+    return int(np.clip(total_frames / length_s, min_fps, max_fps))
+
+
+def encode_frames_to_mp4(frame_paths: list[str], output_file: str, fps: int, comment: str = "") -> bool:
+    """PNG frames → H.264 MP4 (the last frame held for a second), or a GIF
+    beside it with a warning when no MP4 encoder is available.  True when
+    the MP4 was written."""
+    held = list(frame_paths) + [frame_paths[-1]] * fps
+    if shutil.which("ffmpeg") is not None:
+        cmd = ["ffmpeg", "-y", "-f", "image2pipe", "-vcodec", "png", "-r", str(fps),
+               "-i", "-", "-vcodec", "libx264", "-r", str(fps), "-pix_fmt", "yuv420p",
+               "-crf", "17", "-preset", "veryslow"]
+        if comment:
+            cmd += ["-metadata", f"comment={comment}"]
+        cmd.append(output_file)
+        p = subprocess.Popen(cmd, stdin=subprocess.PIPE)
+        for path in held:
+            with open(path, "rb") as f:
+                p.stdin.write(f.read())
+        p.stdin.close()
+        p.wait()
+        return True
+    try:
+        import imageio
+
+        read = getattr(imageio, "v2", imageio).imread
+        with imageio.get_writer(output_file, fps=fps) as writer:
+            for path in held:
+                writer.append_data(np.asarray(read(path))[..., :3])
+        return True
+    except Exception as e:  # no encoder available: degrade to a GIF
+        gif_file = os.path.splitext(output_file)[0] + ".gif"
+        print(f"WARNING: no MP4 encoder available ({e}); writing {gif_file} instead")
+    try:
+        from PIL import Image
+    except ImportError as e:
+        print(f"WARNING: no GIF encoder either ({e}); no step video written")
+        return False
+    frames = [Image.open(path) for path in frame_paths]
+    frames[0].save(gif_file, save_all=True, append_images=frames[1:], duration=int(1000 / fps), loop=0)
+    return False
+
+
+def step_to_video(args):
+    """Checkin frames ``steps/frame_*.png`` → ``steps/output.mp4`` (or the GIF)."""
+    step_folder = os.path.join(args.outdir, "steps")
+    frame_paths = sorted(glob.glob(os.path.join(step_folder, "frame_*.png")))
+    if not frame_paths:
+        return
+    encode_frames_to_mp4(frame_paths, os.path.join(step_folder, "output.mp4"), _clip_fps(len(frame_paths)))

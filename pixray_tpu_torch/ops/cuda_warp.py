@@ -15,9 +15,15 @@ Build: ``ops/nvcc.py`` (nvcc for ``sm_90a`` into ``_build/`` at first use,
 loaded with ``ctypes``).  Nothing is built or imported for CUDA when this
 module is imported.
 
-Per-cut parameters travel in one (N, 16) float32 host buffer
+Per-cut parameters travel in one (N, 16) float32 row block
 (:func:`pack_params`: inverse matrix, mode, hue shift, saturation factor,
-apply, noise factor), pinned and copied to the card once per bank.
+apply, noise factor, fill), packed on the host and copied to the card: by
+the engine once per step or, for a block of steps, once per block into
+the rows a captured CUDA graph reads (``engine/step.py``).  The fill is a
+field of the row, not a kernel argument, so that a graph replays each
+step's own gray.  K1 always saves the pre-jitter bank of the engine's
+banks (it writes only the rows whose ``apply`` is set, and K2 reads no
+other), so no host test of the jitter decides it.
 
 Dispatch: :func:`cutout_bank` and :func:`warp_modes` run the kernels for
 CUDA tensors and the plain version (:func:`cutout_bank_plain`, built on
@@ -40,14 +46,15 @@ import torch
 from pixray_tpu_torch.ops.color import random_color_jitter_planes
 from pixray_tpu_torch.ops.nvcc import build_library, library_path, source_path
 from pixray_tpu_torch.ops.warp import inv3x3
-from pixray_tpu_torch.ops.warp_batch import modes_with_fill, warp_modes_plain
+from pixray_tpu_torch.ops.warp_batch import (MODE_BORDER, MODE_FILL, MODE_REFLECT, MODE_ZEROS,
+                                              modes_with_fill, warp_modes_plain)
 
 SOURCE = source_path("warp.cu")
 LIBRARY = library_path("libpixray_warp.so")
 
-PARAM_STRIDE = 16  # floats per cut: inverse (9), mode, hue, saturation, apply, noise factor
-_MODE, _HUE, _SAT, _APPLY, _FAC = 9, 10, 11, 12, 13
-_LAYOUT = (PARAM_STRIDE, _MODE, _HUE, _SAT, _APPLY, _FAC)  # as csrc/warp.cu's bank_layout() reports it
+PARAM_STRIDE = 16  # floats per cut: inverse (9), mode, hue, saturation, apply, noise factor, fill
+_MODE, _HUE, _SAT, _APPLY, _FAC, _FILL = 9, 10, 11, 12, 13, 14
+_LAYOUT = (PARAM_STRIDE, _MODE, _HUE, _SAT, _APPLY, _FAC, _FILL)  # as csrc/warp.cu's bank_layout() reports it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
@@ -71,8 +78,8 @@ def _library():
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.bank_fwd.argtypes = [ptr, ptr, f32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.bank_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
             lib.bank_fwd.restype = i32
             lib.bank_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
             lib.bank_bwd.restype = i32
@@ -82,21 +89,22 @@ def _library():
             lib.bank_layout(layout)
             if tuple(layout) != _LAYOUT:
                 raise RuntimeError(f"csrc/warp.cu lays out a cut's parameters as {tuple(layout)} "
-                                   f"(stride, mode, hue, sat, apply, fac), ops/cuda_warp.py as {_LAYOUT}")
+                                   f"(stride, mode, hue, sat, apply, fac, fill), ops/cuda_warp.py as {_LAYOUT}")
             _lib = lib
         return _lib
 
 
 # ------------------------------------------------------------------ parameters
-def pack_params(inv, modes, jitter=None, facs=None, pin: bool = False):
-    """(N, PARAM_STRIDE) float32 host buffer of a bank's per-cut parameters.
+def pack_params(inv, modes, jitter=None, facs=None, fill: float = 0.0, out=None):
+    """(N, PARAM_STRIDE) float32 host rows of a bank's per-cut parameters.
 
     inv: (N, 3, 3) inverse (dst→src) matrices; modes: (N,) 0-3; jitter:
     (hue_shift, sat_factor, apply) per cut or None; facs: noise factors (N
-    values, already in the compute dtype) or None.  ``pin`` allocates it in
-    page-locked memory, so the copy to the card is one asynchronous DMA."""
+    values, already in the compute dtype) or None; fill: the gray of the
+    mode-3 cuts.  ``out``: the (N, PARAM_STRIDE) host rows to write (a
+    view of a staging buffer), else new ones."""
     n = inv.shape[0]
-    buf = torch.zeros((n, PARAM_STRIDE), dtype=torch.float32, pin_memory=pin)
+    buf = torch.zeros((n, PARAM_STRIDE), dtype=torch.float32) if out is None else out.zero_()
     buf[:, :9] = inv.detach().reshape(n, 9).float().cpu()
     buf[:, _MODE] = modes.cpu().float()
     if jitter is not None:
@@ -106,12 +114,13 @@ def pack_params(inv, modes, jitter=None, facs=None, pin: bool = False):
         buf[:, _APPLY] = apply.cpu().float()
     if facs is not None:
         buf[:, _FAC] = facs.detach().reshape(n).cpu().float()
+    buf[:, _FILL] = float(fill)
     return buf
 
 
 def unpack_params(params):
     """The inverse of :func:`pack_params`: a dict of inv (N, 3, 3), modes
-    (N,) int32, hue, sat (N,) float32, apply (N,) bool and facs (N,) float32."""
+    (N,) int32, hue, sat (N,) float32, apply (N,) bool, facs and fill (N,) float32."""
     return {
         "inv": params[:, :9].reshape(-1, 3, 3),
         "modes": params[:, _MODE].to(torch.int32),
@@ -119,6 +128,7 @@ def unpack_params(params):
         "sat": params[:, _SAT],
         "apply": params[:, _APPLY] != 0,
         "facs": params[:, _FAC],
+        "fill": params[:, _FILL],
     }
 
 
@@ -136,12 +146,13 @@ def bank_epilogue_plain(batch, params, planes=None):
     return torch.stack([r, g, b], dim=1)
 
 
-def cutout_bank_plain(work, params, fill: float, out_size: int, planes=None, compute_dtype=None):
+def cutout_bank_plain(work, params, out_size: int, planes=None, compute_dtype=None):
     """The bank as a composition of plain ops: every cut through the gather
-    (``warp_modes_plain``), the cast to ``compute_dtype``, then
-    :func:`bank_epilogue_plain`."""
+    (``warp_modes_plain``, each cut's fill from its row), the cast to
+    ``compute_dtype``, then :func:`bank_epilogue_plain`."""
     p = unpack_params(params)
-    batch = warp_modes_plain(work, p["inv"].to(work.device), p["modes"].to(work.device), float(fill), out_size)
+    batch = warp_modes_plain(work, p["inv"].to(work.device), p["modes"].to(work.device),
+                             p["fill"].to(work.device), out_size)
     if compute_dtype is not None:
         batch = batch.to(compute_dtype)
     return bank_epilogue_plain(batch, params, planes)
@@ -159,7 +170,7 @@ def _check(name, t, dev, dtype, shape):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def launch_bank_fwd(work, params, fill: float, out_size: int, planes=None, out_dtype=torch.float32,
+def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.float32,
                     save_pre: bool = False):
     """K1: (H, W, 3) f32 canvas and (N, PARAM_STRIDE) parameters on the card →
     ((N, 3, S, S) bank in ``out_dtype``, the rounded pre-jitter bank or None).
@@ -187,7 +198,7 @@ def launch_bank_fwd(work, params, fill: float, out_size: int, planes=None, out_d
         return out, pre
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = _library().bank_fwd(work.data_ptr(), params.data_ptr(), float(fill), *map(ptr, zs),
+    code = _library().bank_fwd(work.data_ptr(), params.data_ptr(), *map(ptr, zs),
                                out.data_ptr(), ptr(pre), _DTYPES[out_dtype], n, h, w, out_size, stream)
     _raise_on(code, "bank_fwd")
     LAUNCHES["warp_fwd"] += 1
@@ -225,30 +236,30 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None):
     return dwork
 
 
-def _warp_params(inv, modes, dev):
+def _warp_params(inv, modes, fill: float, dev):
     """The bare warp's parameter rows (no jitter, no noise) on ``dev``."""
     if inv.dim() != 3 or inv.shape[1:] != (3, 3) or modes.shape != (inv.shape[0],):
         raise ValueError(f"inv must be (N, 3, 3) and modes (N,): {tuple(inv.shape)}, {tuple(modes.shape)}")
-    return pack_params(inv, modes).to(dev)
+    return pack_params(inv, modes, fill=fill).to(dev)
 
 
 def launch_fwd(work, inv, modes, fill: float, out_size: int):
     """K1 as the bare warp: (H, W, 3) f32 canvas → (N, 3, S, S) f32 bank."""
-    return launch_bank_fwd(work, _warp_params(inv, modes, work.device), fill, out_size)[0]
+    return launch_bank_fwd(work, _warp_params(inv, modes, fill, work.device), out_size)[0]
 
 
 def launch_bwd(g, inv, modes, work_shape, out_size: int):
     """K2 as the bare warp's adjoint: (N, 3, S, S) f32 cotangent → (H, W, 3) f32."""
-    return launch_bank_bwd(g, None, _warp_params(inv, modes, g.device), work_shape, out_size)
+    return launch_bank_bwd(g, None, _warp_params(inv, modes, 0.0, g.device), work_shape, out_size)
 
 
 class CutoutBankFunction(torch.autograd.Function):
     """K1 forward, K2 backward.  The gradient flows to ``work`` only."""
 
     @staticmethod
-    def forward(ctx, work, params, fill, out_size, out_dtype, jittered, z0, z1, z2):
+    def forward(ctx, work, params, out_size, out_dtype, save_pre, z0, z1, z2):
         planes = None if z0 is None else (z0, z1, z2)
-        out, pre = launch_bank_fwd(work, params, fill, out_size, planes, out_dtype, save_pre=jittered)
+        out, pre = launch_bank_fwd(work, params, out_size, planes, out_dtype, save_pre=save_pre)
         ctx.save_for_backward(params, pre)
         ctx.work_shape = tuple(work.shape)
         ctx.out_size = out_size
@@ -260,24 +271,23 @@ class CutoutBankFunction(torch.autograd.Function):
         params, pre = ctx.saved_tensors
         g = g.to(ctx.out_dtype).contiguous()
         dwork = launch_bank_bwd(g, pre, params, ctx.work_shape, ctx.out_size)
-        return dwork, None, None, None, None, None, None, None, None
+        return dwork, None, None, None, None, None, None, None
 
 
-def cutout_bank(work, params, fill: float, out_size: int, planes=None, compute_dtype=None):
-    """(H, W, 3) canvas, per-cut parameters from :func:`pack_params` (host)
-    and optional noise planes (three (N, S, S) in the compute dtype) →
-    (N, 3, S, S) bank in ``compute_dtype`` (None = float32).
+def cutout_bank(work, params, out_size: int, planes=None, compute_dtype=None):
+    """(H, W, 3) canvas, per-cut parameters from :func:`pack_params` and
+    optional noise planes (three (N, S, S) in the compute dtype) → (N, 3,
+    S, S) bank in ``compute_dtype`` (None = float32).
 
-    CUDA tensors go through K1/K2; CPU tensors through the plain version."""
+    CUDA tensors go through K1/K2 (``params`` on the card already, or
+    copied there); CPU tensors through the plain version."""
     if work.device.type == "cuda":
         out_dtype = compute_dtype or torch.float32
-        jittered = bool(params[:, _APPLY].any())
         params_dev = params.to(work.device, non_blocking=True)
         zs = (None, None, None) if planes is None else tuple(z.contiguous() for z in planes)
-        return CutoutBankFunction.apply(work.contiguous(), params_dev, float(fill), out_size, out_dtype,
-                                        jittered, *zs)
+        return CutoutBankFunction.apply(work.contiguous(), params_dev, out_size, out_dtype, True, *zs)
     if work.device.type == "cpu":
-        return cutout_bank_plain(work, params, fill, out_size, planes, compute_dtype)
+        return cutout_bank_plain(work, params, out_size, planes, compute_dtype)
     raise ValueError(f"unsupported device for the cutout bank: {work.device}")
 
 
@@ -286,7 +296,7 @@ def warp_modes(work, inv, modes, fill: float, out_size: int):
 
     CUDA tensors go through the kernels; CPU tensors through the plain version."""
     if work.device.type == "cuda":
-        return CutoutBankFunction.apply(work.contiguous(), _warp_params(inv, modes, work.device), float(fill),
+        return CutoutBankFunction.apply(work.contiguous(), _warp_params(inv, modes, fill, work.device),
                                         out_size, torch.float32, False, None, None, None)
     if work.device.type == "cpu":
         return warp_modes_plain(work, inv, modes, float(fill), out_size)
@@ -304,3 +314,17 @@ def warp_batch_modes(work, matrices, modes, out_size: int, fill_value=0.0,
     inv = inv3x3(matrices.float()).to(work.device, non_blocking=True).contiguous()
     modes = modes_with_fill(modes, fill_mask).to(work.device, non_blocking=True).contiguous()
     return warp_modes(work, inv, modes, float(fill_value), out_size)
+
+
+PADDING_MODES = {"reflection": MODE_REFLECT, "border": MODE_BORDER, "zeros": MODE_ZEROS, "fill": MODE_FILL}
+
+
+def warp_batch(work, matrices, out_size: int, padding_mode="zeros", fill_value=0.0):
+    """Single-mode bank warp (the JAX ``pallas_warp_batch`` contract, nchw):
+    every cut pads by ``padding_mode`` (reflection, border, zeros, or fill:
+    zeros composited over ``fill_value``).  :func:`warp_batch_modes` with a
+    constant mode column: on the card K1/K2 as the bare warp."""
+    if padding_mode not in PADDING_MODES:
+        raise ValueError(f"padding_mode must be one of {sorted(PADDING_MODES)}; got {padding_mode!r}")
+    modes = torch.full((matrices.shape[0],), PADDING_MODES[padding_mode], dtype=torch.int32)
+    return warp_batch_modes(work, matrices, modes, out_size, fill_value)

@@ -55,7 +55,7 @@ def clamp_with_grad(x, lo: float, hi: float):
 
 def l2_normalize(x, dim=-1, eps=1e-12):
     norm = torch.linalg.vector_norm(x, dim=dim, keepdim=True)
-    return x / torch.maximum(norm, torch.tensor(eps, dtype=norm.dtype, device=norm.device))
+    return x / torch.maximum(norm, norm.new_full((), eps))
 
 
 def spherical_dist_loss(x, y):

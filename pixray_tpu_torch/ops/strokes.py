@@ -76,14 +76,14 @@ def premultiply(background):
 def unpremultiply(canvas):
     """Premultiplied (H, W, 4) → straight alpha, with the 1e-6 alpha floor."""
     alpha = canvas[..., 3:4]
-    rgb = canvas[..., :3] / torch.maximum(alpha, alpha.new_tensor(1e-6))
+    rgb = canvas[..., :3] / torch.maximum(alpha, alpha.new_full((), 1e-6))
     return torch.cat([rgb, alpha], dim=-1)
 
 
 def clip_like_jnp(x, lo: float, hi: float):
     # jnp.clip is minimum(maximum(x, lo), hi): at a tie the gradient splits
     # in half, where torch.clamp would pass all of it
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
 
 
 def _point_segment_dist2(px, py, ax, ay, bx, by):

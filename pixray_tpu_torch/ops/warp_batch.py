@@ -81,9 +81,9 @@ def _bilinear_zeros(work, x, y):
     )
 
 
-def warp_modes_plain(work, inv, modes, fill: float, out_size: int):
+def warp_modes_plain(work, inv, modes, fill, out_size: int):
     """Mixed-mode bank warp: (H, W, C) f32, (N, 3, 3) inverse matrices, (N,)
-    int modes, fill value → (N, C, S, S)."""
+    int modes, the fill value (a float, or (N,) float32 per cut) → (N, C, S, S)."""
     h, w, _ = work.shape
     sx, sy = source_coords(inv, out_size)
     m = modes.to(sx.device)[:, None, None]
@@ -95,6 +95,8 @@ def warp_modes_plain(work, inv, modes, fill: float, out_size: int):
     # fill composite: coverage of the canvas at the RAW coords (closed form)
     cx = torch.clamp(torch.minimum(sx + 1.0, w - sx), 0.0, 1.0)
     cy = torch.clamp(torch.minimum(sy + 1.0, h - sy), 0.0, 1.0)
+    if torch.is_tensor(fill):
+        fill = fill[:, None, None]
     fill_add = torch.where(m == MODE_FILL, (1.0 - cx * cy) * fill, torch.zeros_like(cx))
     return out + fill_add[:, None]
 

@@ -9,20 +9,26 @@
 this one), so that two trees are measured in one call on one card, in
 turns (parent, change, change, parent); the harness (this file and
 ``chip_smoke.py``'s timers and configs) is always this checkout's.  Per
-bench row (``chip_smoke.py``'s restatement of ``bench.py``'s configs):
+bench row (``chip_smoke.py``'s restatement of ``bench.py``'s configs),
+eager (``--steps_per_call 1``) and, where the tree has blocked dispatch,
+blocked (the default, blocks of 8 steps as CUDA graph replays):
 
 - steps/s: 9 warm-up and 24 timed steps, a host read of the loss after
-  each, as ``chip_smoke.py`` times them;
-- the split of a step over 10 steps, each ended by a synchronize: host ms
-  drawing, host ms enqueueing ``Engine.train``, ms the device runs on after
-  the host is done (medians);
-- ``torch.profiler`` over 5 steps after a warm-up step of the profiler
-  (``chip_smoke.profiled_events``), each step ended by a synchronize:
-  device events and kernels per step,
+  each, as ``chip_smoke.drive_path`` times them (blocked: the steps
+  dispatched after the warm-up);
+- eager, the split of a step over 10 steps, each ended by a synchronize:
+  host ms drawing, host ms enqueueing ``Engine.train``, ms the device runs
+  on after the host is done (medians); blocked, over 4 blocks walked after
+  the capture (no synchronize): host ms per step spent dispatching (the
+  draws of 8 steps, their staging and the replay's enqueue, which happen
+  while the device runs the block before) and wall ms per step (medians);
+- ``torch.profiler`` (``chip_smoke.profiled_events``, after a warm-up call
+  of the profiler) over 5 eager steps, each ended by a synchronize, or 2
+  walked blocks, each ended by one: device events and kernels per step,
   device busy per step (the union of device intervals), and the cutout
-  module's device ms per step (``render_cutouts``' forward and its backward,
-  bracketed by 1-cycle ``torch.cuda._sleep`` marker kernels on the stream)
-  with its kernels by name.
+  module's device ms per step (the bank's forward and its backward,
+  bracketed by 1-cycle ``torch.cuda._sleep`` marker kernels on the stream,
+  inside the graph too) with its kernels by name.
 
 Before the rows, at the flagship bank (the 224x224x3 work canvas of a
 384x216 canvas, 64 cuts of 224, bf16, the step's own draws), each as summed
@@ -58,12 +64,18 @@ SPLIT_STEPS = 10
 MARKER = "spin_kernel"  # torch.cuda._sleep's kernel
 
 
-def _install_markers(cutouts_module):
-    """Wrap ``render_cutouts`` so that its forward and its backward are each
-    bracketed by a marker kernel on the stream."""
+def _install_markers():
+    """Wrap the bank the step calls (``cuda_warp.cutout_bank``, or
+    ``cutouts.render_cutouts`` in a tree whose step calls that) so that its
+    forward and its backward are each bracketed by a marker kernel on the
+    stream."""
     import torch
 
-    orig = cutouts_module.render_cutouts
+    from pixray_tpu_torch.engine import cutouts
+    from pixray_tpu_torch.ops import cuda_warp
+
+    module, name = (cuda_warp, "cutout_bank") if hasattr(cutouts, "pack_cutouts") else (cutouts, "render_cutouts")
+    orig = getattr(module, name)
 
     class Mark(torch.autograd.Function):
         @staticmethod
@@ -75,13 +87,13 @@ def _install_markers(cutouts_module):
             torch.cuda._sleep(1)
             return g
 
-    def render_cutouts(work, *args, **kwargs):
+    def marked(work, *args, **kwargs):
         torch.cuda._sleep(1)
         out = orig(Mark.apply(work), *args, **kwargs)
         torch.cuda._sleep(1)
         return Mark.apply(out)
 
-    cutouts_module.render_cutouts = render_cutouts
+    setattr(module, name, marked)
 
 
 def _device_profile(events, steps):
@@ -126,18 +138,22 @@ def _device_profile(events, steps):
     }
 
 
-def profile_row(cs, label, config, tmp):
+def profile_row(cs, label, config, tmp, blocked):
     import torch
 
     from pixray_tpu_torch.config import apply_settings
     from pixray_tpu_torch.engine.core import Engine
 
+    config = dict(config, iterations=1000, steps_per_call=0 if blocked else 1)
     steps = cs.WARMUP_STEPS + cs.TIMED_STEPS
-    _, losses, launches, _, elapsed = cs.drive_path(dict(config, iterations=1000), tmp, steps, cs.WARMUP_STEPS)
-    rate = cs.TIMED_STEPS / elapsed
+    _, losses, launches, _, elapsed, timed = cs.drive_path(config, tmp, steps, cs.WARMUP_STEPS)
+    rate = timed / elapsed
+    head = {"row": label, "mode": "blocked" if blocked else "eager", "steps_per_s": rate,
+            "losses_first_last": [losses[0], losses[-1]], "launches": launches}
 
-    engine = Engine(apply_settings(dict(config, outdir=tmp, iterations=1000), apply_side_effects=False),
-                    device="cuda")
+    engine = Engine(apply_settings(dict(config, outdir=tmp), apply_side_effects=False), device="cuda")
+    if blocked:
+        return {**head, **_blocked_split(cs, engine)}
     it = 0
     for _ in range(3):  # warm up
         engine.train(it)
@@ -160,10 +176,49 @@ def profile_row(cs, label, config, tmp):
     steps = iter(range(it, it + PROFILE_STEPS + 1))
     events = cs.profiled_events(lambda: engine.train(next(steps)), PROFILE_STEPS)
     med = statistics.median
-    return {"row": label, "steps_per_s": rate, "losses_first_last": [losses[0], losses[-1]],
-            "launches": launches, "step_ms": med(step_ms), "host_draws_ms": med(draws_ms),
+    return {**head, "step_ms": med(step_ms), "host_draws_ms": med(draws_ms),
             "host_enqueue_ms": med(enqueue_ms), "device_after_host_ms": med(after_ms),
             **_device_profile(events, PROFILE_STEPS)}
+
+
+def _blocked_split(cs, engine):
+    """Host and device numbers per step of a blocked engine, walked in whole
+    blocks of 8 from step 1 (step 0 is the checkin's eager step)."""
+    import torch
+
+    n = engine._want()
+    dispatch_ms = []
+    dispatch = engine._dispatch_block
+
+    def timed_dispatch(cur_it, count):
+        t0 = time.perf_counter()
+        out = dispatch(cur_it, count)
+        dispatch_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    engine._dispatch_block = timed_dispatch
+    it = 0
+
+    def walk(steps):
+        nonlocal it
+        for _ in range(steps):
+            engine.train(it)
+            it += 1
+
+    walk(1 + 2 * n)  # step 0, then the capture and one more block
+    torch.cuda.synchronize()
+    dispatch_ms.clear()
+    wall_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        walk(n)
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    events = cs.profiled_events(lambda: walk(n), 2)
+    med = statistics.median
+    blk = engine.step_block
+    return {"capture_s": blk.capture_s, "step_ms": med(wall_ms) / n, "host_dispatch_ms": med(dispatch_ms) / n,
+            "blocks_per_walk": n, **_device_profile(events, 2 * n)}
 
 
 def _times(cs, fn):
@@ -264,7 +319,6 @@ def main():
     import torch
 
     import pixray_tpu_torch
-    from pixray_tpu_torch.engine import cutouts
 
     if not torch.cuda.is_available():
         cs.fail("torch.cuda.is_available() is False")
@@ -274,13 +328,17 @@ def main():
     cs.build_all()
     out = {"label": args.label, "package": os.path.dirname(pixray_tpu_torch.__file__), "card": card,
            "flagship_bank": flagship_bank(cs), "flagship_strokes": flagship_strokes(cs)}
-    _install_markers(cutouts)
+    _install_markers()
     configs = {"pixel": cs.PIXEL_CONFIG, "clipdraw": cs.CLIPDRAW_CONFIG, "vqgan": cs.VQGAN_CONFIG}
+    from pixray_tpu_torch.engine.core import Engine
+
+    modes = (False, True) if hasattr(Engine, "_block_size") else (False,)  # a tree without blocks: eager only
     out["rows"] = []
     for row in filter(None, args.rows.split(",")):
-        with tempfile.TemporaryDirectory() as tmp:
-            out["rows"].append(profile_row(cs, row, configs[row], tmp))
-        torch.cuda.empty_cache()
+        for blocked in modes:
+            with tempfile.TemporaryDirectory() as tmp:
+                out["rows"].append(profile_row(cs, row, configs[row], tmp, blocked))
+            torch.cuda.empty_cache()
     line = json.dumps(out)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     with open(os.path.join(HERE, "chiprun_out", f"profile_{args.label}.json"), "w") as f:
@@ -294,12 +352,16 @@ def main():
               f"backward {t['bwd']['kernel_ms']:.4f} ms in K5, {t['bwd']['device_ms']:.4f} ms of kernels, "
               f"{t['bwd']['event_ms']:.4f} ms CUDA events; on {card}", flush=True)
     for r in out["rows"]:
-        print(f"{args.label} {r['row']}: {r['steps_per_s']:.3f} steps/s; step {r['step_ms']:.3f} ms = draws "
-              f"{r['host_draws_ms']:.3f} + enqueue {r['host_enqueue_ms']:.3f} + device after host "
-              f"{r['device_after_host_ms']:.3f}; {r['kernels_per_step']:.1f} kernels "
-              f"({r['device_events_per_step']:.1f} device events) per step, device busy {r['device_busy_ms']:.3f} ms; "
-              f"cutouts {r['cutouts_device_ms']:.3f} ms in {r['cutouts_kernels_per_step']:.1f} kernels; on {card}",
-              flush=True)
+        if r["mode"] == "blocked":
+            split = (f"step {r['step_ms']:.3f} ms walked in blocks of {r['blocks_per_walk']}, host dispatch "
+                     f"{r['host_dispatch_ms']:.3f} ms per step; capture {r['capture_s']:.3f} s")
+        else:
+            split = (f"step {r['step_ms']:.3f} ms = draws {r['host_draws_ms']:.3f} + enqueue "
+                     f"{r['host_enqueue_ms']:.3f} + device after host {r['device_after_host_ms']:.3f}")
+        print(f"{args.label} {r['row']} {r['mode']}: {r['steps_per_s']:.3f} steps/s; {split}; "
+              f"{r['kernels_per_step']:.1f} kernels ({r['device_events_per_step']:.1f} device events) per step, "
+              f"device busy {r['device_busy_ms']:.3f} ms; cutouts {r['cutouts_device_ms']:.3f} ms in "
+              f"{r['cutouts_kernels_per_step']:.1f} kernels; on {card}", flush=True)
     print(line, flush=True)
 
 

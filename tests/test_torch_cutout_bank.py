@@ -167,7 +167,7 @@ def _bank_inputs(dtype):
     ms = torch.cat([zoom, wide])[C.bank_order(zoom.shape[0], wide.shape[0])]
     modes = torch.tensor([0] * 6 + [3] * 4)[C.bank_order(6, 4)]
     facs, planes = draws["noise"]
-    params = cuda_warp.pack_params(C.W.inv3x3(ms), modes, draws["jitter"], facs)
+    params = cuda_warp.pack_params(C.W.inv3x3(ms), modes, draws["jitter"], facs, fill=FILL)
     return params, planes
 
 
@@ -176,11 +176,11 @@ def test_cpu_bank_launches_no_kernel_and_is_the_plain_version(dtype):
     params, planes = _bank_inputs(dtype)
     cuda_warp.reset_launch_counts()
     work = torch.tensor(_work(), requires_grad=True)
-    out = cuda_warp.cutout_bank(work, params, FILL, S, planes, dtype)
+    out = cuda_warp.cutout_bank(work, params, S, planes, dtype)
     (grad,) = torch.autograd.grad(out.float().sum(), work)
     assert cuda_warp.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0}
     work_p = torch.tensor(_work(), requires_grad=True)
-    plain = cuda_warp.cutout_bank_plain(work_p, params, FILL, S, planes, dtype)
+    plain = cuda_warp.cutout_bank_plain(work_p, params, S, planes, dtype)
     (grad_p,) = torch.autograd.grad(plain.float().sum(), work_p)
     assert torch.equal(out, plain)
     assert torch.equal(grad, grad_p)
@@ -189,9 +189,9 @@ def test_cpu_bank_launches_no_kernel_and_is_the_plain_version(dtype):
 def test_bank_refuses_other_devices():
     params, planes = _bank_inputs(None)
     with pytest.raises(ValueError):
-        cuda_warp.cutout_bank(torch.empty((S, S, 3), device="meta"), params, FILL, S)
+        cuda_warp.cutout_bank(torch.empty((S, S, 3), device="meta"), params, S)
     with pytest.raises(ValueError):  # the launchers take only CUDA tensors
-        cuda_warp.launch_bank_fwd(torch.zeros((S, S, 3)), params, FILL, S, planes)
+        cuda_warp.launch_bank_fwd(torch.zeros((S, S, 3)), params, S, planes)
     with pytest.raises(ValueError):
         cuda_warp.launch_bank_bwd(torch.zeros((CUTN, 3, S, S)), None, params, (S, S, 3), S)
 
@@ -205,7 +205,7 @@ def test_packed_parameters_round_trip():
     sat = torch.tensor(rng.uniform(0.9, 1.1, n).astype(np.float32))
     apply = torch.tensor([True, False, True, True, False, True, False])
     facs = torch.tensor(rng.uniform(0, 0.1, (n, 1, 1)).astype(np.float32)).bfloat16()
-    params = cuda_warp.pack_params(inv, modes, (hue, sat, apply), facs)
+    params = cuda_warp.pack_params(inv, modes, (hue, sat, apply), facs, fill=0.37)
     assert params.shape == (n, cuda_warp.PARAM_STRIDE) and params.dtype == torch.float32
     back = cuda_warp.unpack_params(params)
     assert torch.equal(back["inv"], inv)
@@ -214,7 +214,8 @@ def test_packed_parameters_round_trip():
     assert torch.equal(back["apply"], apply)
     assert torch.equal(back["facs"].bfloat16(), facs.reshape(n))  # bf16 values travel exactly
     bare = cuda_warp.unpack_params(cuda_warp.pack_params(inv, modes))
-    assert not bool(bare["apply"].any()) and not bool(bare["facs"].any())
+    assert torch.equal(back["fill"], torch.full((n,), 0.37))
+    assert not bool(bare["apply"].any()) and not bool(bare["facs"].any()) and not bool(bare["fill"].any())
 
 
 def test_bank_order_is_the_jax_bank_order():
