@@ -99,6 +99,19 @@ CLIPDRAW_CONFIG = dict(PIXEL_CONFIG, drawer="clipdraw")  # CONFIGS["clipdraw"], 
 # CONFIGS["vqgan"], bench.py:100: imagenet_f16_16384 (the vqgan drawer's
 # default model, random weights) under the ViT-B/32 + ViT-B/16 ensemble
 VQGAN_CONFIG = dict(PIXEL_CONFIG, drawer="vqgan", clip_models="ViT-B/32,ViT-B/16")
+FFT_CONFIG = dict(PIXEL_CONFIG, drawer="fft", size=[256, 256])  # CONFIGS["fft"], bench.py:97 (the fft mode)
+# the product's tiler recipes (cogs/*.yaml), driven with the "normal" preset's
+# towers: their quality "better" asks for RN50, which is not ported yet
+TILER_RECIPES = ("tiler_fft", "tiler_fft_shift", "tiler_pixel_shift")
+TILER_TOWERS = "ViT-B/32,ViT-B/16"
+TILER_STEPS = 17  # step 0 (the checkin), then two blocks of 8
+FFT_MODE_STEPS = 9  # step 0, then one block
+# the plug-ins on the card against the CPU: every filter but wallpaper (the
+# tiler recipes run it) and every ported loss, under a palette string whose
+# colours have distinct channels inside (0, 1) (the jitter's HSV ties,
+# tests/test_torch_plugins_slice.py)
+PLUGIN_EXTRA = dict(filters="lookup,tiler", custom_loss="saturation,symmetry,smoothness,palette,edge,gaussian,aesthetic",
+                    palette="(200,40,70)->(40,90,200)\\4;[(230+200+60), (90+160+120)]", transparent=True)
 WARMUP_STEPS = 9  # bench.py:73-74
 TIMED_STEPS = 24
 LINE_SKETCH_STEPS = 9  # step 0, then one block
@@ -973,7 +986,7 @@ def phase_agreement(tmp, drawer_config, label, state_dicts=None, **extra):
         fail(f"{label} card run disagrees with the CPU run: {worst}")
 
 
-def drive_path(config, tmp, steps, warmup):
+def drive_path(config, tmp, steps, warmup, before=None):
     """An Engine on the card, stepped ``steps`` times with a host read of the
     loss after each (as bench.py reads it), blocked unless the config says
     ``steps_per_call`` 1; every launch counter is set to 0 just before the
@@ -982,7 +995,8 @@ def drive_path(config, tmp, steps, warmup):
     seconds).  A blocked engine dispatches a block at its first step and
     the next one before it, so the steps timed are those dispatched after
     the synchronize at ``warmup`` (every one of them finished by the final
-    synchronize), not the steps walked."""
+    synchronize), not the steps walked.  ``before``: a dict that receives
+    a copy of the initial latent as "z"."""
     import torch
 
     from pixray_tpu_torch.config import apply_settings
@@ -993,6 +1007,8 @@ def drive_path(config, tmp, steps, warmup):
     t0 = time.perf_counter()
     engine = Engine(settings, device="cuda")
     init_s = time.perf_counter() - t0
+    if before is not None:
+        before["z"] = engine.z.clone()
     dispatched = lambda it: getattr(engine, "steps_dispatched", it)  # a tree without blocks: one per step
 
     cuda_warp.reset_launch_counts()
@@ -1308,6 +1324,141 @@ def phase_vqgan_default(tmp):
           f"steps/{videos[0]}", flush=True)
 
 
+def phase_fft_path(tmp, card):
+    """The bench's fft row (bench.py:97: the fft drawer's fft mode, 256x256,
+    ViT-B/32, 64 cuts, no init noise), timed as the pixel row is, gated on
+    descent as bench.py:117 gates it."""
+    import torch
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    z0 = {}
+    engine, losses, launches, init_s, elapsed, timed = drive_path(dict(FFT_CONFIG, iterations=steps), tmp,
+                                                                  steps, WARMUP_STEPS, before=z0)
+    capture_s = check_blocked("fft", engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
+    check_launches("fft", launches, {"warp_fwd": ran, "warp_bwd": ran, "strokes_fwd": 0,
+                                     "strokes_fwd_store": 0, "strokes_bwd": 0})
+    moved = float((engine.z - z0["z"]).abs().max())
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    descends = last5 < first5 - 0.005
+    check_png("fft", os.path.join(tmp, "output.png"), (256, 256))
+    if not (descends and moved > 0 and bool(torch.isfinite(engine.z).all())):
+        fail(f"fft: first5 {first5:.4f} -> last5 {last5:.4f} (descent gate 0.005), latent moved {moved:.3g}")
+    rate = timed / elapsed
+    print(f"fft path: fft drawer (fft mode) 256x256, ViT-B/32 (random weights), 64 cuts, blocked: init "
+          f"{init_s:.1f} s, capture {capture_s:.2f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over the "
+          f"{timed} steps dispatched after {WARMUP_STEPS} warm-up, on {card}", flush=True)
+    print(f"fft losses: first5 {first5:.4f} -> last5 {last5:.4f} (descends), latent moved {moved:.3g}; K1/K2 "
+          f"launches per step {launches['warp_fwd'] / ran:.2f} / {launches['warp_bwd'] / ran:.2f} over {ran} steps "
+          f"(the warm-up step before the capture included); launches {launches}", flush=True)
+
+
+def tiler_config(recipe, **overrides):
+    """``cogs/<recipe>.yaml`` with the towers of the normal preset, no LR
+    drop and checkins only at step 0 (so the steps after it run blocked)."""
+    import yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "cogs", f"{recipe}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.pop("outdir")
+    cfg.update(prompts="a seamless tiled pattern", clip_models=TILER_TOWERS, seed=1, save_every=100000,
+               learning_rate_drops=[], save_intermediates=False)
+    cfg.update(overrides)
+    return cfg
+
+
+def tiler_names(engine):
+    """The term names the recipe's step must give: its filter first, each
+    tower's prompts, its custom losses last."""
+    args = engine.args
+    want_losses = {None: [], "smoothness:0.5": ["loss:SmoothnessLoss:0"]}[args.custom_loss]
+    names = engine.loss_names
+    prompts = [n for n in names if ":prompt" in n]
+    return (names[0] == "filter:WallpaperFilter" and names[len(names) - len(want_losses):] == want_losses
+            and {n.split(":")[0] for n in prompts} == set(args.clip_models)
+            and len(names) == 1 + len(prompts) + len(want_losses))
+
+
+def phase_tiler_recipes(tmp, card):
+    """cogs/tiler_fft.yaml (vqgan 416x416, wallpaper with edge match 4,
+    smoothness clipped), tiler_fft_shift.yaml (fft dwt 720x360, wallpaper
+    shift) and tiler_pixel_shift.yaml (pixel 256x128, 64x32 grid, wallpaper
+    shift), each for 17 steps under ViT-B/32 + ViT-B/16."""
+    for recipe in TILER_RECIPES:
+        with tempfile.TemporaryDirectory() as sub:
+            config = tiler_config(recipe, iterations=TILER_STEPS)
+            engine, losses, launches, init_s, elapsed, timed = drive_path(config, sub, TILER_STEPS, 1)
+            capture_s = check_blocked(recipe, engine, [(1, 8), (9, 8)])
+            ran = steps_run(engine, TILER_STEPS)
+            check_launches(recipe, launches, {"warp_fwd": 2 * ran, "warp_bwd": 2 * ran, "strokes_fwd": 0,
+                                              "strokes_fwd_store": 0, "strokes_bwd": 0})
+            if not tiler_names(engine):
+                fail(f"{recipe}: term names {engine.loss_names}")
+            size = (engine.side_x, engine.side_y)
+            if list(size) != list(config["size"]):
+                fail(f"{recipe}: canvas {size}, the recipe asks for {config['size']}")
+            check_png(recipe, os.path.join(sub, config["output"]), size)
+            blocked = sum(n for _, n in engine.dispatched_blocks)
+            print(f"tiler {recipe}: {config['drawer']}{'/' + config['fft_use'] if 'fft_use' in config else ''} "
+                  f"{size[0]}x{size[1]}, filters {config['filters']} (type {config.get('wallpaper_type')}, edge "
+                  f"match {config.get('wallpaper_edge_match', 0)}), custom loss {config.get('custom_loss')}, "
+                  f"{engine.args.num_cuts} cuts per tower, towers {TILER_TOWERS} (the recipe's quality "
+                  f"{config['quality']} asks for RN50 too, not ported): {blocked} of {TILER_STEPS} steps blocked; "
+                  f"{1e3 * (elapsed - capture_s) / timed:.2f} ms per step over the {timed} steps after step 0 "
+                  f"(without the capture, {capture_s:.2f} s); finite losses, last "
+                  f"{dict(zip(engine.loss_names, [round(v, 4) for v in engine.last_loss_values.float().tolist()]))}"
+                  f"; PNG {config['output']} {size[0]}x{size[1]}; launches {launches}; on {card}", flush=True)
+
+
+def phase_fft_modes(tmp):
+    """The fft drawer's dwt and pixel modes (bench row's shape, 9 steps,
+    one block each), the CLI with a filter and a loss, and fast_pixel
+    through ``pixray_tpu_torch.run`` (the verify skill's example at
+    ViT-B/32)."""
+    import torch
+
+    import pixray_tpu_torch as pixray
+    from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+
+    for mode in ("dwt", "pixel"):
+        with tempfile.TemporaryDirectory() as sub:
+            engine, losses, launches, _, _, _ = drive_path(dict(FFT_CONFIG, fft_use=mode, iterations=FFT_MODE_STEPS),
+                                                           sub, FFT_MODE_STEPS, 0)
+            check_blocked(f"fft {mode}", engine, [(1, 8)])
+            ran = steps_run(engine, FFT_MODE_STEPS)
+            check_launches(f"fft {mode}", launches, {"warp_fwd": ran, "warp_bwd": ran})
+            print(f"fft {mode} mode: 256x256, ViT-B/32, 64 cuts, {FFT_MODE_STEPS} steps (1-8 one block): losses "
+                  f"{[round(v, 4) for v in losses]}; launches {launches}", flush=True)
+    with tempfile.TemporaryDirectory() as sub:
+        cmd = [sys.executable, "-m", "pixray_tpu_torch", "--drawer", "fft", "--fft_use", "dwt", "--filters",
+               "wallpaper", "--wallpaper_type", "shift", "--custom_loss", "smoothness:0.5", "--prompts", "sunrise",
+               "--clip_models", "ViT-B/32", "--size", "256", "256", "--num_cuts", "64", "--iterations", "9",
+               "--save_every", "100", "--seed", "1", "--vector_prompts", "none", "--save_intermediates", "false",
+               "--outdir", sub]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        if proc.returncode != 0 or "iter: 9" not in proc.stdout:
+            fail(f"the CLI run failed ({proc.returncode}): {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+        check_png("CLI fft dwt", os.path.join(sub, "output.png"), (256, 256))
+        last = [line for line in proc.stdout.splitlines() if line.startswith("iter: ")][-1]
+        print(f"CLI: python -m pixray_tpu_torch {' '.join(cmd[3:-2])}: exit 0, {last}", flush=True)
+    with tempfile.TemporaryDirectory() as sub:
+        cuda_warp.reset_launch_counts()
+        cuda_strokes.reset_launch_counts()
+        pixray.run(prompts="a red circle", drawer="fast_pixel", clip_models="ViT-B/32", size=[48, 48], iterations=6,
+                   num_cuts=8, save_every=3, seed=5, vector_prompts="none", outdir=sub)
+        launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES}
+        engine = pixray.get_engine()
+        values = engine.last_loss_values.float()
+        if not bool(torch.isfinite(values).all()):
+            fail(f"fast_pixel: non-finite losses {values.tolist()}")
+        check_png("fast_pixel", os.path.join(sub, "output.png"), (48, 48))
+        check_launches("fast_pixel", launches, {"warp_fwd": 6, "warp_bwd": 6})
+        print(f"fast_pixel: {engine.drawer.num_cols}x{engine.drawer.num_rows} grid on 48x48, ViT-B/32, 8 cuts, "
+              f"6 steps through pixray_tpu_torch.run (eager: no full block fits): final losses "
+              f"{[round(v, 4) for v in values.tolist()]}; launches {launches}", flush=True)
+
+
 def phase_decoder_times(model):
     """Decode forward and gradient to the latent at the 384x208 canvas's
     24x13x256 latent, and the encoder forward at 384x208, in bf16 (the
@@ -1381,8 +1532,13 @@ def main():
         phase_agreement(tmp, VQGAN_CONFIG, "vqgan tiny_test",
                         state_dicts={"vqgan": wide_codebook_weights("tiny_test")},
                         vqgan_model="tiny_test", clip_models="TinyTest,TinyTest48")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_agreement(tmp, PIXEL_CONFIG, f"plug-ins (pixel, transparent, {PLUGIN_EXTRA['filters']}, "
+                        f"{PLUGIN_EXTRA['custom_loss']}, palette {PLUGIN_EXTRA['palette']})", **PLUGIN_EXTRA)
     for config, label, steps in ((PIXEL_CONFIG, "pixel", BLOCKED_STEPS), (CLIPDRAW_CONFIG, "clipdraw", BLOCKED_STEPS),
-                                 (VQGAN_CONFIG, "vqgan", 8)):
+                                 (VQGAN_CONFIG, "vqgan", 8),
+                                 (tiler_config("tiler_fft_shift"), "tiler_fft_shift (a filter's shifts)",
+                                  BLOCKED_STEPS)):
         with tempfile.TemporaryDirectory() as tmp:
             phase_blocked(tmp, config, label, steps, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1397,6 +1553,12 @@ def main():
     del vqgan_engine
     with tempfile.TemporaryDirectory() as tmp:
         phase_vqgan_default(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_fft_path(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_tiler_recipes(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_fft_modes(tmp)
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
     warp_src = "pixray_tpu_torch/csrc/warp.cu"

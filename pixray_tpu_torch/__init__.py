@@ -10,8 +10,9 @@ Public API mirrors ``pixray_tpu``:
     pixray.do_run(settings)
 
 or the one-liner ``pixray_tpu_torch.run(prompts=..., drawer="pixel")``.
-The vqgan (the default), pixel, clipdraw and line_sketch drawers with
-OpenAI ViT perceptors are ported so far.
+The vqgan (the default), pixel, fast_pixel, fft, clipdraw and line_sketch
+drawers with OpenAI ViT perceptors, the lookup, tiler and wallpaper
+filters, and every custom loss but style and resmem are ported so far.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ The same flag table, preset matrices and resolution rules as
 ``pixray_tpu/config/settings.py``, so a settings dict resolves to the same
 namespace in both packages.  Differences:
 
-- the drawer registry is this package's own (``drawers.DRAWER_CLASSES``);
-  filters, custom losses and the palette DSL are not ported yet and raise;
+- the drawer, filter and loss registries are this package's own
+  (``drawers``, ``filters`` and ``losses``; ``style`` and ``resmem`` raise);
 - ``yaml`` is imported only where a YAML file is read or the
   ``settings.yaml`` dump is written, so the package runs without PyYAML.
 """
@@ -19,9 +19,13 @@ import os
 from types import SimpleNamespace
 
 from pixray_tpu_torch.drawers import drawer_class
+from pixray_tpu_torch.filters import filter_class
+from pixray_tpu_torch.losses import loss_class
+from pixray_tpu_torch.prompt import parse_prompt
 from pixray_tpu_torch.utils import (
     emit_filename,
     get_file_path,
+    palette_from_string,
     parse_unit,
     real_glob,
     split_pipes,
@@ -272,7 +276,7 @@ def process_args(parser, namespace=None, apply_side_effects=True, use_argv=False
         args.vector_prompts = []
 
     if args.palette is not None and isinstance(args.palette, str):
-        raise NotImplementedError("--palette is not yet ported to pixray_tpu_torch")
+        args.palette = palette_from_string(args.palette)
 
     if args.overlay_image is not None and args.overlay_every <= 0:
         args.overlay_image = None
@@ -293,13 +297,13 @@ def process_args(parser, namespace=None, apply_side_effects=True, use_argv=False
 def apply_settings(settings_dict: dict, apply_side_effects=True):
     """Full two-pass settings resolution.
 
-    Pass 1 discovers the drawer so it can inject its own flags; pass 2 parses
-    everything with unknown-key validation.
+    Pass 1 discovers the drawer, filters and losses so they can inject their
+    own flags; pass 2 parses everything with unknown-key validation.
     """
     parser = argparse.ArgumentParser(description="CLIP-guided image generation (PyTorch port)")
-    parser.add_argument("--drawer", type=str, help="vqgan, pixel, clipdraw or line_sketch (the drawers ported)", default="vqgan", dest="drawer")
-    parser.add_argument("--filters", type=str, help="Image filtering (not yet ported)", default=None, dest="filters")
-    parser.add_argument("--losses", "--custom_loss", type=str, help="custom loss list (not yet ported)", default=None, dest="custom_loss")
+    parser.add_argument("--drawer", type=str, help="clipdraw, pixel, etc", default="vqgan", dest="drawer")
+    parser.add_argument("--filters", type=str, help="Image filtering", default=None, dest="filters")
+    parser.add_argument("--losses", "--custom_loss", type=str, help="custom loss list, e.g. 'edge,smoothness:0.5'", default=None, dest="custom_loss")
 
     use_argv = not settings_dict
     namespace = SimpleNamespace(**settings_dict) if settings_dict else SimpleNamespace()
@@ -310,9 +314,11 @@ def apply_settings(settings_dict: dict, apply_side_effects=True):
     parser = setup_parser(parser)
     drawer_class(settings_core.drawer).add_settings(parser)
     if settings_core.filters is not None:
-        raise NotImplementedError("--filters are not yet ported to pixray_tpu_torch")
+        for f in [f.strip() for f in settings_core.filters.split(",")]:
+            filter_class(f.split(":")[0]).add_settings(parser)
     if settings_core.custom_loss is not None:
-        raise NotImplementedError("custom losses are not yet ported to pixray_tpu_torch")
+        for loss in [s.strip() for s in settings_core.custom_loss.split(",")]:
+            loss_class(parse_prompt(loss.split("->")[0])[0]).add_settings(parser)
 
     if settings_dict:
         dests = [d.dest for d in parser._actions]

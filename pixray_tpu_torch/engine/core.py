@@ -31,6 +31,13 @@ drawer's grid is resized with PIL's Lanczos, as in the JAX engine.
 ``run`` ends, also after an interrupt, with the step video of the checkin
 frames (``--save_intermediates``) and ``--save_svg``'s vector export.
 
+``--filters`` (``name:weight``, comma-separated) and ``--custom_loss``
+(``name:weight``, ``loss->arg->arg``) are built as the JAX engine builds
+them, with the losses' ``add_globals``.  Each step's draws are, per batch,
+the fill, then each filter's shifts (over the shape the filters before it
+leave), then the perceptors' cuts: a run without filters draws exactly
+what it drew before filters were ported.
+
 Settings the ported slices do not implement raise ``NotImplementedError``
 here rather than being ignored.
 """
@@ -52,8 +59,11 @@ from pixray_tpu_torch.engine.prompts import build_prompt_tables
 from pixray_tpu_torch.engine.schedule import BestTracker
 from pixray_tpu_torch.engine.step import (PerceptorSpec, StepBlock, StepConfig, draws_to_inputs, pack_step,
                                           train_step)
+from pixray_tpu_torch.filters import filter_class
 from pixray_tpu_torch.io import output as OUT
+from pixray_tpu_torch.losses import loss_class
 from pixray_tpu_torch.models.perceptor import Perceptor
+from pixray_tpu_torch.prompt import parse_prompt
 from pixray_tpu_torch.utils import get_file_path
 
 # (setting, value that means "off") for everything not ported yet
@@ -132,6 +142,28 @@ class Engine:
                            for name in args.clip_models]
         tables = build_prompt_tables(args, self.perceptors, self.device)
 
+        # ---- filters and custom losses ("name:weight", "loss->arg->arg")
+        self.filters = []
+        if args.filters is not None:
+            for spec in [f.strip() for f in args.filters.split(",")]:
+                name, weight, _stop = parse_prompt(spec)
+                try:
+                    filt_cls = filter_class(name)
+                except KeyError:
+                    raise ValueError(f"Requested filter not found, aborting: {name}") from None
+                self.filters.append((filt_cls(args), weight))
+        self.custom_losses = []
+        self.loss_globals = {}
+        if args.custom_loss is not None and isinstance(args.custom_loss, str):
+            for chunk in [c.strip() for c in args.custom_loss.split(",")]:
+                loss_spec, *instance_args = chunk.split("->") if chunk.find("->") > 0 else [chunk]
+                name, weight, _stop = parse_prompt(loss_spec)
+                loss_obj = loss_class(name)(args)
+                loss_obj.instance_settings(instance_args)
+                self.custom_losses.append((loss_obj, weight))
+            for loss_obj, _w in self.custom_losses:
+                self.loss_globals.update(loss_obj.add_globals(args))
+
         # ---- init latent (the stroke drawers ignore init_tensor and make
         # their model_params here)
         init_tensor = None
@@ -156,6 +188,10 @@ class Engine:
             init_weight_cos=args.init_weight_cos,
             z_orig_flat=self.z_orig_flat,
             compute_dtype=self.compute_dtype,
+            filters=self.filters,
+            custom_losses=self.custom_losses,
+            loss_globals=self.loss_globals,
+            args=args,
         )
         self.loss_names = self.step_cfg.names
 
@@ -203,14 +239,20 @@ class Engine:
 
     # ------------------------------------------------------------------ draws
     def draw_step(self, planes_out=None) -> list[dict]:
-        """One draws dict per batch of the next step (see ``step.pack_step``);
-        ``planes_out`` (per batch, per perceptor: three planes) receives the
-        noise planes."""
+        """One draws dict per batch of the next step (see ``step.pack_step``),
+        drawn in the order fill, filter shifts (each in the range of the
+        shape the filters before it leave), cuts; ``planes_out`` (per batch,
+        per perceptor: three planes) receives the noise planes."""
         out = []
         for b in range(self.args.batches):
             fill = float(torch.rand((), generator=self.gen))
+            shifts, h, w = [], self.side_y, self.side_x
+            for filt, _weight in self.filters:
+                shifts.append(filt.draw(self.gen, h, w))
+                h, w = filt.out_shape(h, w)
             out.append({
                 "fill": fill,
+                "filters": shifts,
                 "perceptors": [
                     C.draw_step_cutouts(self.gen, self.gen_device, self.args.num_cuts,
                                         p.input_resolution, self.args.aspect_width,
@@ -275,10 +317,10 @@ class Engine:
         if blk is None or blk.n != n:
             blk = self.step_block = StepBlock(self.step_cfg, self.optimizer, n,
                                                [self.args.num_cuts] * len(self.perceptors), self.device)
-        host = blk.staging_rows()
+        rows, ints = blk.staging_inputs()
         for s in range(n):
-            pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, host[s])
-        blk.upload(host)
+            pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, rows[s], ints[s])
+        blk.upload()
         result = blk.run(self.z, self.opt_state, self.lr_scale)
         self.steps_dispatched += n
         self.dispatched_blocks.append((cur_it, n))

@@ -2,19 +2,21 @@
 and ``build_multi_step`` in ``pixray_tpu/engine/step.py``, for the terms
 the ported slices have).
 
-    synth → [flatten alpha] → per perceptor: pool → cutouts → encode →
-    prompt losses;  + init-weight and transparency terms
-    then grad → Adam → LR scale → drawer clamp.
+    synth → filters → [flatten alpha] → per perceptor: pool → cutouts →
+    encode → prompt losses;  + init-weight and transparency terms, then
+    the custom losses;  then grad → Adam → LR scale → drawer clamp.
 
 Random draws of a step come in a ``draws`` dict (see :func:`pack_step`),
 so a caller can replay another implementation's draws.  The host packs
-them into the step's inputs: per batch, one block of parameter rows for
-all the perceptors' banks (``cutouts.pack_cutouts``: the cut geometry,
-the padding mode of the step's parity, jitter, noise factor and the fill)
-and the noise planes.  The step itself reads only those and device state,
-so it runs as one captured CUDA graph: :class:`StepBlock` holds the inputs
-of ``n`` steps at fixed addresses and runs the ``n`` steps as one replay
-(the counterpart of the JAX package's ``lax.scan`` block).  The latent
+them into the step's inputs, one float32 buffer per step: per batch, one
+block of parameter rows for all the perceptors' banks
+(``cutouts.pack_cutouts``: the cut geometry, the padding mode of the
+step's parity, jitter, noise factor and the fill), then an int32 tail of
+the iteration and each batch's filter shifts; and the noise planes.  The
+step itself reads only those and device state, so it runs as one captured
+CUDA graph: :class:`StepBlock` holds the inputs of ``n`` steps at fixed
+addresses and runs the ``n`` steps as one replay (the counterpart of the
+JAX package's ``lax.scan`` block).  The latent
 ``z`` is a tensor or a dict of tensors (``engine/latent.py``); gradients,
 the optimizer and ``batches`` accumulation go leaf by leaf, and the step
 writes the new latent and optimizer state into the old ones.
@@ -59,6 +61,10 @@ class StepConfig:
     init_weight_cos: float = 0.0
     z_orig_flat: Any = None
     compute_dtype: Any = None  # post-warp epilogue dtype (None = float32)
+    filters: list = field(default_factory=list)  # [(filter, weight)]
+    custom_losses: list = field(default_factory=list)  # [(loss, weight)]
+    loss_globals: dict = field(default_factory=dict)  # the losses' add_globals
+    args: Any = None  # the settings, which the custom losses read
     names: list = field(default_factory=list)
 
 
@@ -66,55 +72,84 @@ class StepConfig:
 LAUNCH_COUNTERS = (cuda_warp.LAUNCHES, cuda_strokes.LAUNCHES)
 
 
-def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out):
-    """Pack one step's draws into its host parameter rows ``out`` (batches,
-    sum of the banks' cut counts, PARAM_STRIDE): per batch, each
-    perceptor's bank in turn, every row carrying the batch's fill.
+def input_sizes(cfg: StepConfig, cut_counts):
+    """(float32 words of one step's parameter rows, int32 words of its tail:
+    the iteration, then (batches, filters, 2) shifts); ``cut_counts``: N
+    per perceptor."""
+    return cfg.batches * sum(cut_counts) * PARAM_STRIDE, 1 + cfg.batches * len(cfg.filters) * 2
 
-    batch_draws: one dict per batch, {"fill": float, "perceptors": [per
-    perceptor {"transforms", "jitter", "noise"} as ``cutouts.render_cutouts``
-    takes them]}.  The zoom cuts pad by reflection on even iterations."""
+
+def split_inputs(cfg: StepConfig, buf, cut_counts):
+    """Views of a (..., rows + tail) float32 step buffer: the rows (...,
+    batches, R, PARAM_STRIDE) and the int32 tail (..., 1 + batches * filters * 2)."""
+    n_rows, _ = input_sizes(cfg, cut_counts)
+    lead = tuple(buf.shape[:-1])
+    rows = buf[..., :n_rows].view(*lead, cfg.batches, sum(cut_counts), PARAM_STRIDE)
+    return rows, buf[..., n_rows:].view(torch.int32)
+
+
+def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows, out_ints):
+    """Pack one step's draws into its host inputs: the parameter rows
+    ``out_rows`` (batches, sum of the banks' cut counts, PARAM_STRIDE), per
+    batch each perceptor's bank in turn, every row carrying the batch's
+    fill; and the int32 tail ``out_ints``: the iteration, then each batch's
+    filter shifts.
+
+    batch_draws: one dict per batch, {"fill": float, "filters": [(rand_h,
+    rand_w) per filter] (absent without filters), "perceptors": [per
+    perceptor {"transforms", "jitter", "noise"} as
+    ``cutouts.render_cutouts`` takes them]}.  The zoom cuts pad by
+    reflection on even iterations."""
     if len(batch_draws) != cfg.batches:
         raise ValueError(f"{len(batch_draws)} draws for {cfg.batches} batches")
+    out_ints[0] = iteration
+    shifts = out_ints[1:].view(cfg.batches, len(cfg.filters), 2)
     for b, draws in enumerate(batch_draws):
         off = 0
         for pd in draws["perceptors"]:
             n = sum(t.shape[0] for t in pd["transforms"])
             facs = None if pd["noise"] is None else pd["noise"][0]
             C.pack_cutouts(pd["transforms"], reflect_padding=iteration % 2 == 0, fill_color=draws["fill"],
-                           jitter=pd["jitter"], facs=facs, out=out[b, off:off + n])
+                           jitter=pd["jitter"], facs=facs, out=out_rows[b, off:off + n])
             off += n
-        if off != out.shape[1]:
-            raise ValueError(f"the draws hold {off} cuts, the rows {out.shape[1]}")
-    return out
+        if off != out_rows.shape[1]:
+            raise ValueError(f"the draws hold {off} cuts, the rows {out_rows.shape[1]}")
+        filter_draws = draws.get("filters", [])
+        if len(filter_draws) != len(cfg.filters):
+            raise ValueError(f"{len(filter_draws)} filter draws for {len(cfg.filters)} filters")
+        for i, pair in enumerate(filter_draws):
+            shifts[b, i, 0], shifts[b, i, 1] = int(pair[0]), int(pair[1])
 
 
-def step_inputs(rows, planes, cut_counts):
-    """The step's inputs, per batch {"fill": () tensor, "perceptors": [per
-    perceptor {"params": (N, PARAM_STRIDE), "planes": three (N, S, S) or
-    None}]}, as views of ``rows`` (batches, R, PARAM_STRIDE) on the step's
-    device and of ``planes`` (per batch, per perceptor); ``cut_counts``: N
-    per perceptor."""
+def step_inputs(cfg: StepConfig, buf, planes, cut_counts):
+    """The step's inputs, per batch {"fill", "iteration": () tensors,
+    "filters": (filters, 2) int32, "perceptors": [per perceptor {"params":
+    (N, PARAM_STRIDE), "planes": three (N, S, S) or None}]}, as views of
+    the step's buffer ``buf`` on the step's device and of ``planes`` (per
+    batch, per perceptor); ``cut_counts``: N per perceptor."""
+    rows, ints = split_inputs(cfg, buf, cut_counts)
+    shifts = ints[1:].view(cfg.batches, len(cfg.filters), 2)
     out = []
     for b, batch_planes in enumerate(planes):
         off, perceptors = 0, []
         for zs, n in zip(batch_planes, cut_counts):
             perceptors.append({"params": rows[b, off:off + n], "planes": zs})
             off += n
-        out.append({"fill": unpack_params(rows[b])["fill"][0], "perceptors": perceptors})
+        out.append({"fill": unpack_params(rows[b])["fill"][0], "iteration": ints[0], "filters": shifts[b],
+                    "perceptors": perceptors})
     return out
 
 
 def draws_to_inputs(cfg: StepConfig, batch_draws: list[dict], iteration: int, device):
-    """One eager step's inputs from its draws: rows packed on the host
-    (pinned for the card) and copied to ``device``; the draws' own planes."""
+    """One eager step's inputs from its draws: packed on the host (pinned
+    for the card) and copied to ``device`` in one copy; the draws' own planes."""
     cuts = [sum(t.shape[0] for t in pd["transforms"]) for pd in batch_draws[0]["perceptors"]]
-    rows = torch.zeros((cfg.batches, sum(cuts), PARAM_STRIDE), dtype=torch.float32,
-                       pin_memory=torch.device(device).type == "cuda")
-    pack_step(cfg, batch_draws, iteration, rows)
+    buf = torch.zeros((sum(input_sizes(cfg, cuts)),), dtype=torch.float32,
+                      pin_memory=torch.device(device).type == "cuda")
+    pack_step(cfg, batch_draws, iteration, *split_inputs(cfg, buf, cuts))
     planes = [[None if pd["noise"] is None else tuple(pd["noise"][1]) for pd in d["perceptors"]]
               for d in batch_draws]
-    return step_inputs(rows.to(device, non_blocking=True), planes, cuts)
+    return step_inputs(cfg, buf.to(device, non_blocking=True), planes, cuts)
 
 
 def loss_fn(cfg: StepConfig, z, inputs: dict):
@@ -127,6 +162,11 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
         values.append(value)
 
     img = cfg.drawer.synth(cfg.drawer_params, z)
+
+    for i, (filt, weight) in enumerate(cfg.filters):
+        img, f_loss = filt(img, inputs["filters"][i])
+        add(f"filter:{type(filt).__name__}", weight * f_loss)
+
     alpha = None
     if img.shape[-1] == 4:
         colors = img[..., :3]
@@ -136,10 +176,15 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
         else:
             img = colors
 
+    # the losses see each cut size's last bank channels-last in float32
+    # (two towers of one size: the second replaces the first, as in JAX)
+    cur_cutouts, embeds = {}, None
     for spec, pd in zip(cfg.perceptors, inputs["perceptors"]):
         work = C.pool_to_work(img, spec.cut_size)
         cutouts = cuda_warp.cutout_bank(work, pd["params"], spec.cut_size, pd["planes"], cfg.compute_dtype)
-        iii = spec.image_fn(cutouts)
+        if cfg.custom_losses:
+            cur_cutouts[spec.cut_size] = cutouts.permute(0, 2, 3, 1).float()
+        iii = embeds = spec.image_fn(cutouts)
         pl = prompt_losses(iii, spec.table)
         for i in range(spec.table.size):
             add(f"{spec.name}:prompt{i}", pl[i])
@@ -155,6 +200,16 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
         add("init_weight_cos", torch.mean(1.0 - cos) * cfg.init_weight_cos)
     if alpha is not None and cfg.transparent_weight != 0:
         add("transparent", cfg.transparent_weight * torch.mean(alpha))
+
+    loss_globals = {"cur_iteration": inputs["iteration"], "embeds": embeds, "fill_color": inputs["fill"]}
+    for loss_obj, weight in cfg.custom_losses:
+        out = loss_obj.get_loss(cur_cutouts, img, cfg.args, globals=loss_globals, lossGlobals=cfg.loss_globals)
+        name = type(loss_obj).__name__
+        if isinstance(out, (list, tuple)):
+            for j, value in enumerate(out):
+                add(f"loss:{name}:{j}", weight * value)
+        else:
+            add(f"loss:{name}", weight * out)
 
     cfg.names[:] = names
     vals = torch.stack(values) if values else torch.zeros((0,), device=img.device)
@@ -218,11 +273,13 @@ class StepBlock:
     """``n`` optimizer steps from inputs at fixed addresses (the counterpart
     of the JAX package's ``build_multi_step``).
 
-    The host draws each step in the eager order, packs its parameter rows
-    into one of two page-locked staging buffers and draws its noise planes
-    straight into the block's planes (:meth:`plane_targets`); :meth:`upload`
-    copies the staging buffer into the block's rows with one stream-ordered
-    copy.  A staging buffer is written again only after its copy has run.
+    The host draws each step in the eager order, packs its inputs (the
+    parameter rows and the int32 tail of the iteration and the filter
+    shifts, :func:`pack_step`) into one of two page-locked staging buffers
+    and draws its noise planes straight into the block's planes
+    (:meth:`plane_targets`); :meth:`upload` copies the staging buffer into
+    the block's inputs with one stream-ordered copy.  A staging buffer is
+    written again only after its copy has run.
 
     On CUDA, :meth:`run` captures the ``n`` whole steps (forward, backward,
     Adam, LR scale, clamp) into one CUDA graph at its first call, after one
@@ -237,11 +294,11 @@ class StepBlock:
         self.cfg, self.optimizer, self.n, self.cut_counts = cfg, optimizer, n, cut_counts
         self.device = torch.device(device)
         on_cuda = self.device.type == "cuda"
-        rows = (n, cfg.batches, sum(cut_counts), PARAM_STRIDE)
-        self.staging = [torch.zeros(rows, dtype=torch.float32, pin_memory=on_cuda) for _ in range(2)]
+        shape = (n, sum(input_sizes(cfg, cut_counts)))
+        self.staging = [torch.zeros(shape, dtype=torch.float32, pin_memory=on_cuda) for _ in range(2)]
         self.copied = [None, None]  # the event after each staging buffer's copy
         self.turn = 0
-        self.rows = torch.zeros(rows, dtype=torch.float32, device=self.device)
+        self.buf = torch.zeros(shape, dtype=torch.float32, device=self.device)
         dtype = cfg.compute_dtype or torch.float32
         self.planes = [torch.zeros((n, cfg.batches, 3, c, spec.cut_size, spec.cut_size), dtype=dtype,
                                    device=self.device)
@@ -257,17 +314,19 @@ class StepBlock:
         return [[tuple(p[s, b].unbind(0)) for p in self.planes] for b in range(self.cfg.batches)]
 
     def inputs(self, s: int):
-        return step_inputs(self.rows[s], self.plane_targets(s), self.cut_counts)
+        return step_inputs(self.cfg, self.buf[s], self.plane_targets(s), self.cut_counts)
 
-    def staging_rows(self):
-        """The next staging buffer (n, batches, R, PARAM_STRIDE), free to write."""
+    def staging_inputs(self):
+        """The next staging buffer, free to write, as (rows (n, batches, R,
+        PARAM_STRIDE), int32 tails (n, T)) views."""
         self.turn ^= 1
         if self.copied[self.turn] is not None:
             self.copied[self.turn].synchronize()
-        return self.staging[self.turn]
+        return split_inputs(self.cfg, self.staging[self.turn], self.cut_counts)
 
-    def upload(self, host):
-        self.rows.copy_(host, non_blocking=True)
+    def upload(self):
+        """Copy the staging buffer last handed out into the block's inputs."""
+        self.buf.copy_(self.staging[self.turn], non_blocking=True)
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(self.device))

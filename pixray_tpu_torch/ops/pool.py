@@ -1,4 +1,4 @@
-"""Adaptive average / max pooling of (..., H, W, C) images, torch window semantics.
+"""Adaptive average / max pooling and resampling of (..., H, W, C) images.
 
 Port of ``pixray_tpu/ops/pool.py``: windows are
 ``[floor(i*In/Out), ceil((i+1)*In/Out))``.  Average pooling is two float32
@@ -6,8 +6,12 @@ matmuls against fixed row-stochastic matrices; max pooling gathers the padded
 windows and reduces with ``amax``, whose gradient splits evenly between tied
 maxima exactly as the JAX ``max`` reduction does (flat pixel cells make ties
 common, so ``F.adaptive_max_pool2d``'s single-index gradient would differ).
-The matrices and indices are made on the device once per shape: a pooling
-call copies nothing from the host, so a CUDA graph can capture it.
+Nearest resizing (``nearest_resize``, the fast_pixel drawer's render) is
+two 0/1 matmuls, as in the JAX package.  The matrices and indices are made
+on the device once per shape: a pooling or resizing call copies nothing
+from the host, so a CUDA graph can capture it.  ``linear_resize`` is
+``jax.image.resize``'s antialiased bilinear resize, used once on the host
+(fast_pixel's ``params_from_image``).
 """
 
 from __future__ import annotations
@@ -74,3 +78,59 @@ def adaptive_max_pool(x, out_h: int, out_w: int):
     mask = (rmask[:, :, None, None] & cmask[None, None, :, :])[..., None]
     neg = torch.full((), float("-inf"), dtype=x.dtype, device=x.device)
     return torch.amax(torch.where(mask, wins, neg), dim=(-4, -2))
+
+
+def _nearest_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) 0/1 matrix of nearest-neighbour resampling, ``jax.image``'s
+    convention: src = floor((i + 0.5) * in / out)."""
+    src = np.floor((np.arange(out_size) + 0.5) * in_size / out_size).astype(np.int64)
+    src = np.clip(src, 0, in_size - 1)
+    mat = np.zeros((out_size, in_size), np.float32)
+    mat[np.arange(out_size), src] = 1.0
+    return mat
+
+
+@lru_cache(maxsize=64)
+def _nearest_operator(in_size: int, out_size: int, device: torch.device):
+    return torch.from_numpy(_nearest_matrix(in_size, out_size)).to(device)
+
+
+def nearest_resize(x, out_h: int, out_w: int):
+    """Nearest-neighbour resize of (..., H, W, C) as two 0/1 matmuls (the
+    JAX package's form: exact forward, a deterministic gradient)."""
+    h, w = x.shape[-3], x.shape[-2]
+    row = _nearest_operator(h, out_h, x.device)
+    col = _nearest_operator(w, out_w, x.device)
+    y = torch.einsum("oh,...hwc->...owc", row, x.float())
+    y = torch.einsum("pw,...owc->...opc", col, y)
+    return y.to(x.dtype)
+
+
+def _linear_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) weights of ``jax.image.resize(method="bilinear")`` along one
+    axis (``compute_weight_mat`` with the triangle kernel and antialiasing:
+    when downsampling the kernel widens by in / out), in its float32 order."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.0) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0), f32(1) - np.abs(x))
+    total = np.sum(weights, axis=0, keepdims=True, dtype=f32)
+    weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, f32(1)), f32(0))
+    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(inside[None, :], weights, f32(0)).astype(f32).T
+
+
+def linear_resize(x, out_h: int, out_w: int):
+    """Bilinear resize of an (H, W, C) image with ``jax.image.resize``'s
+    antialiasing (a triangle kernel widened when downsampling), as one
+    float32 matmul per axis whose size changes."""
+    h, w = x.shape[-3], x.shape[-2]
+    y = x.float()
+    if h != out_h:
+        y = torch.einsum("oh,hwc->owc", torch.from_numpy(_linear_matrix(h, out_h)).to(y.device), y)
+    if w != out_w:
+        y = torch.einsum("pw,owc->opc", torch.from_numpy(_linear_matrix(w, out_w)).to(y.device), y)
+    return y

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's step on one NVIDIA GPU, row by row.
 
-    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan]
+    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft]
 
-(``--rows ""`` measures no row.)
+(``--rows ""`` measures no row; a tree without the fft drawer takes
+``--rows pixel,clipdraw,vqgan``.)
 
 ``--root`` imports ``pixray_tpu_torch`` from another checkout (default:
 this one), so that two trees are measured in one call on one card, in
@@ -309,7 +310,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pixray_tpu_torch is measured")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--rows", default="pixel,clipdraw,vqgan")
+    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -329,7 +330,8 @@ def main():
     out = {"label": args.label, "package": os.path.dirname(pixray_tpu_torch.__file__), "card": card,
            "flagship_bank": flagship_bank(cs), "flagship_strokes": flagship_strokes(cs)}
     _install_markers()
-    configs = {"pixel": cs.PIXEL_CONFIG, "clipdraw": cs.CLIPDRAW_CONFIG, "vqgan": cs.VQGAN_CONFIG}
+    configs = {"pixel": cs.PIXEL_CONFIG, "clipdraw": cs.CLIPDRAW_CONFIG, "vqgan": cs.VQGAN_CONFIG,
+               "fft": cs.FFT_CONFIG}
     from pixray_tpu_torch.engine.core import Engine
 
     modes = (False, True) if hasattr(Engine, "_block_size") else (False,)  # a tree without blocks: eager only

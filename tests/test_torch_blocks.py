@@ -5,11 +5,16 @@
   cadences, LR drops, ``steps_per_call`` 0/1/4/8, ``auto_stop``, a drawer
   with ``post_step`` and every ``cur_it``: equal.
 - A pixel and a clipdraw run (TinyTest, an LR drop and checkins inside the
-  run; pixel also with two batches over a transparent canvas) with
+  run; pixel also with two batches over a transparent canvas; the fft
+  drawer with two batches, the wallpaper and tiler filters and three custom
+  losses) with
   ``steps_per_call`` 8 and 1 from one seed: per-step losses, the
   final latent, the optimizer state and the checkin images bitwise equal
   (on the CPU a block is its steps in a loop, from inputs staged as the
   card's graph reads them, so nothing may differ).
+- Without filters a step draws exactly the stream it drew before (the
+  fill, then the cuts); with filters the shifts come between the two, each
+  in its own input's range.
 - The device-tensor Adam against the formula it replaced and against
   optax, 1e-6 each, as tests/test_torch_engine.py holds Adam: the bias
   corrections are now f32 ``pow`` on the device, where the host's integer
@@ -123,7 +128,10 @@ def _run(tmp_path, label, steps_per_call, **extra):
     dict(drawer="pixel"), dict(drawer="clipdraw", strokes=12),
     # two batches, and the transparency composite over each batch's fill
     dict(drawer="pixel", batches=2, transparent=True, transparent_weight=0.5),
-], ids=["pixel", "clipdraw", "pixel-batches2-transparent"])
+    # filter shifts and the iteration in the staged int32 tail, and custom losses
+    dict(drawer="fft", fft_use="dwt", batches=2, filters="wallpaper,tiler", wallpaper_type="shift",
+         custom_loss="smoothness:0.5,saturation,symmetry"),
+], ids=["pixel", "clipdraw", "pixel-batches2-transparent", "fft-filters-losses"])
 def test_blocked_run_equals_single_steps(tmp_path, drawer):
     blocked, b_losses, b_images, b_blocks = _run(tmp_path, "blocked", 8, **drawer)
     single, s_losses, s_images, s_blocks = _run(tmp_path, "single", 1, **drawer)
@@ -142,6 +150,47 @@ def test_blocked_run_equals_single_steps(tmp_path, drawer):
     assert sorted(b_images) == sorted(s_images) == [
         "frame_0000.png", "frame_0010.png", "frame_0020.png", "frame_0024.png", "output.png"]
     assert b_images == s_images
+
+
+def test_no_filter_run_draws_the_same_stream(tmp_path):
+    """Without filters a step draws what it drew before filters existed:
+    per batch the fill, then each perceptor's cuts, jitter and noise,
+    nothing between them; with filters each batch draws its shifts between
+    the fill and the cuts, in the range of the shape the filters before it
+    leave."""
+    from pixray_tpu_torch.engine import cutouts as C
+
+    engine = Engine(apply_settings(dict(RUN, drawer="pixel", batches=2, outdir=str(tmp_path)),
+                                   apply_side_effects=False), device="cpu")
+    gen, gen_dev = torch.Generator(), torch.Generator()
+    gen.set_state(engine.gen.get_state())
+    gen_dev.set_state(engine.gen_device.get_state())
+    draws = engine.draw_step()
+    for d in draws:
+        assert d["fill"] == float(torch.rand((), generator=gen)) and d["filters"] == []
+        want = C.draw_step_cutouts(gen, gen_dev, RUN["num_cuts"], 32, engine.args.aspect_width, torch.float32,
+                                   torch.device("cpu"))
+        for got, ref in zip(d["perceptors"][0]["transforms"] + d["perceptors"][0]["jitter"],
+                            want["transforms"] + want["jitter"]):
+            assert torch.equal(got, ref)
+    assert torch.equal(torch.rand(4, generator=gen), torch.rand(4, generator=engine.gen))
+
+    engine = Engine(apply_settings(dict(RUN, drawer="pixel", filters="wallpaper,tiler", wallpaper_type="shift",
+                                        outdir=str(tmp_path)), apply_side_effects=False), device="cpu")
+    gen = torch.Generator()
+    gen.set_state(engine.gen.get_state())
+    for _ in range(20):
+        d = engine.draw_step()[0]
+        assert d["fill"] == float(torch.rand((), generator=gen))
+        (wh, ww), (th, tw) = d["filters"]
+        assert 0 <= wh < engine.side_y and 0 <= ww < engine.side_x  # wallpaper: its input
+        assert 0 <= th < 2 * engine.side_y and 0 <= tw < engine.side_x  # tiler: the doubled rows
+        assert (wh, ww) == (int(torch.randint(0, engine.side_y, (), generator=gen)),
+                            int(torch.randint(0, engine.side_x, (), generator=gen)))
+        assert (th, tw) == (int(torch.randint(0, 2 * engine.side_y, (), generator=gen)),
+                            int(torch.randint(0, engine.side_x, (), generator=gen)))
+        C.draw_step_cutouts(gen, torch.Generator(), RUN["num_cuts"], 32, engine.args.aspect_width, torch.float32,
+                            torch.device("cpu"))
 
 
 def test_explicit_draws_step_eagerly(tmp_path, monkeypatch):

@@ -1,14 +1,18 @@
 """The port runs with JAX, flax, optax and pixray_tpu unimportable — as on a
-GPU machine that has none of them.  PIL, PyYAML, regex and ftfy are blocked
-too: the port's main path must not need them.
+GPU machine that has none of them.  PIL, PyYAML, regex, ftfy and matplotlib
+are blocked too: the port's main path must not need them (the palette DSL
+resolves colour names from its checked-in tables).
 
 A subprocess installs an import hook that refuses those modules, imports
 pixray_tpu_torch and runs a slice for 2 steps on the CPU at TinyTest size
 through the public API: the pixel slice, the clipdraw slice with its
 SVG export, and the vqgan slice (tiny_test, random weights, two towers) at
 a size on the VQGAN's grid, so the init noise needs no resize (and no PIL).
-Then a blocked pixel run (10 steps: steps 1-8 one block), and the step
-video's GIF branch (PIL allowed, imageio refused, no ffmpeg).
+Then a blocked pixel run (10 steps: steps 1-8 one block), the step
+video's GIF branch (PIL allowed, imageio refused, no ffmpeg), and the
+plug-ins: the fft drawer (dwt, blocked, and fft) under the wallpaper filter
+with custom losses, and fast_pixel under lookup and tiler with the other
+losses and a palette of colour names.
 """
 
 import os
@@ -48,7 +52,7 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "chex", "pixray_tpu", "PIL", "yaml", "regex", "ftfy")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "chex", "pixray_tpu", "PIL", "yaml", "regex", "ftfy", "matplotlib")
 
 
 def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False):
@@ -91,3 +95,18 @@ def test_step_video_gif_without_jax(tmp_path):
     assert sorted(os.listdir(os.path.join(outdir, "steps"))) == [
         "frame_0000.png", "frame_0001.png", "frame_0002.png", "output.gif"]
     assert "WARNING: no MP4 encoder available" in stdout
+
+
+def test_fft_plugins_run_without_jax(tmp_path):
+    _run_blocked(tmp_path, dict(drawer="fft", fft_use="dwt", filters="wallpaper", wallpaper_type="shift",
+                                custom_loss="smoothness:0.5,saturation", iterations=10, save_every=100),
+                 expect_block=True)
+
+
+def test_fft_mode_runs_without_jax(tmp_path):
+    _run_blocked(tmp_path, dict(drawer="fft", init_noise="none", filters="tiler"))
+
+
+def test_fast_pixel_plugins_run_without_jax(tmp_path):
+    _run_blocked(tmp_path, dict(drawer="fast_pixel", filters="lookup,tiler:0.5", palette="red->sky blue\\8;mat:teal",
+                                custom_loss="symmetry,palette,gaussian,edge,aesthetic"))
