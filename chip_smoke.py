@@ -23,6 +23,11 @@ Phases, each fatal on failure (exit code 1, no result line):
    (counted by K2 itself); the pre-jitter bank of the jittered cuts
    bitwise, the bank within one bf16 ulp, the canvas gradient within
    BWD_RTOL; kernel, plain, grid_sample times and bounds;
+3c. bank kernels without jitter: the flagship bank with apply = 0 on
+   every row (the spot, spot_off and image-prompt banks): K1 bitwise
+   against the plain composition, K2 (no saved bank) within BWD_RTOL of
+   the plain gradient, and the forward-only launch of a canvas that needs
+   no gradient (one K1, no K2, nothing saved); times beside 3b's;
 4. stroke kernels (K4, K4s, K5) vs the plain stroke renderer on the card:
    forward, all four gradients, and K4s's saved state against its plain
    twins (each tile's stroke list exactly, its chunk-entry tile canvases
@@ -69,7 +74,20 @@ Phases, each fatal on failure (exit code 1, no result line):
    block); asserts the resolved settings, finite losses, the encoded init
    on codebook rows, the LR drop, the checkins and frames, the step video
    (steps/output.mp4, or the GIF where no MP4 encoder exists), and the
-   launches.
+   launches;
+12. image row: the pixel row (384x216, ViT-B/32, 64 cuts, "sunrise") with
+   an init image, an image prompt, a spot and a spot_off prompt on the
+   package's mask, a target image and a label, from PNGs the script
+   writes: blocked vs eager as 5b (the first replayed step bitwise), then
+   9 + 24 steps timed; 4 K1 and 3 K2 launches per step (main, spot,
+   spot_off, the forward-only image prompt), the JAX package's term
+   names, finite losses, steps/s, device busy and events per step;
+13. overlay row: the vqgan row with an init image, an overlay every 4
+   steps, an image label and init_weight_pix, --steps_per_call 4: every
+   overlay ends the block before it, and the step after each overlay that
+   starts a block gives the losses of an eager step from the re-encoded
+   latent (the replay reads the latent the overlay wrote in place);
+14. agreement: row 12 on TinyTest, card against CPU, as in 5.
 
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -113,6 +131,7 @@ FFT_MODE_STEPS = 9  # step 0, then one block
 PLUGIN_EXTRA = dict(filters="lookup,tiler", custom_loss="saturation,symmetry,smoothness,palette,edge,gaussian,aesthetic",
                     palette="(200,40,70)->(40,90,200)\\4;[(230+200+60), (90+160+120)]", transparent=True)
 WARMUP_STEPS = 9  # bench.py:73-74
+OVERLAY_STEPS = 17  # step 0, 1-3 eager, blocks of 4 from each overlay at 4, 8, 12, step 16 eager
 TIMED_STEPS = 24
 LINE_SKETCH_STEPS = 9  # step 0, then one block
 DEFAULT_RUN_STEPS = 12  # pixray_tpu_torch.run's defaults, cut to 12 iterations
@@ -147,6 +166,30 @@ BLOCKED_SPREAD = 4.0
 BLOCKED_FLOOR = 1e-5
 BLOCKED_STEPS = 16  # after step 0; vqgan 8
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
+
+
+def write_images(tmp):
+    """Seeded PNGs for the image inputs: {init, prompt, target, overlay
+    (RGBA, alpha 160), label}: paths in ``tmp``."""
+    import numpy as np
+    from PIL import Image
+
+    out = {}
+    for seed, (name, shape) in enumerate((("init", (216, 384, 3)), ("prompt", (300, 300, 3)),
+                                          ("target", (240, 320, 3)), ("overlay", (120, 200, 4)),
+                                          ("label", (208, 384, 3)))):
+        arr = np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+        if name == "overlay":
+            arr[..., 3] = 160
+        out[name] = os.path.join(tmp, f"{name}.png")
+        Image.fromarray(arr).save(out[name])
+    return out
+
+
+def image_extra(paths):
+    """Row 12's image inputs on top of a row's config."""
+    return dict(init_image=paths["init"], image_prompts=paths["prompt"], spot_prompts="a face",
+                spot_prompts_off="sky", target_images=paths["target"], labels="fox")
 
 
 def bound(nbytes, ops):
@@ -592,16 +635,14 @@ def _tie_canvas(h, w, gen):
     return work
 
 
-def phase_bank_kernels():
-    """K1/K2 with the epilogue at the flagship bank (64 cuts of 224 on the
-    224x224x3 work canvas of the 384x216 canvas, bf16, the jitter drawn with
-    p = 0.8, noise) and on a ragged tie-rich bank (9 cuts of S = 40 on a
-    90x100 canvas with gray, tied, 0 and 1 regions; zoomed-out cuts whose
-    footprint overflows shared memory, so both of K2's branches run)."""
+def flagship_bank_inputs():
+    """The flagship bank's inputs (64 cuts of 224 on the 224x224x3 work
+    canvas of the 384x216 canvas, bf16 noise, the jitter drawn with p =
+    0.8), and the generators they were drawn from: (gen, gen_dev, (work,
+    ms, modes, jitter, facs, planes))."""
     import torch
 
     from pixray_tpu_torch.engine.cutouts import bank_order, cut_transforms, draw_cut_params, draw_noise
-    from pixray_tpu_torch.ops import warp as W
     from pixray_tpu_torch.ops.color import draw_jitter_params
 
     dev = torch.device("cuda")
@@ -615,6 +656,90 @@ def phase_bank_kernels():
     jitter = draw_jitter_params(gen, 64)
     facs, planes = draw_noise(gen, gen_dev, 64, 224, torch.bfloat16, dev)
     work = torch.rand((224, 224, 3), generator=gen).to(dev)
+    return gen, gen_dev, (work, ms, modes, jitter, facs, planes)
+
+
+def phase_bank_no_jitter(with_jitter):
+    """K1/K2 on the flagship bank with ``apply`` = 0 on every row, as the
+    spot, spot_off and image-prompt banks run them: K1 bitwise against the
+    plain composition, K2 (which reads no row of the saved bank) within
+    BWD_RTOL of max|dwork| of the plain gradient, each through
+    ``cutout_bank`` as the step calls it; and the
+    forward-only launch: a canvas that needs no gradient takes one K1, no
+    K2, and saves nothing.  ``with_jitter``: phase 3b's flagship numbers,
+    printed beside these."""
+    import torch
+
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.ops.warp import inv3x3
+
+    bf16 = torch.bfloat16
+    _, _, (work, ms, modes, _jitter, facs, planes) = flagship_bank_inputs()
+    n, s, (h, w, _) = ms.shape[0], 224, work.shape
+    params = cuda_warp.pack_params(inv3x3(ms.float()), modes, None, facs, fill=0.37)
+    params_dev = params.to(work.device)
+    w_req = work.clone().requires_grad_(True)
+    out_k = cuda_warp.cutout_bank(w_req, params_dev, s, planes, bf16)
+    out_p = cuda_warp.cutout_bank_plain(w_req, params, s, planes, bf16)
+    g = torch.randn(out_k.shape, device=work.device, generator=torch.Generator(device=work.device).manual_seed(9))
+    g = g.to(bf16)
+    (dwork_k,) = torch.autograd.grad(out_k, w_req, g)
+    (dwork_p,) = torch.autograd.grad(out_p, w_req, g)
+    before = dict(cuda_warp.LAUNCHES)
+    with torch.no_grad():
+        out_f = cuda_warp.cutout_bank(w_req, params_dev, s, planes, bf16)
+    launched = {k: cuda_warp.LAUNCHES[k] - before[k] for k in before}
+    torch.cuda.synchronize()
+    scale = max(float(dwork_p.abs().max()), 1e-6)
+    res = {"n": n, "jittered": int(cuda_warp.unpack_params(params)["apply"].sum()),
+           "bitwise": torch.equal(out_k, out_p.detach()), "forward_only_bitwise": torch.equal(out_f, out_p.detach()),
+           "fwd_err": float((out_k.float() - out_p.detach().float()).abs().max()),
+           "bwd_err": float((dwork_k - dwork_p).abs().max()), "bwd_tol": BWD_RTOL * scale,
+           "forward_only_launches": launched}
+    if res["jittered"] != 0:
+        fail(f"the unjittered bank's rows set apply: {res}")
+    if not (res["bitwise"] and res["forward_only_bitwise"]):
+        fail(f"K1 without jitter differs from the plain composition: {res}")
+    if not res["bwd_err"] <= res["bwd_tol"]:
+        fail(f"K2 without jitter disagrees with the plain gradient: {res}")
+    if launched != {"warp_fwd": 1, "warp_bwd": 0}:
+        fail(f"the forward-only bank launched {launched}, expected one K1 and no K2")
+    plane, canvas, rows = s * s * 2, h * w * 3 * 4, params.numel() * 4
+    timed = {
+        "fwd": lambda: cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16),
+        "bwd": lambda: cuda_warp.launch_bank_bwd(g, None, params_dev, tuple(work.shape), s),
+    }
+    for key, fn in timed.items():
+        res[f"{key}_ms"], res[f"{key}_event_ms"] = device_ms(fn), median_ms(fn)
+    res["fwd_bound"] = bound(canvas + rows + 3 * n * plane * 2, WARP_FWD_FLOPS_PER_PIXEL * n * s * s)
+    res["bwd_bound"] = bound(3 * n * plane + rows + canvas, WARP_BWD_FLOPS_PER_PIXEL * n * s * s)
+    f = with_jitter
+    print(f"bank kernels without jitter (flagship, N={n}, S={s}, bf16, apply = 0 on every row, noise): K1 bitwise "
+          f"the plain composition {res['bitwise']} (max_abs_err {res['fwd_err']:.3g}); K2 (reads no saved row) "
+          f"max_abs_err {res['bwd_err']:.3g} (tol {res['bwd_tol']:.3g}); forward-only (a canvas without "
+          f"gradient): launches {launched}, bitwise {res['forward_only_bitwise']}", flush=True)
+    print(f"bank kernels without jitter times (ms, summed kernel time / CUDA events of one call): K1, nothing "
+          f"saved (the forward-only launch too) {res['fwd_ms']:.4f} / {res['fwd_event_ms']:.4f} (bound "
+          f"{res['fwd_bound'][0]:.4f}, {res['fwd_bound'][1]}) beside 3b's K1 {f['fwd_ms']:.4f} / "
+          f"{f['fwd_event_ms']:.4f}; K2 {res['bwd_ms']:.4f} / {res['bwd_event_ms']:.4f} (bound "
+          f"{res['bwd_bound'][0]:.4f}, {res['bwd_bound'][1]}) beside 3b's K2 {f['bwd_ms']:.4f} / "
+          f"{f['bwd_event_ms']:.4f}", flush=True)
+    return res
+
+
+def phase_bank_kernels():
+    """K1/K2 with the epilogue at the flagship bank (64 cuts of 224 on the
+    224x224x3 work canvas of the 384x216 canvas, bf16, the jitter drawn with
+    p = 0.8, noise) and on a ragged tie-rich bank (9 cuts of S = 40 on a
+    90x100 canvas with gray, tied, 0 and 1 regions; zoomed-out cuts whose
+    footprint overflows shared memory, so both of K2's branches run)."""
+    import torch
+
+    from pixray_tpu_torch.engine.cutouts import draw_noise
+    from pixray_tpu_torch.ops import warp as W
+
+    dev = torch.device("cuda")
+    gen, gen_dev, (work, ms, modes, jitter, facs, planes) = flagship_bank_inputs()
     flagship = bank_case("flagship", work, ms, modes, 0.37, 224, jitter, facs, planes, time_it=True)
 
     h, w, s = 90, 100, 40
@@ -924,12 +1049,20 @@ def phase_stroke_kernels():
 
 
 def _draws_to(draws, device, dtype):
+    """CPU draws with their noise (facs and planes, of every bank) in ``dtype``, the planes on ``device``."""
+    def noise(n):
+        facs, planes = n
+        return facs.to(dtype), [z.to(device, dtype) for z in planes]
+
     out = []
     for d in draws:
         ps = []
         for p in d["perceptors"]:
-            facs, planes = p["noise"]
-            ps.append(dict(p, noise=(facs.to(dtype), [z.to(device, dtype) for z in planes])))
+            q = dict(p, noise=noise(p["noise"]))
+            q.update({k: noise(p[k]) for k in ("spot", "spot_off") if k in p})
+            if "image_prompts" in p:
+                q["image_prompts"] = [dict(ip, noise=noise(ip["noise"])) for ip in p["image_prompts"]]
+            ps.append(q)
         out.append(dict(d, perceptors=ps))
     return out
 
@@ -1206,10 +1339,13 @@ def phase_blocked(tmp, config, label, steps, card):
     if not dev <= tol:
         fail(f"blocked {label}: the blocked run moved {dev} from the eager run (tol {tol}, eager spread {spread}); "
              f"per step {per_step}")
-    # the port's kernels inside one replay
+    # the port's kernels inside one replay: K1 for every bank, K2 for each
+    # bank but the forward-only image prompts
     events = profiled_events(blk.graph.replay, 1)
-    per_tower = blk.n * len(blocked.perceptors) * blocked.args.batches
-    want = {"bank_fwd_kernel": per_tower, "bank_bwd_kernel": per_tower}
+    batch_steps = blk.n * blocked.args.batches
+    specs = blocked.step_cfg.perceptors
+    want = {"bank_fwd_kernel": batch_steps * sum(s.banks for s in specs),
+            "bank_bwd_kernel": batch_steps * sum(s.banks - s.n_image_prompts for s in specs)}
     if blocked.args.drawer in ("clipdraw", "line_sketch"):
         want.update(strokes_fwd_kernel=blk.n, strokes_bwd_kernel=blk.n)
     seen = {k: sum(k in ev.name for ev in events) for k in want}
@@ -1231,7 +1367,19 @@ def phase_blocked(tmp, config, label, steps, card):
           f"{1e3 * (t1 - t0):.3f} on an idle card, {1e3 * (t2 - t1):.3f} behind a running one; steps/s over the "
           f"{steps} steps: blocked {rates['blocked']:.3f} ({steps / (steps / rates['blocked'] - blk.capture_s):.3f} "
           f"without the capture), eager {rates['eager']:.3f}, {rates['eager2']:.3f}; on {card}", flush=True)
-    return {"dev": dev, "spread": spread, "tol": tol, "replay": seen}
+    return {"dev": dev, "spread": spread, "tol": tol, "replay": seen, "events": events, "n": blk.n}
+
+
+def busy_ms(events):
+    """Device busy of a profiler window: the union of its device intervals, ms."""
+    busy, cur = 0.0, None
+    for start, end in sorted((e.time_range.start, e.time_range.end) for e in events):
+        if cur is None or start > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [start, end]
+        else:
+            cur[1] = max(cur[1], end)
+    return (busy + (0.0 if cur is None else cur[1] - cur[0])) / 1e3
 
 
 def phase_vqgan_path(tmp, card):
@@ -1269,6 +1417,135 @@ def phase_vqgan_path(tmp, card):
           f"{changed} of {z.shape[0]} codes changed; names {engine.loss_names}; launches {launches}; "
           f"checkin {png}", flush=True)
     return engine
+
+
+IMAGE_NAMES = ["ViT-B/32:prompt0", "ViT-B/32:prompt1", "ViT-B/32:prompt2", "ViT-B/32:spot0",
+               "ViT-B/32:spot_off0", "ViT-B/32:image_prompt0"]  # target, "sunrise", the label "fox"
+
+
+def phase_image_row(tmp, card):
+    """Row 12: the pixel row with the image inputs; blocked vs eager (the
+    first replayed step bitwise, the replay's kernels by bank), then the
+    row timed as the pixel row is."""
+    paths = write_images(tmp)
+    config = dict(PIXEL_CONFIG, **image_extra(paths))
+    with tempfile.TemporaryDirectory() as sub:
+        blocked = phase_blocked(sub, config, "image row (init image, image prompt, spot, spot_off, target, label)",
+                                BLOCKED_STEPS, card)
+    steps = WARMUP_STEPS + TIMED_STEPS
+    with tempfile.TemporaryDirectory() as sub:
+        engine, losses, launches, init_s, elapsed, timed = drive_path(dict(config, iterations=steps), sub,
+                                                                      steps, WARMUP_STEPS)
+    capture_s = check_blocked("image row", engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
+    check_launches("image row", launches, {"warp_fwd": 4 * ran, "warp_bwd": 3 * ran, "strokes_fwd": 0,
+                                           "strokes_fwd_store": 0, "strokes_bwd": 0})
+    if engine.loss_names != IMAGE_NAMES:
+        fail(f"image row: term names {engine.loss_names}, expected {IMAGE_NAMES}")
+    rate = timed / elapsed
+    events = blocked["events"]
+    print(f"image row: pixel 384x216, ViT-B/32 (random weights), 64 cuts, init image, image prompt, spot 'a face' "
+          f"and spot_off 'sky' on the package's mask, target image, label 'fox', blocked: init {init_s:.1f} s, "
+          f"capture {capture_s:.2f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over the {timed} steps "
+          f"dispatched after {WARMUP_STEPS} warm-up; one replay: {len(events) / blocked['n']:.1f} device events and "
+          f"{busy_ms(events) / blocked['n']:.3f} ms device busy per step; on {card}", flush=True)
+    print(f"image row losses (finite): first {[round(v, 4) for v in losses[:3]]} last "
+          f"{dict(zip(engine.loss_names, [round(v, 4) for v in engine.last_loss_values.float().tolist()]))}; K1/K2 "
+          f"launches per step {launches['warp_fwd'] / ran:.2f} / {launches['warp_bwd'] / ran:.2f} over {ran} steps "
+          f"(the warm-up step before the capture included); launches {launches}", flush=True)
+
+
+def phase_overlay_row(tmp, card):
+    """Row 13: the vqgan row from an init image, with an overlay every 4
+    steps, an image label and init_weight_pix, in blocks of 4
+    (--steps_per_call 4; an overlay every 4 steps leaves no room for 8).
+    Every overlay is a pre-step host event: it may start a block, never
+    fall inside one.  At each overlay that starts a block, the latent and
+    the optimizer state the overlay left (written in place) and the step's
+    draws are kept, and an eager step from copies of them must give the
+    losses the block's replay gave for that step (within BLOCKED_FLOOR;
+    bitwise is expected, as for 5b's first replayed step)."""
+    import copy
+
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine.core import Engine
+    from pixray_tpu_torch.engine.latent import leaves, tree_map
+    from pixray_tpu_torch.engine.schedule import apply_overlay
+    from pixray_tpu_torch.engine.step import draws_to_inputs, train_step
+    from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+
+    paths = write_images(tmp)
+    config = dict(VQGAN_CONFIG, init_image=paths["init"], overlay_image=paths["overlay"], overlay_every=4,
+                  image_labels=paths["label"], init_weight_pix=0.5, steps_per_call=4, iterations=OVERLAY_STEPS,
+                  outdir=tmp)
+    engine = Engine(apply_settings(config, apply_side_effects=False), device="cuda")
+    opt = engine.optimizer
+    kept, moved = {}, {}
+    overlay, draw = engine.re_average_z, engine.draw_step
+    state = {"drawn": 0}
+
+    def keep_overlay():
+        before = tree_map(torch.clone, engine.z)
+        overlay()
+        it = engine.cur_iteration
+        moved[it] = max(float((a - b).abs().max()) for a, b in zip(leaves(engine.z), leaves(before)))
+        kept[it] = {"z": tree_map(torch.clone, engine.z), "opt": opt.clone(engine.opt_state)}
+
+    def keep_draws(planes_out=None):
+        draws = draw(planes_out=planes_out)
+        it, state["drawn"] = state["drawn"], state["drawn"] + 1
+        if it in kept:
+            kept[it]["draws"] = copy.deepcopy(draws)
+        return draws
+
+    engine.re_average_z, engine.draw_step = keep_overlay, keep_draws
+    cuda_warp.reset_launch_counts()
+    cuda_strokes.reset_launch_counts()
+    losses = {}
+    for it in range(OVERLAY_STEPS):
+        engine.cur_iteration = it
+        engine.train(it)
+        losses[it] = engine.last_loss_values.float().cpu().clone()
+    torch.cuda.synchronize()
+    launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES}
+    blocks = engine.dispatched_blocks
+    overlays = [it for it in range(OVERLAY_STEPS) if apply_overlay(engine.args, it)]
+    if blocks != [(4, 4), (8, 4), (12, 4)] or sorted(kept) != overlays or overlays != [0, 4, 8, 12, 16]:
+        fail(f"overlay row: blocks {blocks}, overlays {sorted(kept)} (due {overlays})")
+    for start, n in blocks:
+        inside = [t for t in range(start + 1, start + n) if apply_overlay(engine.args, t)]
+        if inside or engine._block_size(start) != n:
+            fail(f"overlay row: block {(start, n)} holds overlays {inside} (_block_size {engine._block_size(start)})")
+    if not all(v > 0 for v in moved.values()):
+        fail(f"overlay row: an overlay left the latent as it was: {moved}")
+    checks = {}
+    for start, _ in blocks:
+        k = kept[start]
+        inputs = draws_to_inputs(engine.step_cfg, k["draws"], start, engine.device)
+        _, values, _ = train_step(engine.step_cfg, opt, k["z"], k["opt"], engine.lr_scale, inputs)
+        diff = float((values.float().cpu() - losses[start]).abs().max())
+        checks[start] = (diff, torch.equal(values.float().cpu(), losses[start]))
+    worst = max(d for d, _ in checks.values())
+    if not worst <= BLOCKED_FLOOR:
+        fail(f"overlay row: a replay after an overlay differs from the eager step from the re-encoded latent: {checks}")
+    values = torch.stack(list(losses.values()))
+    if not bool(torch.isfinite(values).all()):
+        fail(f"overlay row: non-finite losses {values.tolist()}")
+    names = [f"{m}:prompt0" for m in engine.args.clip_models] + ["image_label0", "init_weight_pix"]
+    if engine.loss_names != names:
+        fail(f"overlay row: term names {engine.loss_names}, expected {names}")
+    ran = steps_run(engine, OVERLAY_STEPS)
+    check_launches("overlay row", launches, {"warp_fwd": 2 * ran, "warp_bwd": 2 * ran})
+    print(f"overlay row: vqgan 384x208, ViT-B/32 + ViT-B/16, init image, overlay every 4 (alpha 160), image label, "
+          f"init_weight_pix 0.5, --steps_per_call 4, {OVERLAY_STEPS} steps: overlays before steps {sorted(kept)} "
+          f"(each moved the latent by up to {[round(moved[i], 4) for i in sorted(moved)]}); blocks {blocks}, none "
+          f"holding an overlay; the replayed step after each overlay against an eager step from the re-encoded "
+          f"latent: max |loss diff| {[float(f'{d:.3g}') for d, _ in checks.values()]}, bitwise "
+          f"{[b for _, b in checks.values()]} (tol {BLOCKED_FLOOR}); final losses "
+          f"{dict(zip(engine.loss_names, [round(v, 4) for v in values[-1].tolist()]))}; launches {launches}; "
+          f"on {card}", flush=True)
 
 
 def phase_vqgan_default(tmp):
@@ -1523,6 +1800,7 @@ def main():
     flagship, small, bank64 = phase_kernels()
     warp_batch = phase_warp_batch()
     bank = phase_bank_kernels()
+    phase_bank_no_jitter(bank[0])
     strokes = phase_stroke_kernels()
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, "pixel")
@@ -1559,6 +1837,13 @@ def main():
         phase_tiler_recipes(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_fft_modes(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_agreement(tmp, PIXEL_CONFIG, "image row (init image, image prompt, spot, spot_off, target, label)",
+                        **image_extra(write_images(tmp)))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_image_row(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_overlay_row(tmp, card)
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
     warp_src = "pixray_tpu_torch/csrc/warp.cu"

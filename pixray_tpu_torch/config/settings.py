@@ -243,8 +243,13 @@ def process_args(parser, namespace=None, apply_side_effects=True, use_argv=False
         if args.aspect in ASPECT_TO_SIZE:
             base_size = ASPECT_TO_SIZE[args.aspect]
             args.size = [int(size_scale * base_size[0]), int(size_scale * base_size[1])]
+        elif args.aspect == "retain" and args.init_image is not None:
+            from PIL import Image
+
+            w, h = Image.open(real_glob(args.init_image)[0]).size
+            args.size = [int(144 * size_scale), int(144 * (h / w) * size_scale)]
         else:
-            raise ValueError(f"aspect not understood (or not yet ported): {args.aspect}")
+            raise ValueError(f"aspect not understood: {args.aspect}")
 
     args.aspect_width = args.size[0] / args.size[1]
 

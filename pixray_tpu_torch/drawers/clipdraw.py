@@ -107,6 +107,9 @@ class ClipDrawer:
         colors = rng.random((self.num_paths, 4)).astype(np.float32)
         return latent_from_numpy({"points": pts, "widths": widths, "colors": colors}, {})[0]
 
+    def params_from_image(self, image_tensor):
+        raise NotImplementedError("clipdraw cannot re-encode images")
+
     def clip_params(self, z):
         return {
             "points": z["points"],

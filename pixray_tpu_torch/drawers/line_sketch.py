@@ -84,6 +84,9 @@ class LineDrawer:
             z["paper"] = np.asarray(PAPER_COLOR)
         return latent_from_numpy(z, {})[0]
 
+    def params_from_image(self, image_tensor):
+        raise NotImplementedError("line_sketch cannot re-encode images")
+
     def clip_params(self, z):
         out = {
             "points": z["points"],

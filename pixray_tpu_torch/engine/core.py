@@ -35,8 +35,22 @@ frames (``--save_intermediates``) and ``--save_svg``'s vector export.
 (``name:weight``, ``loss->arg->arg``) are built as the JAX engine builds
 them, with the losses' ``add_globals``.  Each step's draws are, per batch,
 the fill, then each filter's shifts (over the shape the filters before it
-leave), then the perceptors' cuts: a run without filters draws exactly
-what it drew before filters were ported.
+leave), then per perceptor its cuts and the noise of the banks that reuse
+them (``cutouts.draw_step_cutouts``): a run without filters, spot or
+image prompts draws exactly what it drew before those were ported.
+
+The image inputs, as the JAX engine reads them (PIL is imported only for
+them): ``--init_image`` (the last of its files, resized with Lanczos, is
+the init latent and ``--init_weight_pix``'s reference; the init noise is
+drawn all the same, and ``--init_image_alpha`` shapes only the
+animation's frames, which are not ported), ``--init_noise
+gradient|snow``, ``--overlay_image`` (its first file, pasted over the canvas and re-encoded into the latent before each step
+``apply_overlay`` names: a pre-step host event, which ends the block
+before it; the latent's tensors are written in place, and Adam's state
+is kept), ``--image_labels`` (the normalized mean of the encoded images,
+an ``image_label0`` term), ``--target_images``, ``--image_prompts``
+(pooled to each tower's work canvas once per run), ``--spot_prompts`` and
+``--spot_prompts_off`` (the spot mask at the work canvas's size).
 
 Settings the ported slices do not implement raise ``NotImplementedError``
 here rather than being ignored.
@@ -56,24 +70,22 @@ from pixray_tpu_torch.engine import cutouts as C
 from pixray_tpu_torch.engine.latent import ravel, tree_map
 from pixray_tpu_torch.engine.optimizers import build_optimizer
 from pixray_tpu_torch.engine.prompts import build_prompt_tables
-from pixray_tpu_torch.engine.schedule import BestTracker
-from pixray_tpu_torch.engine.step import (PerceptorSpec, StepBlock, StepConfig, draws_to_inputs, pack_step,
-                                          train_step)
+from pixray_tpu_torch.engine.latent import leaves
+from pixray_tpu_torch.engine.schedule import BestTracker, apply_overlay
+from pixray_tpu_torch.engine.step import (PerceptorSpec, StepBlock, StepConfig, bank_rows, draws_to_inputs,
+                                          pack_step, train_step)
 from pixray_tpu_torch.filters import filter_class
+from pixray_tpu_torch.io import images as IM
 from pixray_tpu_torch.io import output as OUT
 from pixray_tpu_torch.losses import loss_class
 from pixray_tpu_torch.models.perceptor import Perceptor
 from pixray_tpu_torch.prompt import parse_prompt
-from pixray_tpu_torch.utils import get_file_path
+from pixray_tpu_torch.utils import get_file_path, real_glob
 
 # (setting, value that means "off") for everything not ported yet
 _UNPORTED = [
-    ("init_image", None), ("overlay_image", None), ("target_images", None),
-    ("image_prompts", []), ("spot_prompts", []), ("spot_prompts_off", []),
-    ("labels", []), ("image_labels", None),
-    ("noise_prompt_seeds", []), ("animation_dir", None), ("make_video", False),
+    ("animation_dir", None), ("make_video", False),
     ("resume_from", None), ("checkpoint_every", 0), ("profile_dir", None),
-    ("init_weight_pix", 0.0),
 ]
 BLOCK_STEPS = 8  # --steps_per_call 0: blocks of 8 steps, as in the JAX engine
 
@@ -109,8 +121,8 @@ class Engine:
         for name, off in _UNPORTED:
             if getattr(args, name, off) not in (off, None, [], 0, False):
                 raise NotImplementedError(f"setting {name}={getattr(args, name)!r} is not yet ported")
-        if args.init_noise not in (None, "pixels"):
-            raise NotImplementedError(f"init_noise {args.init_noise!r} is not yet ported")
+        if args.init_weight_pix and not args.init_image:
+            raise ValueError("init_weight_pix needs an init_image")
 
         self.seed_used = resolve_seed(args.seed)
         print("Using seed:", self.seed_used)
@@ -137,10 +149,8 @@ class Engine:
             load_model(args, self.device, model_dtype, state_dicts.get(args.drawer))
         self.side_x, self.side_y = self.drawer.snap_canvas(args.size)
 
-        # ---- perceptors + text prompt tables
         self.perceptors = [Perceptor(name, self.device, model_dtype, state_dicts.get(name))
                            for name in args.clip_models]
-        tables = build_prompt_tables(args, self.perceptors, self.device)
 
         # ---- filters and custom losses ("name:weight", "loss->arg->arg")
         self.filters = []
@@ -164,20 +174,65 @@ class Engine:
             for loss_obj, _w in self.custom_losses:
                 self.loss_globals.update(loss_obj.add_globals(args))
 
-        # ---- init latent (the stroke drawers ignore init_tensor and make
-        # their model_params here)
-        init_tensor = None
-        if args.init_noise == "pixels":
-            init_tensor = _uint8_to_unit(self._init_noise(args)) * 2 - 1
+        # ---- init latent from the init image or noise (the stroke drawers
+        # ignore init_tensor and make their model_params here)
+        init_tensor = self._init_tensor(args)
         self.z = tree_map(lambda t: t.to(self.device), self.drawer.init_params(self.gen, init_tensor))
         self.z_orig_flat = ravel(self.z).clone()
         self.drawer_params = {k: v.to(self.device) for k, v in self.drawer.model_params.items()}
+
+        self.overlay_image_rgba = None
+        if args.overlay_image is not None:
+            from PIL import Image
+
+            rgba = IM.open_images(args.overlay_image)[0].convert("RGBA").resize((self.side_x, self.side_y),
+                                                                                Image.LANCZOS)
+            if args.overlay_alpha:
+                rgba.putalpha(args.overlay_alpha)
+            self.overlay_image_rgba = rgba
+
+        # ---- image labels → the normalized mean of their latents
+        self.z_labels = []
+        if args.image_labels is not None:
+            labels = []
+            for path in real_glob(args.image_labels):
+                rgb = torch.from_numpy(IM.load_image_rgb(path, (self.side_x, self.side_y)))
+                labels.append(ravel(self.drawer.params_from_image(rgb.to(self.device) * 2 - 1)).float().cpu().numpy())
+            stacked = np.stack(labels)
+            stacked = stacked / np.linalg.norm(stacked, axis=-1, keepdims=True)
+            mean = stacked.mean(axis=0)
+            self.z_labels = [torch.from_numpy(mean / np.linalg.norm(mean)).to(self.device)]
+
+        # ---- prompt tables (target images encoded once)
+        target_specs = None
+        if args.target_images:
+            target_specs = []
+            for target_image in args.target_images:
+                f1, weight, stop = parse_prompt(target_image)
+                if "http" in f1:
+                    target_specs.append((f1, weight, stop))
+                else:
+                    target_specs.extend((f, weight, stop) for f in real_glob(f1))
+        tables, spot_tables, spot_off_tables = build_prompt_tables(args, self.perceptors, self.device,
+                                                                   target_image_paths=target_specs)
+
+        # ---- image prompts at the canvas size, (H, W, 3) on the device
+        self.image_prompt_images = []
+        for path in args.image_prompts or []:
+            from PIL import Image
+
+            pil = IM.resize_area_preserving(IM.open_image(path).convert("RGB"), (self.side_x, self.side_y))
+            pil = pil.resize((self.side_x, self.side_y), Image.LANCZOS)
+            self.image_prompt_images.append(torch.from_numpy(IM.to_tensor(pil)).to(self.device))
 
         self.step_cfg = StepConfig(
             drawer=self.drawer,
             drawer_params=self.drawer_params,
             perceptors=[
-                PerceptorSpec(p.name, p.input_resolution, p.image_fn, tables[p.name])
+                PerceptorSpec(p.name, p.input_resolution, p.image_fn, tables[p.name],
+                              spot_table=spot_tables[p.name], spot_off_table=spot_off_tables[p.name],
+                              image_prompt_weight=args.image_prompt_weight,
+                              **self._image_prompt_inputs(args, p))
                 for p in self.perceptors
             ],
             batches=args.batches,
@@ -186,7 +241,12 @@ class Engine:
             init_weight=args.init_weight,
             init_weight_dist=args.init_weight_dist,
             init_weight_cos=args.init_weight_cos,
+            init_weight_pix=args.init_weight_pix,
+            image_label_weight=args.image_label_weight,
+            image_prompt_shuffle=args.image_prompt_shuffle,
             z_orig_flat=self.z_orig_flat,
+            init_image=self.init_image_tensor,
+            z_labels=self.z_labels,
             compute_dtype=self.compute_dtype,
             filters=self.filters,
             custom_losses=self.custom_losses,
@@ -210,6 +270,49 @@ class Engine:
         print("Optimising using:", args.optimiser)
         if args.prompts:
             print("Using text prompts:", args.prompts)
+        if args.spot_prompts:
+            print("Using spot prompts:", args.spot_prompts)
+        if args.image_prompts:
+            print("Using image prompts:", args.image_prompts)
+        if args.init_image:
+            print("Using initial image", args.init_image)
+
+    def _init_tensor(self, args):
+        """The drawer's init image in [-1, 1] on the host, or None: the last
+        init image, else the init noise (drawn under an init image too, as
+        the JAX engine draws it).  Sets ``init_image_tensor``: the last init
+        image in [0, 1] on the device, or None."""
+        self.init_image_tensor = None
+        if not (args.init_image or args.init_noise):
+            return None
+        starting = self._init_noise(args)
+        if not args.init_image:
+            return _uint8_to_unit(starting) * 2 - 1
+        from PIL import Image
+
+        last = IM.open_images(args.init_image)[-1]
+        last = IM.to_tensor(last.convert("RGB").resize((self.side_x, self.side_y), Image.LANCZOS))
+        self.init_image_tensor = torch.from_numpy(last).to(self.device)
+        return torch.from_numpy(last) * 2 - 1
+
+    def _image_prompt_inputs(self, args, p) -> dict:
+        """One perceptor's fixed step inputs on the device: the spot masks at
+        its work canvas (1 - white on, white off) and the image prompts
+        pooled to it, made once so that a captured block reads them by address."""
+        out = {}
+        if args.spot_prompts or args.spot_prompts_off:
+            from PIL import Image
+
+            s = p.input_resolution
+            mask = IM.load_spot_mask(args.spot_file, s, args.aspect_width)
+            mask = np.asarray(Image.fromarray((mask * 255).astype(np.uint8)).resize((s, s), Image.LANCZOS),
+                              dtype=np.float32) / 255.0
+            white = torch.from_numpy((mask >= 0.5).astype(np.float32)).to(self.device)
+            out.update(spot_keep_on=1.0 - white, spot_keep_off=white)
+        if self.image_prompt_images:
+            out["image_prompts"] = torch.stack([C.pool_to_work(img, p.input_resolution)
+                                                for img in self.image_prompt_images])
+        return out
 
     def _build_optimizer(self):
         """The drawer's own optimizer (``get_opts``) or the engine-global one."""
@@ -226,9 +329,14 @@ class Engine:
         self.lr_scale = torch.full((), 1.0 / self.tracker.drop_divisor, dtype=torch.float32, device=self.device)
 
     def _init_noise(self, args):
-        from pixray_tpu_torch.utils.noise import random_noise_array
+        """(side_y, side_x, 3) uint8: the ``--init_noise`` image (pixels,
+        gradient or snow), else white, as the JAX engine makes it."""
+        from pixray_tpu_torch.utils import noise
 
-        arr = random_noise_array(args.size[0], args.size[1], self.np_rng)
+        w, h = args.size
+        make = {"pixels": noise.random_noise_array, "gradient": noise.random_gradient_array,
+                "snow": noise.old_random_noise_array}.get(args.init_noise)
+        arr = np.full((h, w, 3), 255, dtype=np.uint8) if make is None else make(w, h, self.np_rng)
         if arr.shape[:2] != (self.side_y, self.side_x):
             # off the drawer's grid: PIL's Lanczos, as the JAX engine resizes
             # (PIL is imported only here, so an on-grid run never needs it)
@@ -241,8 +349,9 @@ class Engine:
     def draw_step(self, planes_out=None) -> list[dict]:
         """One draws dict per batch of the next step (see ``step.pack_step``),
         drawn in the order fill, filter shifts (each in the range of the
-        shape the filters before it leave), cuts; ``planes_out`` (per batch,
-        per perceptor: three planes) receives the noise planes."""
+        shape the filters before it leave), then per perceptor its cuts and
+        its other banks (``cutouts.draw_step_cutouts``); ``planes_out`` (per
+        batch, per perceptor: three planes) receives the noise planes."""
         out = []
         for b in range(self.args.batches):
             fill = float(torch.rand((), generator=self.gen))
@@ -255,10 +364,13 @@ class Engine:
                 "filters": shifts,
                 "perceptors": [
                     C.draw_step_cutouts(self.gen, self.gen_device, self.args.num_cuts,
-                                        p.input_resolution, self.args.aspect_width,
+                                        spec.cut_size, self.args.aspect_width,
                                         self.compute_dtype or torch.float32, self.device,
-                                        planes_out=None if planes_out is None else planes_out[b][i])
-                    for i, p in enumerate(self.perceptors)
+                                        planes_out=None if planes_out is None else planes_out[b][i],
+                                        spot=spec.spot_banks[0], spot_off=spec.spot_banks[1],
+                                        image_prompts=spec.n_image_prompts,
+                                        shuffle=self.step_cfg.image_prompt_shuffle)
+                    for i, spec in enumerate(self.step_cfg.perceptors)
                 ],
             })
         return out
@@ -270,9 +382,10 @@ class Engine:
     def _block_size(self, cur_it: int) -> int:
         """How many steps may run as one dispatch starting at ``cur_it`` (the
         JAX engine's rules): post-step host events (checkin, LR drop,
-        checkpoint, display streaming) may fall only on a block's last step;
-        ``auto_stop``, ``--video`` and a drawer with ``post_step`` disable
-        blocking; ``--steps_per_call 1`` forces single steps."""
+        checkpoint, display streaming) may fall only on a block's last step,
+        and a pre-step event (the overlay) on none of its steps but the
+        first; ``auto_stop``, ``--video`` and a drawer with ``post_step``
+        disable blocking; ``--steps_per_call 1`` forces single steps."""
         args = self.args
         if getattr(args, "steps_per_call", 0) == 1:
             return 1
@@ -295,7 +408,10 @@ class Engine:
             if self._display_streaming and de and (it + 1) % de == 0:
                 n = it - cur_it + 1
                 break
-        # (pre-step events inside a block: the overlay, which is not ported)
+        for it in range(cur_it + 1, cur_it + n):  # pre-step events: none inside
+            if apply_overlay(args, it):
+                n = it - cur_it
+                break
         return max(n, 1)
 
     def _has_host_event(self, it: int) -> bool:
@@ -316,7 +432,7 @@ class Engine:
         blk = self.step_block
         if blk is None or blk.n != n:
             blk = self.step_block = StepBlock(self.step_cfg, self.optimizer, n,
-                                               [self.args.num_cuts] * len(self.perceptors), self.device)
+                                               bank_rows(self.step_cfg, self.args.num_cuts), self.device)
         rows, ints = blk.staging_inputs()
         for s in range(n):
             pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, rows[s], ints[s])
@@ -342,8 +458,10 @@ class Engine:
         if idx == 0 and b["totals"] is None:
             want = self._want()
             nxt = b["start"] + b["n"]
-            # (the JAX engine also stops at an overlay due at nxt: not ported)
+            # an overlay due at nxt rewrites the latent before step nxt, so
+            # the next block waits for it (_block_size(nxt) looks past nxt)
             if (self._next_block is None and not self._has_host_event(nxt - 1)
+                    and not apply_overlay(self.args, nxt)
                     and self._block_size(nxt) == want and want > 1):
                 self._next_block = self._dispatch_block(nxt, want)
             b["totals"], b["valss"] = b["result"].host()
@@ -364,6 +482,8 @@ class Engine:
         rebuild_opts_when_done = False
 
         if cur_it < args.iterations:
+            if apply_overlay(args, cur_it):
+                self.re_average_z()
             buffered = None
             if draws is None:
                 buffered = self._consume_block(cur_it)
@@ -410,6 +530,26 @@ class Engine:
             self.optimizer.reset(self.opt_state)
             self.lr_scale.fill_(1.0 / self.tracker.drop_divisor)
         return True
+
+    def synth_image(self):
+        """The canvas as a PIL image (the drawer's output, without the filters)."""
+        return IM.from_tensor(self.synth_array())
+
+    @torch.no_grad()
+    def re_average_z(self):
+        """The overlay: render, paste the overlay image over it, and re-encode
+        the latent into its own tensors (a captured block reads them where
+        they are); the optimizer state stays.  A drawer without an encoder
+        raises NotImplementedError."""
+        from PIL import Image
+
+        cur = self.synth_image().convert("RGB")
+        if self.overlay_image_rgba is not None:
+            cur.paste(self.overlay_image_rgba, (0, 0), mask=self.overlay_image_rgba)
+        cur = cur.resize((self.side_x, self.side_y), Image.LANCZOS)
+        new = self.drawer.params_from_image(torch.from_numpy(IM.to_tensor(cur)).to(self.device) * 2 - 1)
+        for dst, src in zip(leaves(self.z), leaves(new)):
+            dst.copy_(src)
 
     @torch.no_grad()
     def synth_array(self) -> np.ndarray:

@@ -13,7 +13,12 @@ The path ported is the JAX package's default one:
 - a channel-major (N, 3, S, S) bank with hue/saturation jitter and
   additive noise per channel plane: on the card one K1 launch makes it
   and one K2 launch takes its gradient (``ops/cuda_warp.py``), every cut
-  alike; on the CPU the plain composition.
+  alike; on the CPU the plain composition;
+- the banks that reuse a step's cuts without jitter, each with its own
+  noise: the spot and spot_off banks (the masked work canvas) and one
+  bank per image prompt (its own cuts under ``--image_prompt_shuffle``);
+  ``draw_step_cutouts`` draws them after the main bank, ``draw_banks``
+  lists a perceptor's banks in row order.
 
 Random draws are explicit: the cut geometry, jitter parameters and noise
 factors come from a CPU ``torch.Generator`` (they are tiny and travel to the
@@ -205,11 +210,45 @@ def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
 
 
 def draw_step_cutouts(gen_host, gen_device, cutn: int, cut_size: int, aspect: float, dtype, device,
-                      planes_out=None):
-    """All of one perceptor's per-step cutout draws, in the keys
-    ``render_cutouts`` and ``cut_transforms`` take; the noise planes drawn
-    into ``planes_out`` when given."""
+                      planes_out=None, spot=False, spot_off=False, image_prompts=0, shuffle=False):
+    """All of one perceptor's per-step cutout draws: the main bank's
+    ``transforms``, ``jitter`` and ``noise`` (the keys ``render_cutouts``
+    takes), then those of the banks that reuse its geometry without jitter,
+    in this order: ``spot`` noise (when ``spot``), ``spot_off`` noise (when
+    ``spot_off``), and per image prompt a dict of ``transforms`` (fresh
+    geometry under ``shuffle``, else None: the main bank's) and ``noise``.
+    A perceptor without those banks draws exactly the main bank's stream.
+    ``planes_out``: three (banks * cutn, S, S) planes, bank after bank in
+    that order, that the noise planes are drawn into."""
+    planes = None if planes_out is None else [[z[k * cutn:(k + 1) * cutn] for z in planes_out]
+                                               for k in range(1 + spot + spot_off + image_prompts)]
+    banks = iter(planes or [])
+
+    def noise():
+        return draw_noise(gen_host, gen_device, cutn, cut_size, dtype, device, out=next(banks, None))
+
     transforms = cut_transforms(draw_cut_params(gen_host, cutn, aspect), cut_size, aspect)
     jitter = draw_jitter_params(gen_host, cutn, hue=0.1, saturation=0.1, p=0.8)
-    noise = draw_noise(gen_host, gen_device, cutn, cut_size, dtype, device, out=planes_out)
-    return {"transforms": transforms, "jitter": jitter, "noise": noise}
+    out = {"transforms": transforms, "jitter": jitter, "noise": noise()}
+    if spot:
+        out["spot"] = noise()
+    if spot_off:
+        out["spot_off"] = noise()
+    if image_prompts:
+        out["image_prompts"] = []
+        for _ in range(image_prompts):
+            t = cut_transforms(draw_cut_params(gen_host, cutn, aspect), cut_size, aspect) if shuffle else None
+            out["image_prompts"].append({"transforms": t, "noise": noise()})
+    return out
+
+
+def draw_banks(draws):
+    """A perceptor's banks in row order, as (transforms, jitter, noise):
+    the main bank, then spot, spot_off and each image prompt (without
+    jitter, on the main bank's geometry unless the prompt drew its own)."""
+    main = draws["transforms"]
+    out = [(main, draws["jitter"], draws["noise"])]
+    out += [(main, None, draws[k]) for k in ("spot", "spot_off") if k in draws]
+    out += [(ip["transforms"] if ip["transforms"] is not None else main, None, ip["noise"])
+            for ip in draws.get("image_prompts", [])]
+    return out

@@ -1,5 +1,7 @@
-"""Prompt embedding tables and the batched spherical prompt loss
-(port of ``pixray_tpu/engine/prompts.py``; text and vector prompts so far).
+"""Prompt embedding tables and the batched spherical prompt loss (port of
+``pixray_tpu/engine/prompts.py``): target images, text, vector, label and
+noise prompts in the main table; spot and spot_off text prompts in their
+own.
 
 For an image-embedding batch ``iii`` and each table row:
 
@@ -18,6 +20,16 @@ import torch
 
 from pixray_tpu_torch.ops.grad import l2_normalize, replace_grad
 from pixray_tpu_torch.prompt import parse_prompt
+
+IMAGENET_TEMPLATES = [
+    "itap of a {}.",
+    "a bad photo of the {}.",
+    "a origami {}.",
+    "a photo of the large {}.",
+    "a {} in a video game.",
+    "art of the {}.",
+    "a photo of the small {}.",
+]
 
 
 @dataclass
@@ -63,6 +75,18 @@ def prompt_losses(iii, table: PromptTable):
     return torch.abs(table.weights) * torch.mean(clamped, dim=0)
 
 
+def single_prompt_loss(iii, embed, weight=1.0):
+    """The image-prompt loss: the mean spherical distance over all (N, M)
+    pairs of two embedding batches, times ``weight``."""
+    x = l2_normalize(iii, dim=-1)
+    e = l2_normalize(embed, dim=-1)
+    cos = torch.clamp(x @ e.T, -1.0, 1.0)
+    chord = torch.sqrt(torch.clamp(2.0 - 2.0 * cos, min=1e-12))
+    dists = torch.square(torch.arcsin(chord / 2.0)) * 2.0
+    sign = 1.0 if weight > 0 else (-1.0 if weight < 0 else 0.0)
+    return abs(weight) * torch.mean(dists * sign)
+
+
 def find_vector_file(name: str):
     """Locate a vector-prompt JSON by name (``$PIXRAY_TPU_VECTORS``, ``vectors/``,
     or the repository's ``vectors/``)."""
@@ -75,11 +99,27 @@ def find_vector_file(name: str):
     return None
 
 
-def build_prompt_tables(args, perceptors, device="cpu"):
-    """{perceptor name: PromptTable} of the text prompts ('=' prefix pools
-    the text features at the last content token) and the vector prompts
-    (stored embeddings, weights scaled by 0.1)."""
+def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None):
+    """(tables, spot_tables, spot_off_tables), each a {perceptor name:
+    PromptTable}.
+
+    The main table's rows in order: the target images (``(path, weight,
+    stop)`` in ``target_image_paths``, each encoded once), the text prompts
+    ('=' prefix pools the text features at the last content token), the
+    vector prompts (stored embeddings, weights scaled by 0.1), the labels
+    (the normalized mean of ``IMAGENET_TEMPLATES``), then the noise prompts
+    (``noise_prompt_seeds``, rows of the last perceptor only)."""
     rows = {p.name: [] for p in perceptors}
+    spot_rows = {p.name: [] for p in perceptors}
+    spot_off_rows = {p.name: [] for p in perceptors}
+
+    for p in perceptors:
+        for path, weight, stop in target_image_paths or []:
+            from pixray_tpu_torch.io.images import load_image_for_perceptor
+
+            img = load_image_for_perceptor(path, p.input_resolution)
+            rows[p.name].append((p.encode_image(img[None]).cpu().numpy(), weight, stop))
+
     for prompt in args.prompts or []:
         txt, weight, stop = parse_prompt(prompt)
         use_stops = txt.startswith("=")
@@ -88,6 +128,7 @@ def build_prompt_tables(args, perceptors, device="cpu"):
         for p in perceptors:
             embed = p.encode_text_with_stops(txt) if use_stops else p.encode_text(txt)
             rows[p.name].append((embed.cpu().numpy(), weight, stop))
+
     for vect_prompt in args.vector_prompts or []:
         name, weight, stop = parse_prompt(vect_prompt)
         weight = 0.1 * weight
@@ -102,4 +143,29 @@ def build_prompt_tables(args, perceptors, device="cpu"):
                 print(f"WARNING: no vector for {p.name} in {name}! Continuing without it.")
                 continue
             rows[p.name].append((np.asarray(vect_table[p.name], np.float32), weight, stop))
-    return {p.name: PromptTable.from_rows(rows[p.name], p.output_dim, device) for p in perceptors}
+
+    for prompts, out in ((args.spot_prompts, spot_rows), (args.spot_prompts_off, spot_off_rows)):
+        for prompt in prompts or []:
+            txt, weight, stop = parse_prompt(prompt)
+            for p in perceptors:
+                out[p.name].append((p.encode_text(txt).cpu().numpy(), weight, stop))
+
+    for label in args.labels or []:
+        txt, weight, stop = parse_prompt(label)
+        texts = [template.format(txt) for template in IMAGENET_TEMPLATES]
+        for p in perceptors:
+            embeds = p.encode_text(texts).cpu().numpy()
+            embeds = embeds / np.linalg.norm(embeds, axis=-1, keepdims=True)
+            mean_embed = embeds.mean(axis=0)
+            rows[p.name].append((mean_embed / np.linalg.norm(mean_embed), weight, stop))
+
+    if args.noise_prompt_seeds:
+        last = perceptors[-1]
+        for seed, weight in zip(args.noise_prompt_seeds, args.noise_prompt_weights):
+            embed = np.random.default_rng(seed).standard_normal((1, last.output_dim)).astype(np.float32)
+            rows[last.name].append((embed, weight, float("-inf")))
+
+    def tables(rdict):
+        return {p.name: PromptTable.from_rows(rdict[p.name], p.output_dim, device) for p in perceptors}
+
+    return tables(rows), tables(spot_rows), tables(spot_off_rows)

@@ -1,9 +1,18 @@
-"""Best-loss tracking and LR-drop signalling (port of ``BestTracker`` in
-``pixray_tpu/engine/schedule.py``)."""
+"""The overlay's cadence, best-loss tracking and LR-drop signalling (port
+of ``apply_overlay`` and ``BestTracker`` in ``pixray_tpu/engine/schedule.py``)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+def apply_overlay(args, cur_it: int) -> bool:
+    """Is the overlay image pasted over the canvas and re-encoded before step ``cur_it``?"""
+    return (
+        args.overlay_image is not None
+        and (cur_it % args.overlay_every) == args.overlay_offset
+        and (args.overlay_until is None or cur_it < args.overlay_until)
+    )
 
 ITER_DROP_DELAY = 12
 

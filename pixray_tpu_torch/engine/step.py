@@ -3,14 +3,18 @@ and ``build_multi_step`` in ``pixray_tpu/engine/step.py``, for the terms
 the ported slices have).
 
     synth → filters → [flatten alpha] → per perceptor: pool → cutouts →
-    encode → prompt losses;  + init-weight and transparency terms, then
-    the custom losses;  then grad → Adam → LR scale → drawer clamp.
+    encode → prompt losses, + the spot / spot_off banks (the masked work
+    canvas) and the image-prompt banks (each prompt image, pooled once per
+    run) on the main cuts' geometry;  + image-label, init-weight and
+    transparency terms, then the custom losses;  then grad → Adam → LR
+    scale → drawer clamp.
 
 Random draws of a step come in a ``draws`` dict (see :func:`pack_step`),
 so a caller can replay another implementation's draws.  The host packs
 them into the step's inputs, one float32 buffer per step: per batch, one
-block of parameter rows for all the perceptors' banks
-(``cutouts.pack_cutouts``: the cut geometry, the padding mode of the
+block of parameter rows for all the perceptors' banks (per perceptor its
+main bank, then its spot, spot_off and image-prompt banks;
+``cutouts.pack_cutouts``: the cut geometry, the padding mode of the
 step's parity, jitter, noise factor and the fill), then an int32 tail of
 the iteration and each batch's filter shifts; and the noise planes.  The
 step itself reads only those and device state, so it runs as one captured
@@ -34,7 +38,7 @@ import torch
 from pixray_tpu_torch.engine import cutouts as C
 from pixray_tpu_torch.engine.latent import leaves, ravel, tree_map, unflatten
 from pixray_tpu_torch.engine.optimizers import state_tensors
-from pixray_tpu_torch.engine.prompts import PromptTable, prompt_losses
+from pixray_tpu_torch.engine.prompts import PromptTable, prompt_losses, single_prompt_loss
 from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
 from pixray_tpu_torch.ops.cuda_warp import PARAM_STRIDE, unpack_params
 from pixray_tpu_torch.ops.grad import spherical_dist_loss
@@ -46,6 +50,26 @@ class PerceptorSpec:
     cut_size: int
     image_fn: Any  # (N, 3, S, S) cutouts → (N, D) normalized embeddings
     table: PromptTable
+    spot_table: PromptTable | None = None
+    spot_off_table: PromptTable | None = None
+    spot_keep_on: Any = None  # (S, S) float32 masks on the step's device, or None
+    spot_keep_off: Any = None
+    image_prompts: Any = None  # (K, S, S, 3) prompt images pooled to the work canvas, or None
+    image_prompt_weight: float | None = None
+
+    @property
+    def spot_banks(self) -> tuple[bool, bool]:
+        return (self.spot_table is not None and self.spot_table.size > 0,
+                self.spot_off_table is not None and self.spot_off_table.size > 0)
+
+    @property
+    def n_image_prompts(self) -> int:
+        return 0 if self.image_prompts is None else int(self.image_prompts.shape[0])
+
+    @property
+    def banks(self) -> int:
+        """Cutout banks per step: the main one, spot, spot_off, one per image prompt."""
+        return 1 + sum(self.spot_banks) + self.n_image_prompts
 
 
 @dataclass
@@ -59,7 +83,12 @@ class StepConfig:
     init_weight: float | None = None
     init_weight_dist: float = 0.0
     init_weight_cos: float = 0.0
+    init_weight_pix: float = 0.0
+    image_label_weight: float = 1.0
+    image_prompt_shuffle: bool = False
     z_orig_flat: Any = None
+    init_image: Any = None  # (H, W, 3) float32, the last init image, for init_weight_pix
+    z_labels: list = field(default_factory=list)  # the image labels' normalized mean latent
     compute_dtype: Any = None  # post-warp epilogue dtype (None = float32)
     filters: list = field(default_factory=list)  # [(filter, weight)]
     custom_losses: list = field(default_factory=list)  # [(loss, weight)]
@@ -72,10 +101,15 @@ class StepConfig:
 LAUNCH_COUNTERS = (cuda_warp.LAUNCHES, cuda_strokes.LAUNCHES)
 
 
+def bank_rows(cfg: StepConfig, num_cuts: int) -> list[int]:
+    """Parameter rows per perceptor and batch: ``num_cuts`` for each of its banks."""
+    return [num_cuts * spec.banks for spec in cfg.perceptors]
+
+
 def input_sizes(cfg: StepConfig, cut_counts):
     """(float32 words of one step's parameter rows, int32 words of its tail:
-    the iteration, then (batches, filters, 2) shifts); ``cut_counts``: N
-    per perceptor."""
+    the iteration, then (batches, filters, 2) shifts); ``cut_counts``: rows
+    per perceptor (:func:`bank_rows`)."""
     return cfg.batches * sum(cut_counts) * PARAM_STRIDE, 1 + cfg.batches * len(cfg.filters) * 2
 
 
@@ -91,15 +125,18 @@ def split_inputs(cfg: StepConfig, buf, cut_counts):
 def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows, out_ints):
     """Pack one step's draws into its host inputs: the parameter rows
     ``out_rows`` (batches, sum of the banks' cut counts, PARAM_STRIDE), per
-    batch each perceptor's bank in turn, every row carrying the batch's
-    fill; and the int32 tail ``out_ints``: the iteration, then each batch's
-    filter shifts.
+    batch each perceptor's banks in turn (``cutouts.draw_banks``: the main
+    bank, then spot, spot_off and the image prompts, which carry the main
+    cuts' inverses, modes and fill, no jitter and their own noise factors),
+    every row carrying the batch's fill; and the int32 tail ``out_ints``:
+    the iteration, then each batch's filter shifts.
 
     batch_draws: one dict per batch, {"fill": float, "filters": [(rand_h,
     rand_w) per filter] (absent without filters), "perceptors": [per
     perceptor {"transforms", "jitter", "noise"} as
-    ``cutouts.render_cutouts`` takes them]}.  The zoom cuts pad by
-    reflection on even iterations."""
+    ``cutouts.render_cutouts`` takes them, and the keys of
+    ``cutouts.draw_step_cutouts`` for the other banks]}.  The zoom cuts pad
+    by reflection on even iterations."""
     if len(batch_draws) != cfg.batches:
         raise ValueError(f"{len(batch_draws)} draws for {cfg.batches} batches")
     out_ints[0] = iteration
@@ -107,11 +144,12 @@ def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows
     for b, draws in enumerate(batch_draws):
         off = 0
         for pd in draws["perceptors"]:
-            n = sum(t.shape[0] for t in pd["transforms"])
-            facs = None if pd["noise"] is None else pd["noise"][0]
-            C.pack_cutouts(pd["transforms"], reflect_padding=iteration % 2 == 0, fill_color=draws["fill"],
-                           jitter=pd["jitter"], facs=facs, out=out_rows[b, off:off + n])
-            off += n
+            for transforms, jitter, noise in C.draw_banks(pd):
+                n = sum(t.shape[0] for t in transforms)
+                C.pack_cutouts(transforms, reflect_padding=iteration % 2 == 0, fill_color=draws["fill"],
+                               jitter=jitter, facs=None if noise is None else noise[0],
+                               out=out_rows[b, off:off + n])
+                off += n
         if off != out_rows.shape[1]:
             raise ValueError(f"the draws hold {off} cuts, the rows {out_rows.shape[1]}")
         filter_draws = draws.get("filters", [])
@@ -124,9 +162,10 @@ def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows
 def step_inputs(cfg: StepConfig, buf, planes, cut_counts):
     """The step's inputs, per batch {"fill", "iteration": () tensors,
     "filters": (filters, 2) int32, "perceptors": [per perceptor {"params":
-    (N, PARAM_STRIDE), "planes": three (N, S, S) or None}]}, as views of
+    (R, PARAM_STRIDE), "planes": three (R, S, S) or None}]}, as views of
     the step's buffer ``buf`` on the step's device and of ``planes`` (per
-    batch, per perceptor); ``cut_counts``: N per perceptor."""
+    batch, per perceptor); ``cut_counts``: rows R per perceptor, bank
+    after bank."""
     rows, ints = split_inputs(cfg, buf, cut_counts)
     shifts = ints[1:].view(cfg.batches, len(cfg.filters), 2)
     out = []
@@ -142,14 +181,21 @@ def step_inputs(cfg: StepConfig, buf, planes, cut_counts):
 
 def draws_to_inputs(cfg: StepConfig, batch_draws: list[dict], iteration: int, device):
     """One eager step's inputs from its draws: packed on the host (pinned
-    for the card) and copied to ``device`` in one copy; the draws' own planes."""
-    cuts = [sum(t.shape[0] for t in pd["transforms"]) for pd in batch_draws[0]["perceptors"]]
+    for the card) and copied to ``device`` in one copy; the draws' own
+    planes (a perceptor's banks' planes concatenated)."""
+    cuts = [sum(t.shape[0] for bank in C.draw_banks(pd) for t in bank[0]) for pd in batch_draws[0]["perceptors"]]
     buf = torch.zeros((sum(input_sizes(cfg, cuts)),), dtype=torch.float32,
                       pin_memory=torch.device(device).type == "cuda")
     pack_step(cfg, batch_draws, iteration, *split_inputs(cfg, buf, cuts))
-    planes = [[None if pd["noise"] is None else tuple(pd["noise"][1]) for pd in d["perceptors"]]
-              for d in batch_draws]
-    return step_inputs(cfg, buf.to(device, non_blocking=True), planes, cuts)
+
+    def planes(pd):
+        if pd["noise"] is None:
+            return None
+        noises = [bank[2][1] for bank in C.draw_banks(pd)]
+        return tuple(torch.cat([nz[c] for nz in noises]) if len(noises) > 1 else noises[0][c] for c in range(3))
+
+    return step_inputs(cfg, buf.to(device, non_blocking=True),
+                       [[planes(pd) for pd in d["perceptors"]] for d in batch_draws], cuts)
 
 
 def loss_fn(cfg: StepConfig, z, inputs: dict):
@@ -176,25 +222,52 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
         else:
             img = colors
 
-    # the losses see each cut size's last bank channels-last in float32
+    # the losses see each cut size's last main bank channels-last in float32
     # (two towers of one size: the second replaces the first, as in JAX)
     cur_cutouts, embeds = {}, None
     for spec, pd in zip(cfg.perceptors, inputs["perceptors"]):
+        n = pd["params"].shape[0] // spec.banks
+        banks = iter(range(spec.banks))
+
+        def bank(src):
+            k = next(banks)
+            planes = None if pd["planes"] is None else [p[k * n:(k + 1) * n] for p in pd["planes"]]
+            return cuda_warp.cutout_bank(src, pd["params"][k * n:(k + 1) * n], spec.cut_size, planes,
+                                         cfg.compute_dtype)
+
         work = C.pool_to_work(img, spec.cut_size)
-        cutouts = cuda_warp.cutout_bank(work, pd["params"], spec.cut_size, pd["planes"], cfg.compute_dtype)
+        cutouts = bank(work)
         if cfg.custom_losses:
             cur_cutouts[spec.cut_size] = cutouts.permute(0, 2, 3, 1).float()
         iii = embeds = spec.image_fn(cutouts)
         pl = prompt_losses(iii, spec.table)
         for i in range(spec.table.size):
             add(f"{spec.name}:prompt{i}", pl[i])
+        for kind, on, keep, table in (("spot", spec.spot_banks[0], spec.spot_keep_on, spec.spot_table),
+                                      ("spot_off", spec.spot_banks[1], spec.spot_keep_off, spec.spot_off_table)):
+            if on:
+                sl = prompt_losses(spec.image_fn(bank(work * keep[..., None])), table)
+                for i in range(table.size):
+                    add(f"{spec.name}:{kind}{i}", sl[i])
+        weight = 1.0 if spec.image_prompt_weight is None else spec.image_prompt_weight
+        for k in range(spec.n_image_prompts):
+            with torch.no_grad():  # a constant image: one forward-only K1 launch
+                embed = spec.image_fn(bank(spec.image_prompts[k]))
+            add(f"{spec.name}:image_prompt{k}", single_prompt_loss(iii, embed, weight))
 
-    if cfg.init_weight or cfg.init_weight_dist or cfg.init_weight_cos:
+    if cfg.z_labels or cfg.init_weight or cfg.init_weight_dist or cfg.init_weight_cos:
         z_flat, z0 = ravel(z), cfg.z_orig_flat
+    for i, z_label in enumerate(cfg.z_labels):
+        add(f"image_label{i}",
+            torch.mean(spherical_dist_loss(z_flat[None], z_label.reshape(1, -1))) * cfg.image_label_weight)
     if cfg.init_weight:
         add("init_weight", torch.mean(spherical_dist_loss(z_flat[None], z0[None])) * cfg.init_weight)
     if cfg.init_weight_dist:
         add("init_weight_dist", torch.mean((z_flat - z0) ** 2) * cfg.init_weight_dist / 2)
+    if cfg.init_weight_pix:
+        d = img - cfg.init_image
+        # |d| with the gradient +1 at 0, as JAX's abs takes it
+        add("init_weight_pix", torch.mean(torch.where(d >= 0, d, -d)) * cfg.init_weight_pix / 2)
     if cfg.init_weight_cos:
         cos = torch.nn.functional.cosine_similarity(z_flat[None], z0[None], dim=-1, eps=1e-8)
         add("init_weight_cos", torch.mean(1.0 - cos) * cfg.init_weight_cos)

@@ -76,6 +76,13 @@ class Perceptor:
         return l2_normalize(embeds.float(), dim=-1)
 
     @torch.no_grad()
+    def encode_image(self, imgs):
+        """(N, S, S, 3) channels-last images in [0, 1] (``io.images.load_image_for_perceptor``
+        stacked) → (N, output_dim) L2-normalized embeddings."""
+        x = torch.as_tensor(imgs, dtype=torch.float32, device=self.device).permute(0, 3, 1, 2)
+        return self.image_fn(x.contiguous())
+
+    @torch.no_grad()
     def encode_text(self, text):
         """str or list[str] → raw (not normalized) float32 embeddings."""
         tokens = torch.as_tensor(tokenize(text), dtype=torch.long, device=self.device)

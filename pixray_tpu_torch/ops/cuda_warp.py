@@ -280,11 +280,17 @@ def cutout_bank(work, params, out_size: int, planes=None, compute_dtype=None):
     S, S) bank in ``compute_dtype`` (None = float32).
 
     CUDA tensors go through K1/K2 (``params`` on the card already, or
-    copied there); CPU tensors through the plain version."""
+    copied there); CPU tensors through the plain version.  K1 saves the
+    pre-jitter bank only for rows whose ``apply`` is set, and K2 reads it
+    only for those.  A canvas that needs no gradient (a constant image, or
+    under ``no_grad``) takes one K1 launch that saves nothing, and no K2."""
     if work.device.type == "cuda":
         out_dtype = compute_dtype or torch.float32
         params_dev = params.to(work.device, non_blocking=True)
         zs = (None, None, None) if planes is None else tuple(z.contiguous() for z in planes)
+        if not (torch.is_grad_enabled() and work.requires_grad):
+            planes = None if planes is None else zs
+            return launch_bank_fwd(work.contiguous(), params_dev, out_size, planes, out_dtype)[0]
         return CutoutBankFunction.apply(work.contiguous(), params_dev, out_size, out_dtype, True, *zs)
     if work.device.type == "cpu":
         return cutout_bank_plain(work, params, out_size, planes, compute_dtype)

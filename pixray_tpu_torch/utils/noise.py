@@ -1,7 +1,9 @@
-"""Fractal-noise init image (the ``--init_noise pixels`` default), numpy only.
+"""Init noise images, numpy only: fractal noise (``--init_noise pixels``,
+the default), a random gradient (``gradient``) and uniform snow (``snow``).
 
-Same draws and math as ``pixray_tpu.utils.noise.random_noise_image``, which
-then wraps the array in a PIL image; here the uint8 array is returned as is.
+Same draws and math as ``pixray_tpu.utils.noise``'s ``random_noise_image``,
+``random_gradient_image`` and ``old_random_noise_image``, which then wrap
+the array in a PIL image; here the (h, w, 3) uint8 array is returned as is.
 """
 
 from __future__ import annotations
@@ -73,3 +75,20 @@ def random_noise_array(w: int, h: int, rng: np.random.Generator) -> np.ndarray:
     ]
     stack = np.dstack(channels)[:h, :w, :]
     return (255.999 * stack).astype("uint8")
+
+
+def random_gradient_array(w: int, h: int, rng: np.random.Generator) -> np.ndarray:
+    """(h, w, 3) uint8 linear gradients: red across, green and blue down."""
+    starts = (0, 0, rng.integers(0, 255))
+    stops = (rng.integers(1, 255), rng.integers(2, 255), rng.integers(3, 128))
+    horiz = (True, False, False)
+    result = np.zeros((h, w, 3), dtype=float)
+    for i, (start, stop, is_h) in enumerate(zip(starts, stops, horiz)):
+        ramp = np.linspace(start, stop, w if is_h else h)
+        result[:, :, i] = np.tile(ramp, (h, 1)) if is_h else np.tile(ramp, (w, 1)).T
+    return np.uint8(result)
+
+
+def old_random_noise_array(w: int, h: int, rng: np.random.Generator) -> np.ndarray:
+    """(h, w, 3) uint8 uniform snow."""
+    return rng.integers(0, 255, (h, w, 3), dtype=np.uint8)

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's step on one NVIDIA GPU, row by row.
 
-    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft]
+    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft,image]
 
 (``--rows ""`` measures no row; a tree without the fft drawer takes
-``--rows pixel,clipdraw,vqgan``.)
+``--rows pixel,clipdraw,vqgan``, one without the image inputs
+``--rows pixel,clipdraw,vqgan,fft``.)  The image row is the pixel row with
+``chip_smoke.py``'s image inputs (an init image, an image prompt, spot and
+spot_off prompts, a target image and a label, PNGs written per row).
 
 ``--root`` imports ``pixray_tpu_torch`` from another checkout (default:
 this one), so that two trees are measured in one call on one card, in
@@ -310,7 +313,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pixray_tpu_torch is measured")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft")
+    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft,image")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -339,7 +342,9 @@ def main():
     for row in filter(None, args.rows.split(",")):
         for blocked in modes:
             with tempfile.TemporaryDirectory() as tmp:
-                out["rows"].append(profile_row(cs, row, configs[row], tmp, blocked))
+                config = (dict(cs.PIXEL_CONFIG, **cs.image_extra(cs.write_images(tmp))) if row == "image"
+                          else configs[row])
+                out["rows"].append(profile_row(cs, row, config, tmp, blocked))
             torch.cuda.empty_cache()
     line = json.dumps(out)
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)

@@ -3,7 +3,7 @@
 - ``Engine._block_size`` and ``_has_host_event`` against the JAX engine's,
   both called as unbound methods on one stub, over iterations, checkin
   cadences, LR drops, ``steps_per_call`` 0/1/4/8, ``auto_stop``, a drawer
-  with ``post_step`` and every ``cur_it``: equal.
+  with ``post_step``, an overlay schedule and every ``cur_it``: equal.
 - A pixel and a clipdraw run (TinyTest, an LR drop and checkins inside the
   run; pixel also with two batches over a transparent canvas; the fft
   drawer with two batches, the wallpaper and tiler filters and three custom
@@ -14,7 +14,13 @@
   card's graph reads them, so nothing may differ).
 - Without filters a step draws exactly the stream it drew before (the
   fill, then the cuts); with filters the shifts come between the two, each
-  in its own input's range.
+  in its own input's range; with spot, spot_off and image prompts their
+  noise (and under shuffle the image prompts' cuts) follows each
+  perceptor's main bank.
+- A pixel run with an overlay inside the schedule (re-encoded before steps
+  9 and 19, where a block ends and where the next one starts), image
+  prompts, spot prompts, an image label and ``init_weight_pix``:
+  ``steps_per_call`` 8 and 1 bitwise equal.
 - The device-tensor Adam against the formula it replaced and against
   optax, 1e-6 each, as tests/test_torch_engine.py holds Adam: the bias
   corrections are now f32 ``pow`` on the device, where the host's integer
@@ -58,17 +64,17 @@ class _Stub:
         self._display_streaming = False
 
 
-def _args(iterations, save_every, drops, steps_per_call, auto_stop, display_every=20):
+def _args(iterations, save_every, drops, steps_per_call, auto_stop, display_every=20, overlay=False):
     return SimpleNamespace(
         iterations=iterations, save_every=save_every, learning_rate_drops=drops,
         steps_per_call=steps_per_call, auto_stop=auto_stop, make_video=False, checkpoint_every=0,
-        display_every=display_every, overlay_image=None, overlay_every=10, overlay_offset=0,
-        overlay_until=None,
+        display_every=display_every, overlay_image="overlay.png" if overlay else None, overlay_every=10,
+        overlay_offset=3, overlay_until=25,
     )
 
 
 @pytest.mark.parametrize("steps_per_call", [0, 1, 4, 8])
-@pytest.mark.parametrize("variant", ["plain", "auto_stop", "post_step"])
+@pytest.mark.parametrize("variant", ["plain", "auto_stop", "post_step", "overlay"])
 def test_block_size_matches_jax(steps_per_call, variant):
     cases = 0
     for iterations in (5, 20, 37):
@@ -76,7 +82,7 @@ def test_block_size_matches_jax(steps_per_call, variant):
             for drops in ([], [7], [4, 15]):
                 for display_every in (5, 20):
                     args = _args(iterations, save_every, drops, steps_per_call, variant == "auto_stop",
-                                 display_every)
+                                 display_every, variant == "overlay")
                     stub = _Stub(args, variant == "post_step")
                     for it in range(iterations + 1):
                         assert Engine._block_size(stub, it) == JEngine._block_size(stub, it), (args, it)
@@ -191,6 +197,89 @@ def test_no_filter_run_draws_the_same_stream(tmp_path):
                             int(torch.randint(0, engine.side_x, (), generator=gen)))
         C.draw_step_cutouts(gen, torch.Generator(), RUN["num_cuts"], 32, engine.args.aspect_width, torch.float32,
                             torch.device("cpu"))
+
+
+def _png(path, shape, mode, seed):
+    from PIL import Image
+
+    Image.fromarray(np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8), mode).save(path)
+    return str(path)
+
+
+def test_image_banks_draw_after_the_main_bank():
+    """Per perceptor: the main bank's cuts, jitter and noise, then the spot
+    noise, the spot_off noise, and per image prompt its cuts (under
+    shuffle only) and noise; a perceptor without them draws the main bank's
+    stream alone."""
+    gens = [torch.Generator().manual_seed(9) for _ in range(4)]
+    plain = C.draw_step_cutouts(gens[0], gens[1], 8, 24, 1.5, torch.float32, "cpu")
+    full = C.draw_step_cutouts(gens[2], gens[3], 8, 24, 1.5, torch.float32, "cpu", spot=True, spot_off=True,
+                               image_prompts=2, shuffle=True)
+    assert sorted(plain) == ["jitter", "noise", "transforms"]
+    for a, b in zip(plain["transforms"] + plain["jitter"], full["transforms"] + full["jitter"]):
+        assert torch.equal(a, b)
+    assert torch.equal(plain["noise"][0], full["noise"][0])
+    # what follows in the host stream, drawn by hand
+    g, g_dev = gens[0], gens[1]
+    noise = lambda: C.draw_noise(g, g_dev, 8, 24, torch.float32, "cpu")
+    for key in ("spot", "spot_off"):
+        facs, planes = noise()
+        assert torch.equal(full[key][0], facs) and all(torch.equal(a, b) for a, b in zip(full[key][1], planes))
+    for ip in full["image_prompts"]:
+        want = C.cut_transforms(C.draw_cut_params(g, 8, 1.5), 24, 1.5)
+        assert all(torch.equal(a, b) for a, b in zip(ip["transforms"], want))
+        assert torch.equal(ip["noise"][0], noise()[0])
+    banks = C.draw_banks(full)
+    assert len(banks) == 5 and all(b[1] is None for b in banks[1:])
+    assert banks[1][0] is full["transforms"] and banks[3][0] is full["image_prompts"][0]["transforms"]
+    # into given planes, bank after bank
+    out = [torch.zeros((40, 24, 24)) for _ in range(3)]
+    gens = [torch.Generator().manual_seed(9) for _ in range(2)]
+    into = C.draw_step_cutouts(*gens, 8, 24, 1.5, torch.float32, "cpu", planes_out=out, spot=True, spot_off=True,
+                               image_prompts=2)
+    assert into["image_prompts"][1]["transforms"] is None
+    assert torch.equal(out[2][16:24], into["spot_off"][1][2]) and torch.equal(out[0][32:], into["image_prompts"][1]["noise"][1][0])
+
+
+def test_blocked_image_run_with_overlay_equals_single_steps(tmp_path):
+    extra = dict(drawer="pixel", save_every=100000, learning_rate_drops=[], display_every=100000,
+                 overlay_image=_png(tmp_path / "overlay.png", (20, 30, 4), "RGBA", 1), overlay_every=10,
+                 overlay_offset=9, image_prompts=_png(tmp_path / "prompt.png", (30, 30, 3), "RGB", 2),
+                 spot_prompts="a face", spot_prompts_off="sky", image_labels=_png(tmp_path / "label.png",
+                                                                                  (36, 64, 3), "RGB", 3),
+                 init_image=_png(tmp_path / "init.png", (40, 50, 3), "RGB", 4), init_weight_pix=0.5,
+                 save_intermediates=False)
+    runs = {}
+    for label, spc in (("blocked", 8), ("single", 1)):
+        outdir = tmp_path / label
+        outdir.mkdir()
+        engine = Engine(apply_settings(dict(RUN, outdir=str(outdir), steps_per_call=spc, **extra),
+                                       apply_side_effects=False), device="cpu")
+        overlays = []
+        rewrite = engine.re_average_z
+        engine.re_average_z = lambda e=engine, r=rewrite, o=overlays: (o.append(e.cur_iteration), r())
+        losses = []
+        for it in range(engine.args.iterations + 1):
+            engine.cur_iteration = it
+            keep_going = engine.train(it)
+            if it < engine.args.iterations:
+                losses.append(engine.last_loss_values.clone())
+            if not keep_going:
+                break
+        runs[label] = (engine, losses, overlays)
+    (blocked, b_losses, b_over), (single, s_losses, s_over) = runs["blocked"], runs["single"]
+    # the overlay before step 9 ends the first block and starts the second
+    assert b_over == s_over == [9, 19]
+    assert blocked.dispatched_blocks == [(1, 8), (9, 8)] and single.dispatched_blocks == []
+    assert blocked.step_block.cut_counts == [8 * 4]  # main, spot, spot_off, one image prompt
+    assert blocked.loss_names == single.loss_names == [
+        "TinyTest:prompt0", "TinyTest:spot0", "TinyTest:spot_off0", "TinyTest:image_prompt0", "image_label0",
+        "init_weight_pix"]
+    for it, (a, b) in enumerate(zip(b_losses, s_losses)):
+        assert torch.equal(a, b), it
+    assert torch.equal(blocked.z, single.z)
+    for a, b in zip(state_tensors(blocked.opt_state), state_tensors(single.opt_state)):
+        assert torch.equal(a, b)
 
 
 def test_explicit_draws_step_eagerly(tmp_path, monkeypatch):

@@ -205,7 +205,7 @@ def test_vector_prompt_tables_match_jax(tmp_path):
                            animation_dir=None)
     perceptor = SimpleNamespace(name="TinyTest", output_dim=32)
     ref = j_tables(args, [perceptor])[0]["TinyTest"]
-    port = build_prompt_tables(args, [perceptor])["TinyTest"]
+    port = build_prompt_tables(args, [perceptor])[0]["TinyTest"]
     for field in ("embeds", "weights", "stops"):
         np.testing.assert_array_equal(getattr(port, field).numpy(), np.asarray(getattr(ref, field)))
 

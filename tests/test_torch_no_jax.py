@@ -12,13 +12,18 @@ Then a blocked pixel run (10 steps: steps 1-8 one block), the step
 video's GIF branch (PIL allowed, imageio refused, no ffmpeg), and the
 plug-ins: the fft drawer (dwt, blocked, and fft) under the wallpaper filter
 with custom losses, and fast_pixel under lookup and tiler with the other
-losses and a palette of colour names.
+losses and a palette of colour names.  Then the image slice (PIL allowed,
+the rest refused), blocked: an init image, an overlay, image prompts,
+spot prompts, a target image, labels and an image label on the vqgan
+drawer; the runs above, without images, import no PIL.
 """
 
 import os
 import subprocess
 import sys
 import textwrap
+
+import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -110,3 +115,20 @@ def test_fft_mode_runs_without_jax(tmp_path):
 def test_fast_pixel_plugins_run_without_jax(tmp_path):
     _run_blocked(tmp_path, dict(drawer="fast_pixel", filters="lookup,tiler:0.5", palette="red->sky blue\\8;mat:teal",
                                 custom_loss="symmetry,palette,gaussian,edge,aesthetic"))
+
+
+def test_image_slice_runs_without_jax(tmp_path):
+    from PIL import Image
+
+    paths = {}
+    for i, (name, shape, mode) in enumerate((("init", (36, 64, 3), "RGB"), ("overlay", (20, 30, 4), "RGBA"),
+                                             ("prompt", (30, 30, 3), "RGB"), ("target", (40, 33, 3), "RGB"))):
+        paths[name] = str(tmp_path / f"{name}.png")
+        Image.fromarray(np.random.default_rng(i).integers(0, 256, shape, dtype=np.uint8), mode).save(paths[name])
+    blocked = tuple(m for m in BLOCKED if m != "PIL")
+    _, stdout = _run_blocked(tmp_path, dict(
+        drawer="vqgan", vqgan_model="tiny_test", iterations=10, save_every=100, init_image=paths["init"],
+        init_weight_pix=0.5, overlay_image=paths["overlay"], overlay_every=9, image_prompts=paths["prompt"],
+        spot_prompts="a face", spot_prompts_off="sky", target_images=paths["target"], labels="fox",
+        image_labels=paths["init"]), blocked=blocked, expect_block=True)
+    assert "Using image prompts" in stdout and "Using initial image" in stdout
