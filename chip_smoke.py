@@ -45,10 +45,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    under TinyTest + TinyTest48, on the card against the same runs on the
    CPU (plain versions), same latent, weights and draws, per-step losses;
 5b. blocked: the pixel, clipdraw and vqgan rows with --steps_per_call 8
-   against two runs with 1, from one seed and one state after step 0, 16
-   steps (vqgan 8): the first replayed step bitwise, the rest within the
-   eager runs' own spread; the port's kernels listed by torch.profiler in
-   one graph replay; capture time, host ms per block, steps/s;
+   against 1, from one seed, 16 steps after step 0 (vqgan 8): the first
+   replayed step of each block bitwise an eager step from the state the
+   block started from; with the learning-rate scale at 0, a blocked and
+   an eager run from one state bitwise at every step (the float atomics
+   of K2 and K5 part two runs after a step with the learning rate on);
+   the port's kernels listed by torch.profiler in one graph replay;
+   capture time, host ms per block, steps/s;
 6. main path: the bench's headline row (pixel drawer, 384x216, "sunrise",
    random-weight ViT-B/32, 64 cuts) through apply_settings + Engine, 9
    warm-up and 24 timed steps, blocked (step 0 eager, then blocks of 8 as
@@ -87,7 +90,29 @@ Phases, each fatal on failure (exit code 1, no result line):
    overlay ends the block before it, and the step after each overlay that
    starts a block gives the losses of an eager step from the re-encoded
    latent (the replay reads the latent the overlay wrote in place);
-14. agreement: row 12 on TinyTest, card against CPU, as in 5.
+14. agreement: row 12 on TinyTest, card against CPU, as in 5;
+15. animation row: the pixel row under --animation_dir over 3 seeded
+   384x216 PNGs (the --init_image, --image_prompts and --target_images
+   globs), save_every 10, 20 iterations (2 rounds x 3 frames x 10 steps,
+   a blend between the rounds), blocked: blocks inside each frame's span,
+   2 K1 and 1 K2 per step (the main bank and the frame's forward-only
+   image-prompt bank), for each frame the first replayed step after the
+   frame swap bitwise an eager step from the same latent, state and
+   draws, the JAX package's term names, the frame PNGs and anim.gif;
+   steps/s, device events and busy per replayed step;
+16. optimizers: the pixel row under AdamW, Adagrad, Adamax, DiffGrad and
+   AdamP, each blocked against eager as in 5b (16 steps);
+17. resume: the pixel row (24 steps, --checkpoint_every 12) and the
+   clipdraw row (16, 8) against an engine resumed from the checkpoint, at
+   the learning rate and at learning-rate scale 0: the restored latent,
+   optimizer state, LR scale and generators bitwise the straight run's,
+   the first resumed step's losses bitwise, and at scale 0 every resumed
+   step's losses and the final latent bitwise (as in 5b); and a
+   checkpoint written on the CPU (TinyTest) resumed on the card;
+18. --make_video (6 steps of the pixel row: the per-step frames and the
+   video, a GIF where there is no MP4 encoder) and --profile_dir (10
+   steps, one block: a trace that names K1 and K2);
+19. agreement: row 15 on TinyTest, card against CPU, both rounds, as in 5.
 
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -161,8 +186,11 @@ STROKE_FLOPS_PER_PAIR = 18  # sqrt, coverage, the 4-channel over
 STROKE_BWD_FLOPS_PER_PAIR = 50
 STROKE_BWD_FLOPS_PER_RAMP = 16  # per pair on the anti-aliasing ramp: the two end points' gradients
 AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTest
-# blocked vs eager on the card: within this many times the spread of two eager runs, at least the floor
-BLOCKED_SPREAD = 4.0
+# blocked vs eager (and resumed vs straight) on the card at learning-rate scale 0: the optimizer
+# state, advanced by the same gradients but for the float atomics' order, within this share of its
+# largest value (on an H100: up to 4e-7, and 1.5e-2 for vqgan through its decoder; a state not
+# carried from step to step: ~1)
+BLOCKED_STATE_RTOL = 0.25
 BLOCKED_FLOOR = 1e-5
 BLOCKED_STEPS = 16  # after step 0; vqgan 8
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
@@ -274,6 +302,24 @@ def profiled_events(step, steps):
     # the schedule's own step annotations also sit on the device's timeline
     return [ev for ev in traces[-1] if ev.device_type == torch.autograd.DeviceType.CUDA
             and not ev.name.startswith("ProfilerStep")]
+
+
+def replay_events(graph, want, label, tries=3):
+    """The device events of one replay of ``graph`` under torch.profiler,
+    from the first window that lists each kernel of ``want`` ({name: count})
+    exactly ``want`` times.  A replay runs the kernels its capture recorded,
+    every one of them, but the profiler can drop an event of a window (one
+    K1 of a pixel replay's 6,976 events, once): a window that lists fewer
+    is taken again, up to ``tries`` windows, and one that lists more fails
+    at once.  Returns (events, the counts seen, the windows taken)."""
+    for window in range(1, tries + 1):
+        events = profiled_events(graph.replay, 1)
+        seen = {k: sum(k in ev.name for ev in events) for k in want}
+        if seen == want:
+            return events, seen, window
+        if any(seen[k] > want[k] for k in want):
+            break
+    fail(f"{label}: one replay ran {seen}, expected {want} (window {window} of {tries})")
 
 
 def kernel_times(fn, reps=5, tries=3):
@@ -1271,18 +1317,91 @@ def phase_line_sketch(tmp):
           f"losses {[round(v, 4) for v in losses]}, paper moved {moved:.3g}; launches {launches}", flush=True)
 
 
+def keep_block_starts(engine):
+    """Wrap ``engine``'s block dispatch: at each block's dispatch, keep a
+    copy of the latent and the optimizer state (stream-ordered after the
+    replay before it: the state the block starts from) and the draws of
+    the block's first step.  Returns ({first step: {"z", "opt", "draws"}},
+    host ms per dispatch)."""
+    import copy
+
+    import torch
+
+    from pixray_tpu_torch.engine.latent import tree_map
+
+    kept, host_ms, state = {}, [], {"keep": None}
+    dispatch, draw = engine._dispatch_block, engine.draw_step
+
+    def keeping_dispatch(cur_it, n):
+        kept[cur_it] = {"z": tree_map(torch.clone, engine.z), "opt": engine.optimizer.clone(engine.opt_state)}
+        state["keep"] = cur_it
+        t0 = time.perf_counter()
+        out = dispatch(cur_it, n)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    def keeping_draws(planes_out=None):
+        draws = draw(planes_out=planes_out)
+        if state["keep"] is not None:
+            kept[state["keep"]]["draws"] = copy.deepcopy(draws)
+            state["keep"] = None
+        return draws
+
+    engine._dispatch_block, engine.draw_step = keeping_dispatch, keeping_draws
+    return kept, host_ms
+
+
+def block_starts_bitwise(engine, kept, losses):
+    """{step: whether the eager step from the state kept at that block's
+    dispatch, with its draws, gives the losses the replay gave for it
+    (``losses[step - 1]``) bitwise}.  Writes into the kept copies."""
+    from pixray_tpu_torch.engine.step import draws_to_inputs, train_step
+
+    out = {}
+    for it, k in sorted(kept.items()):
+        inputs = draws_to_inputs(engine.step_cfg, k["draws"], it, engine.device, anim_index=engine._anim_index())
+        _, eager, _ = train_step(engine.step_cfg, engine.optimizer, k["z"], k["opt"], engine.lr_scale, inputs)
+        out[it] = bool((eager.float().cpu() == losses[it - 1]).all())
+    return out
+
+
+def state_gap(a, b):
+    """The largest gap between two optimizer states, each float tensor's
+    max |a - b| over its own max |b| (an integer tensor: 0 if equal, inf
+    if not)."""
+    from pixray_tpu_torch.engine.optimizers import state_tensors
+
+    worst = 0.0
+    for x, y in zip(state_tensors(a), state_tensors(b)):
+        if not x.is_floating_point():
+            worst = max(worst, 0.0 if bool((x == y).all()) else math.inf)
+            continue
+        gap = float((x.float() - y.float()).abs().max())
+        worst = max(worst, 0.0 if gap == 0.0 else gap / max(float(y.float().abs().max()), 1e-30))
+    return worst
+
+
 def phase_blocked(tmp, config, label, steps, card):
     """``--steps_per_call 8`` against 1 on the card, from one seed, ``steps``
-    steps after step 0: a blocked engine and two eager ones.  Step 0 is
-    eager in all three (its checkin ends any block); then the eager engines
-    take the blocked one's latent and optimizer state, so that the three
-    start step 1 from one state with the same draws.  Step 1, the first
-    replayed step, must give the eager step's losses bitwise (its forward
-    is deterministic); the later steps may move apart only by the
-    reordering of K2's and K5's float atomics, so the blocked run must stay
-    within BLOCKED_SPREAD times the spread of the two eager runs (at least
-    BLOCKED_FLOOR).  Then ``torch.profiler`` over one replay of the graph
-    must list the port's kernels once per step and perceptor."""
+    steps after step 0 (eager in every run: its checkin ends any block).
+    A replayed step can be held bitwise to an eager one only from the same
+    state: after a step K2's and K5's float atomics part two runs, and
+    Adam-like updates turn the bits they part by into whole steps of
+    elements whose gradient is ~0, so two eager runs of the pixel row
+    differ by up to 2e-3 at a step (PERF.md §6).  So:
+
+    - learning rate on: at each block's dispatch the state it starts from
+      and its draws are kept, and the block's first replayed step must give
+      the losses of an eager step from them bitwise (every block; its
+      forward is deterministic); the latent must have moved;
+    - learning-rate scale 0, a blocked and an eager engine from one state:
+      every step's losses bitwise (the staged draws, noise, shifts and loss
+      slots of each step in the graph), the latent kept bitwise, and the
+      optimizer state, which the same gradients but for the atomics' order
+      advance every step, within BLOCKED_STATE_RTOL of its largest value.
+
+    Then ``torch.profiler`` over one replay of the graph must list the
+    port's kernels once per step and perceptor."""
     import torch
 
     from pixray_tpu_torch.config import apply_settings
@@ -1292,25 +1411,18 @@ def phase_blocked(tmp, config, label, steps, card):
 
     cfg = dict(config, iterations=steps + 1, outdir=tmp)
     runs = {name: Engine(apply_settings(dict(cfg, steps_per_call=spc), apply_side_effects=False), device="cuda")
-            for name, spc in (("blocked", 8), ("eager", 1), ("eager2", 1))}
-    host_ms = []
+            for name, spc in (("blocked", 8), ("blocked0", 8), ("eager0", 1))}
     blocked = runs["blocked"]
-    dispatch = blocked._dispatch_block
-
-    def timed_dispatch(cur_it, n):
-        t0 = time.perf_counter()
-        out = dispatch(cur_it, n)
-        host_ms.append(1e3 * (time.perf_counter() - t0))
-        return out
-
-    blocked._dispatch_block = timed_dispatch
+    kept, host_ms = keep_block_starts(blocked)
     for engine in runs.values():
         engine.train(0)
     with torch.no_grad():
-        for name in ("eager", "eager2"):
-            for dst, src in zip(leaves(runs[name].z) + state_tensors(runs[name].opt_state),
-                                leaves(blocked.z) + state_tensors(blocked.opt_state)):
-                dst.copy_(src)
+        for dst, src in zip(leaves(runs["eager0"].z) + state_tensors(runs["eager0"].opt_state),
+                            leaves(runs["blocked0"].z) + state_tensors(runs["blocked0"].opt_state)):
+            dst.copy_(src)
+        for name in ("blocked0", "eager0"):
+            runs[name].lr_scale.fill_(0.0)
+    z0 = [t.clone() for t in leaves(runs["blocked0"].z)]
     losses, rates = {}, {}
     for name, engine in runs.items():
         torch.cuda.synchronize()
@@ -1323,34 +1435,36 @@ def phase_blocked(tmp, config, label, steps, card):
         rates[name] = steps / (time.perf_counter() - t0)
     blk = blocked.step_block
     expected = [(1 + 8 * k, 8) for k in range(steps // 8)]
-    if blocked.dispatched_blocks != expected or blk is None or blk.graph is None:
-        fail(f"blocked {label}: blocks {blocked.dispatched_blocks}, expected {expected} as graph replays")
-    if runs["eager"].dispatched_blocks:
+    for name in ("blocked", "blocked0"):
+        b = runs[name]
+        if b.dispatched_blocks != expected or b.step_block is None or b.step_block.graph is None:
+            fail(f"blocked {label}: {name} blocks {b.dispatched_blocks}, expected {expected} as graph replays")
+    if runs["eager0"].dispatched_blocks:
         fail(f"blocked {label}: the --steps_per_call 1 run dispatched blocks")
-    stack = {name: torch.stack(v) for name, v in losses.items()}
-    first_equal = torch.equal(stack["blocked"][0], stack["eager"][0])
-    dev = float((stack["blocked"] - stack["eager"]).abs().max())
-    spread = float((stack["eager2"] - stack["eager"]).abs().max())
-    tol = max(BLOCKED_SPREAD * spread, BLOCKED_FLOOR)
-    per_step = [float(d) for d in (stack["blocked"] - stack["eager"]).abs().amax(dim=1)]
-    if not first_equal:
-        fail(f"blocked {label}: the first replayed step's losses differ from the eager step's: "
-             f"{stack['blocked'][0].tolist()} vs {stack['eager'][0].tolist()}")
-    if not dev <= tol:
-        fail(f"blocked {label}: the blocked run moved {dev} from the eager run (tol {tol}, eager spread {spread}); "
-             f"per step {per_step}")
+    moved = not all(torch.equal(a, b) for a, b in zip(leaves(kept[1]["z"]), leaves(blocked.z)))
+    starts = block_starts_bitwise(blocked, kept, losses["blocked"])
+    if sorted(starts) != [b for b, _ in expected] or not all(starts.values()) or not moved:
+        fail(f"blocked {label}: the first replayed step of each block is not the eager step from the state it "
+             f"started from, bitwise: {starts}; the latent moved {moved}")
+    same0 = [torch.equal(a, b) for a, b in zip(losses["blocked0"], losses["eager0"])]
+    kept0 = all(torch.equal(a, b) and torch.equal(a, c)
+                for a, b, c in zip(leaves(runs["blocked0"].z), leaves(runs["eager0"].z), z0))
+    gap0 = state_gap(runs["blocked0"].opt_state, runs["eager0"].opt_state)
+    if not all(same0) or not kept0:
+        fail(f"blocked {label}: with the learning-rate scale at 0 the blocked and eager runs part: losses bitwise "
+             f"per step {same0}, latent kept bitwise {kept0}")
+    if not gap0 <= BLOCKED_STATE_RTOL:
+        fail(f"blocked {label}: with the learning-rate scale at 0 the blocked run's optimizer state is {gap0} of "
+             f"its largest value from the eager run's (tol {BLOCKED_STATE_RTOL})")
     # the port's kernels inside one replay: K1 for every bank, K2 for each
     # bank but the forward-only image prompts
-    events = profiled_events(blk.graph.replay, 1)
     batch_steps = blk.n * blocked.args.batches
     specs = blocked.step_cfg.perceptors
     want = {"bank_fwd_kernel": batch_steps * sum(s.banks for s in specs),
             "bank_bwd_kernel": batch_steps * sum(s.banks - s.n_image_prompts for s in specs)}
     if blocked.args.drawer in ("clipdraw", "line_sketch"):
         want.update(strokes_fwd_kernel=blk.n, strokes_bwd_kernel=blk.n)
-    seen = {k: sum(k in ev.name for ev in events) for k in want}
-    if seen != want:
-        fail(f"blocked {label}: one replay ran {seen}, expected {want}")
+    events, seen, windows = replay_events(blk.graph, want, f"blocked {label}")
     # the host's cost of a replay's launch: on an idle card, and behind a running replay
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1360,14 +1474,16 @@ def phase_blocked(tmp, config, label, steps, card):
     t2 = time.perf_counter()
     torch.cuda.synchronize()
     print(f"blocked {label}: --steps_per_call 8 vs 1 on the card, {steps} steps after step 0 (blocks {expected}): "
-          f"first replayed step bitwise {first_equal}; max |loss diff| blocked vs eager {dev:.3g}, eager vs eager "
-          f"{spread:.3g} (tol {tol:.3g}); per step {[float(f'{d:.3g}') for d in per_step]}; one replay under "
-          f"torch.profiler: {seen} ({len(events)} device events); capture {blk.capture_s:.3f} s; host ms per block "
+          f"the first replayed step of each block bitwise the eager step from the state it started from {starts}; "
+          f"learning-rate scale 0: {sum(same0)} of {steps} steps' losses bitwise, latent kept bitwise {kept0}, "
+          f"optimizer state within {gap0:.2g} of its largest value (tol {BLOCKED_STATE_RTOL}); one replay under "
+          f"torch.profiler: {seen} (profiler window {windows}; {len(events)} device events, "
+          f"{busy_ms(events) / blk.n:.3f} ms device busy per step); capture {blk.capture_s:.3f} s; host ms per block "
           f"dispatch {[round(t, 2) for t in host_ms]} (the first includes the capture); host ms to launch a replay "
           f"{1e3 * (t1 - t0):.3f} on an idle card, {1e3 * (t2 - t1):.3f} behind a running one; steps/s over the "
           f"{steps} steps: blocked {rates['blocked']:.3f} ({steps / (steps / rates['blocked'] - blk.capture_s):.3f} "
-          f"without the capture), eager {rates['eager']:.3f}, {rates['eager2']:.3f}; on {card}", flush=True)
-    return {"dev": dev, "spread": spread, "tol": tol, "replay": seen, "events": events, "n": blk.n}
+          f"without the capture), eager {rates['eager0']:.3f}; on {card}", flush=True)
+    return {"replay": seen, "events": events, "n": blk.n}
 
 
 def busy_ms(events):
@@ -1547,6 +1663,338 @@ def phase_overlay_row(tmp, card):
           f"{dict(zip(engine.loss_names, [round(v, 4) for v in values[-1].tolist()]))}; launches {launches}; "
           f"on {card}", flush=True)
 
+
+ANIM_FRAMES = 3  # seeded 384x216 PNGs: the init, image-prompt and target image globs
+ANIM_SAVE_EVERY = 10
+ANIM_ITERATIONS = 20  # 2 rounds x 3 frames x 10 steps, a blend between the rounds
+ANIM_TERMS = ("prompt0", "target_frame", "image_prompt_frame")  # the JAX package's, per tower
+OPTIMIZERS = ("AdamW", "Adagrad", "Adamax", "DiffGrad", "AdamP")
+RESUME_STEPS = 24  # the pixel row, checkpointed at 12
+RESUME_CLIPDRAW_STEPS = 16  # the clipdraw row, checkpointed at 8
+VIDEO_STEPS = 6
+
+
+def write_anim_frames(tmp):
+    """The animation's frame files: seeded 384x216 PNGs ``frame<i>.png`` in ``tmp``; their glob."""
+    import numpy as np
+    from PIL import Image
+
+    os.makedirs(tmp, exist_ok=True)
+    for i in range(ANIM_FRAMES):
+        arr = np.random.default_rng(100 + i).integers(0, 256, (216, 384, 3), dtype=np.uint8)
+        Image.fromarray(arr).save(os.path.join(tmp, f"frame{i}.png"))
+    return os.path.join(tmp, "frame*.png")
+
+
+def anim_extra(tmp):
+    frames = write_anim_frames(os.path.join(tmp, "frames"))
+    return dict(animation_dir=os.path.join(tmp, "anim"), init_image=frames, image_prompts=frames,
+                target_images=frames, save_every=ANIM_SAVE_EVERY, iterations=ANIM_ITERATIONS)
+
+
+def phase_animation_row(tmp, card):
+    """Row 15: the pixel row under ``--animation_dir`` (3 frames, 2 rounds of
+    10 steps each, blocked).  Blocks stay inside each frame's span; 2 K1
+    and 1 K2 per step (the main bank, and the frame's forward-only
+    image-prompt bank); for each frame, the first replayed step after the
+    frame swap gives the losses of an eager step from a copy of the latent
+    and the optimizer state the swap left, and the same draws, bitwise (the
+    graph, captured at frame 0, reads the swapped latent and the frame's
+    index from its staged inputs); the JAX package's term names; the frame
+    PNGs and anim.gif."""
+    import copy
+
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine.core import Engine
+    from pixray_tpu_torch.engine.latent import tree_map
+    from pixray_tpu_torch.engine.step import draws_to_inputs, train_step
+    from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+
+    config = dict(PIXEL_CONFIG, outdir=tmp, **anim_extra(tmp))
+    t0 = time.perf_counter()
+    engine = Engine(apply_settings(config, apply_side_effects=False), device="cuda")
+    init_s = time.perf_counter() - t0
+    opt = engine.optimizer
+    kept, losses = {}, {}
+    dispatch, draw, train = engine._dispatch_block, engine.draw_step, engine.train
+    state = {"keep": None}
+
+    def keeping_dispatch(cur_it, n):
+        if cur_it % ANIM_SAVE_EVERY == 1:  # a span's first block: the step after the frame's checkin
+            key = (engine.cur_anim_index, cur_it)
+            kept[key] = {"z": tree_map(torch.clone, engine.z), "opt": opt.clone(engine.opt_state)}
+            state["keep"] = key
+        return dispatch(cur_it, n)
+
+    def keeping_draws(planes_out=None):
+        draws = draw(planes_out=planes_out)
+        if state["keep"] is not None:
+            kept[state["keep"]]["draws"] = copy.deepcopy(draws)
+            state["keep"] = None
+        return draws
+
+    def recording_train(it, draws=None):
+        out = train(it, draws)
+        losses[(engine.cur_anim_index, it)] = engine.last_loss_values.float().cpu().clone()
+        return out
+
+    engine._dispatch_block, engine.draw_step, engine.train = keeping_dispatch, keeping_draws, recording_train
+    cuda_warp.reset_launch_counts()
+    cuda_strokes.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES}
+    steps = ANIM_FRAMES * ANIM_ITERATIONS
+    blocks = engine.dispatched_blocks
+    want = [(r * ANIM_SAVE_EVERY + 1, 8) for r in range(ANIM_ITERATIONS // ANIM_SAVE_EVERY) for _ in range(ANIM_FRAMES)]
+    if blocks != want or engine.step_block is None or engine.step_block.graph is None:
+        fail(f"animation row: blocks {blocks}, expected {want} as graph replays")
+    if any(s % ANIM_SAVE_EVERY + n > ANIM_SAVE_EVERY for s, n in blocks):
+        fail(f"animation row: a block crosses a frame's span: {blocks}")
+    ran = steps_run(engine, steps)
+    check_launches("animation row", launches, {"warp_fwd": 2 * ran, "warp_bwd": ran, "strokes_fwd": 0,
+                                               "strokes_fwd_store": 0, "strokes_bwd": 0})
+    names = [f"{engine.args.clip_models[0]}:{t}" for t in ANIM_TERMS]
+    if engine.loss_names != names:
+        fail(f"animation row: term names {engine.loss_names}, expected {names}")
+    values = torch.stack(list(losses.values()))
+    if len(losses) != steps or not bool(torch.isfinite(values).all()):
+        fail(f"animation row: {len(losses)} steps recorded (expected {steps}), finite {bool(torch.isfinite(values).all())}")
+    checks = {}
+    for (frame, it), k in sorted(kept.items()):
+        inputs = draws_to_inputs(engine.step_cfg, k["draws"], it, engine.device, anim_index=frame)
+        _, eager, _ = train_step(engine.step_cfg, opt, k["z"], k["opt"], engine.lr_scale, inputs)
+        checks[(frame, it)] = torch.equal(eager.float().cpu(), losses[(frame, it)])
+    if sorted(checks) != sorted((f, r * ANIM_SAVE_EVERY + 1) for r in range(2) for f in range(ANIM_FRAMES)) \
+            or not all(checks.values()):
+        fail(f"animation row: the first replayed step after a frame swap is not the eager step: {checks}")
+    anim_dir = engine.args.animation_dir
+    for i in range(ANIM_FRAMES):
+        check_png("animation row", os.path.join(anim_dir, f"frame{i}.png"), (engine.side_x, engine.side_y))
+    with open(os.path.join(anim_dir, "anim.gif"), "rb") as f:
+        if f.read(4) != b"GIF8":
+            fail("animation row: anim.gif is not a GIF")
+    blk = engine.step_block
+    events = profiled_events(blk.graph.replay, 1)
+    n = blk.n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):  # back to back: the replays' wall, the card's rate on a blocked span
+        blk.graph.replay()
+    torch.cuda.synchronize()
+    replay_ms = 1e3 * (time.perf_counter() - t0) / (4 * n)
+    print(f"animation row: pixel 384x216, ViT-B/32 (random weights), 64 cuts, 'sunrise', {ANIM_FRAMES} frames (init, "
+          f"image-prompt and target globs), save_every {ANIM_SAVE_EVERY}, {ANIM_ITERATIONS} iterations: {steps} steps "
+          f"in {wall:.2f} s ({steps / wall:.3f} steps/s with the checkins, the frame swaps, the blend and the GIFs); "
+          f"init {init_s:.1f} s, capture {engine.step_block.capture_s:.2f} s; blocks {blocks}; the first replayed step "
+          f"after each frame swap bitwise the eager step: {checks}; one replay: {len(events) / n:.1f} device events and "
+          f"{busy_ms(events) / n:.3f} ms device busy per step; 4 replays back to back: {replay_ms:.3f} ms per step "
+          f"({1e3 / replay_ms:.3f} steps/s); K1/K2 per step {launches['warp_fwd'] / ran:.2f} / "
+          f"{launches['warp_bwd'] / ran:.2f} over {ran} steps (the warm-up step before the capture included); "
+          f"launches {launches}; on {card}", flush=True)
+    print(f"animation row losses (finite): last {dict(zip(engine.loss_names, [round(v, 4) for v in values[-1].tolist()]))}"
+          f"; frames {sorted(os.listdir(anim_dir))}", flush=True)
+    return {"launches": launches, "ran": ran}
+
+
+def phase_optimizers(tmp, card):
+    """Row 16: the pixel row under each of the other optimizers, blocked
+    against eager as in 5b (one K1 and one K2 per step in the replay)."""
+    for name in OPTIMIZERS:
+        with tempfile.TemporaryDirectory(dir=tmp) as sub:
+            phase_blocked(sub, dict(PIXEL_CONFIG, optimiser=name), f"optimiser {name} (pixel)", BLOCKED_STEPS, card)
+
+
+def _resume_case(tmp, label, config, steps, every, card):
+    """``config`` run ``steps`` steps with ``--checkpoint_every every`` (the
+    straight run, which writes the checkpoint on the way), and a fresh
+    engine resumed from the checkpoint run to the end, twice: with the
+    learning rate on and with the learning-rate scale at 0 from step 1.
+    The restored latent, optimizer state, LR scale and the three
+    generators equal the straight run's at the checkpoint bitwise, and so
+    do the first resumed step's losses.  After that step K2's and K5's
+    float atomics part two runs from one state (as in 5b), so the steps
+    after it are held at scale 0: every resumed step's losses and the final
+    latent bitwise the straight run's, the optimizer state within
+    BLOCKED_STATE_RTOL of its largest value."""
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine.core import Engine
+    from pixray_tpu_torch.engine.latent import leaves
+    from pixray_tpu_torch.engine.optimizers import state_tensors
+
+    def engine(sub, **extra):
+        os.makedirs(os.path.join(tmp, sub), exist_ok=True)
+        return Engine(apply_settings(dict(config, iterations=steps, outdir=os.path.join(tmp, sub), **extra),
+                                     apply_side_effects=False), device="cuda")
+
+    def run(e, first, last):
+        """Steps ``first`` to ``last`` as run() takes them (the final checkin at ``steps``); their losses."""
+        out = []
+        for it in range(first, last + 1):
+            e.train(it)
+            if it < steps:
+                out.append(e.last_loss_values.float().cpu().clone())
+        return out
+
+    def leg(scale):
+        sub = f"straight{scale:g}"
+        straight = engine(sub, checkpoint_every=every)
+        want = run(straight, 0, 0)
+        straight.lr_scale.fill_(scale)
+        want += run(straight, 1, every)  # through the checkpoint's step
+        saved = [t.clone() for t in leaves(straight.z) + state_tensors(straight.opt_state)]
+        gens = (straight.gen.get_state(), straight.gen_device.get_state(), straight.lr_scale.clone())
+        want += run(straight, every + 1, steps)
+        r = engine(f"resumed{scale:g}", resume_from=os.path.join(tmp, sub, "session.ckpt"))
+        restored = all(torch.equal(a, b) for a, b in zip(leaves(r.z) + state_tensors(r.opt_state), saved))
+        restored &= torch.equal(r.gen.get_state(), gens[0]) and torch.equal(r.gen_device.get_state(), gens[1])
+        restored &= torch.equal(r.lr_scale, gens[2]) and r.cur_iteration == every + 1
+        if not restored:
+            fail(f"resume {label}: the restored state is not the straight run's at step {every} (LR scale {scale:g})")
+        got = run(r, every + 1, steps)
+        if not torch.equal(got[0], want[every + 1]):
+            fail(f"resume {label}: the first resumed step's losses differ from the straight run's (LR scale "
+                 f"{scale:g}): {got[0].tolist()} vs {want[every + 1].tolist()}")
+        return straight, r, want[every + 1:], got
+
+    straight, r, _, _ = leg(1.0)
+    straight0, r0, want0, got0 = leg(0.0)
+    same0 = [torch.equal(a, b) for a, b in zip(got0, want0)]
+    latent0 = all(torch.equal(a, b) for a, b in zip(leaves(r0.z), leaves(straight0.z)))
+    gap0 = state_gap(r0.opt_state, straight0.opt_state)
+    if not all(same0) or not latent0 or not gap0 <= BLOCKED_STATE_RTOL:
+        fail(f"resume {label}: with the learning-rate scale at 0 the resumed run parts from the straight run: "
+             f"losses bitwise per step {same0}, final latent bitwise {latent0}, optimizer state {gap0} of its "
+             f"largest value (tol {BLOCKED_STATE_RTOL})")
+    z_dev = max(float((a - b).abs().max()) for a, b in zip(leaves(r.z), leaves(straight.z)))
+    print(f"resume {label}: {steps} steps with --checkpoint_every {every} against an engine resumed at step "
+          f"{every + 1}: restored latent, optimizer state, LR scale and generators bitwise and the first resumed "
+          f"step's losses bitwise, at LR scale 1 and 0; at scale 0 {sum(same0)} of {len(same0)} resumed steps' "
+          f"losses and the final latent bitwise {latent0}, optimizer state within {gap0:.2g} of its largest value "
+          f"(tol {BLOCKED_STATE_RTOL}); at scale 1 the final latent max |diff| {z_dev:.3g} (the atomics); blocks "
+          f"straight {straight.dispatched_blocks}, resumed {r.dispatched_blocks}; on {card}", flush=True)
+
+
+def phase_resume(tmp, card):
+    """Row 17: checkpoint and resume on the card (the pixel and clipdraw
+    rows), and a checkpoint written on the CPU resumed on the card."""
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine.checkpoint import read_manifest
+    from pixray_tpu_torch.engine.core import Engine
+
+    _resume_case(os.path.join(tmp, "pixel"), "pixel row", PIXEL_CONFIG, RESUME_STEPS, RESUME_STEPS // 2, card)
+    _resume_case(os.path.join(tmp, "clipdraw"), "clipdraw row (dict latent, per-group Adam)", CLIPDRAW_CONFIG,
+                 RESUME_CLIPDRAW_STEPS, RESUME_CLIPDRAW_STEPS // 2, card)
+    cfg = {**PIXEL_CONFIG, "clip_models": "TinyTest", "size": [96, 54], "num_cuts": 8, "iterations": 8,
+           "precision": "fp32"}
+    cpu_dir, gpu_dir = os.path.join(tmp, "cpu"), os.path.join(tmp, "gpu")
+    os.makedirs(cpu_dir)
+    os.makedirs(gpu_dir)
+    cpu = Engine(apply_settings(dict(cfg, outdir=cpu_dir, checkpoint_every=3), apply_side_effects=False), device="cpu")
+    for it in range(4):
+        cpu.train(it)
+    path = os.path.join(cpu_dir, "session.ckpt")
+    gpu = Engine(apply_settings(dict(cfg, outdir=gpu_dir, resume_from=path), apply_side_effects=False), device="cuda")
+    same = torch.equal(gpu.z.cpu(), cpu.z) and gpu.cur_iteration == read_manifest(path)["iteration"] == 4
+    if not same:
+        fail("resume: the CPU's checkpoint did not restore its latent and iteration on the card")
+    for it in range(4, 9):
+        gpu.train(it)
+    values = gpu.last_loss_values.float()
+    if not bool(torch.isfinite(values).all()):
+        fail(f"resume: the card run from the CPU's checkpoint gave non-finite losses {values.tolist()}")
+    print(f"resume from a CPU checkpoint (TinyTest pixel 96x54): latent and iteration restored on the card {same}; "
+          f"steps 4-8 on the card, final losses {[round(v, 4) for v in values.tolist()]}", flush=True)
+
+
+def phase_video_and_trace(tmp, card):
+    """Row 18: a 6-step pixel run with --make_video writes the per-step
+    frames and the video; a --profile_dir run writes a trace that names K1
+    and K2."""
+    import pixray_tpu_torch as pixray
+
+    video_dir = os.path.join(tmp, "video_run")
+    pixray.run(**dict(PIXEL_CONFIG, outdir=video_dir, iterations=VIDEO_STEPS, make_video=True))
+    frames = sorted(os.listdir(os.path.join(video_dir, "video")))
+    if frames != [f"frame_{i:04d}.png" for i in range(VIDEO_STEPS)]:
+        fail(f"make_video: frames {frames}")
+    for f in frames:
+        check_png("make_video", os.path.join(video_dir, "video", f), tuple(PIXEL_CONFIG["size"]))
+    videos = [f for f in ("output.mp4", "output.gif") if os.path.exists(os.path.join(video_dir, f))]
+    if not videos:
+        fail(f"make_video: no video in {sorted(os.listdir(video_dir))}")
+    profile_dir = os.path.join(tmp, "profile")
+    trace_run = os.path.join(tmp, "trace_run")
+    pixray.run(**dict(PIXEL_CONFIG, outdir=trace_run, iterations=10, profile_dir=profile_dir))
+    engine = pixray.get_engine()
+    check_blocked("profile_dir", engine, [(1, 8)])
+    path = os.path.join(profile_dir, "trace.json")
+    if not os.path.exists(path):
+        fail(f"profile_dir: no trace in {os.listdir(profile_dir) if os.path.isdir(profile_dir) else profile_dir}")
+    with open(path) as f:
+        names = [str(e.get("name", "")) for e in json.load(f).get("traceEvents", [])]
+    found = {k: sum(k in n for n in names) for k in ("bank_fwd_kernel", "bank_bwd_kernel")}
+    if not all(found.values()):
+        fail(f"profile_dir: the trace names no K1 or K2: {found}")
+    print(f"make_video: {VIDEO_STEPS} steps of the pixel row wrote video/frame_0000-{VIDEO_STEPS - 1:04d}.png and "
+          f"{videos[0]}; profile_dir: 10 steps (1-8 one block) wrote {path} "
+          f"({os.path.getsize(path) / 1e6:.1f} MB, {len(names)} events) naming K1 {found['bank_fwd_kernel']} and K2 "
+          f"{found['bank_bwd_kernel']} times; on {card}", flush=True)
+
+
+def phase_anim_agreement(tmp):
+    """Row 19: the animation row on TinyTest, card against CPU: the same
+    latent, weights and draws (the CPU's, fed to the card), every step of
+    both rounds, per-step losses within AGREE_ATOL."""
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine.core import Engine
+
+    extra = anim_extra(tmp)
+    cfg = {**PIXEL_CONFIG, "clip_models": "TinyTest", "size": [96, 54], "num_cuts": 8, "precision": "fp32",
+           "steps_per_call": 1, **extra, "iterations": 4, "save_every": 2}
+    engines, losses, queue = {}, {}, []
+    for label, device in (("cpu", "cpu"), ("gpu", "cuda")):
+        e = engines[label] = Engine(apply_settings(dict(cfg, outdir=os.path.join(tmp, label),
+                                                        animation_dir=os.path.join(tmp, label, "anim")),
+                                                   apply_side_effects=False), device=device)
+        losses[label] = []
+        train = e.train
+
+        def recording(it, draws=None, e=e, train=train, out=losses[label]):
+            r = train(it, draws)
+            out.append(e.last_loss_values.float().cpu().clone())
+            return r
+
+        e.train = recording
+    cpu, gpu = engines["cpu"], engines["gpu"]
+    gpu.z = cpu.z.to(gpu.device)
+    gpu.opt_state = gpu.optimizer.init(gpu.z)
+    for k, v in cpu.drawer_params.items():
+        gpu.drawer_params[k] = v.to(gpu.device)
+    draw = cpu.draw_step
+    cpu.draw_step = lambda planes_out=None: queue.append(draw()) or queue[-1]
+    fed = iter(queue)
+    gpu.draw_step = lambda planes_out=None: _draws_to(next(fed), gpu.device, torch.bfloat16)
+    cpu.run()
+    gpu.run()
+    diffs = [float((a - b).abs().max()) for a, b in zip(losses["cpu"], losses["gpu"])]
+    worst = max(diffs)
+    print(f"agreement TinyTest animation row ({ANIM_FRAMES} frames, 2 rounds of 2 steps) card vs CPU: max |loss diff| "
+          f"{worst:.3g} per step {[float(f'{d:.3g}') for d in diffs]} (tol {AGREE_ATOL}); terms {gpu.loss_names}",
+          flush=True)
+    if len(diffs) != 2 * ANIM_FRAMES * 2 or not worst <= AGREE_ATOL:
+        fail(f"animation row card run disagrees with the CPU run: {diffs}")
 
 def phase_vqgan_default(tmp):
     """``pixray_tpu_torch.run`` with its defaults (vqgan, quality normal:
@@ -1844,6 +2292,16 @@ def main():
         phase_image_row(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_overlay_row(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_animation_row(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_optimizers(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_resume(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_video_and_trace(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_anim_agreement(tmp)
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
     warp_src = "pixray_tpu_torch/csrc/warp.cu"

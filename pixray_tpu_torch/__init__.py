@@ -48,10 +48,12 @@ def do_init(settings, device="cuda"):
     return _engine
 
 
-def do_run(settings) -> bool:
+def do_run(settings, return_display: bool = False) -> bool:
+    """Run the engine; with ``return_display`` it returns False every
+    ``display_every`` steps (call again for the rest) and True at the end."""
     if _engine is None:
         raise RuntimeError("call do_init first")
-    return _engine.run()
+    return _engine.run(return_display=return_display)
 
 
 def get_engine():

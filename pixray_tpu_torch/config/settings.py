@@ -115,7 +115,7 @@ def setup_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("-bats", "--batches", type=int, help="How many batches of cuts", default=None, dest="batches")
     a("-cutp", "--cut_power", type=float, help="Cut power", default=1.0, dest="cut_pow")
     a("--seed", type=str, help="Seed (int or string)", default=None, dest="seed")
-    a("-opt", "--optimiser", type=str, help="Optimiser (only Adam is ported)", default="Adam", dest="optimiser")
+    a("-opt", "--optimiser", type=str, help="Optimiser", default="Adam", dest="optimiser")
     a("-vid", "--video", type=str2bool, help="Create video frames?", default=False, dest="make_video")
     a("-d", "--deterministic", type=str2bool, help="Deterministic mode", default=False, dest="cudnn_determinism")
     a("-cud", "--cuda_device", type=str, help="(compat; the device is Engine's argument)", default=None, dest="cuda_device")
@@ -131,9 +131,9 @@ def setup_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--mesh_shape", type=str, help="device mesh (JAX package only)", default="auto", dest="mesh_shape")
     a("--shard_cutouts", type=str2bool, help="shard the cutout batch (JAX package only)", default=True, dest="shard_cutouts")
     a("--precision", type=str, help="perceptor compute precision: bf16 or fp32", default="bf16", dest="precision")
-    a("--checkpoint_every", type=str, help="session checkpoint cadence (not ported)", default=0, dest="checkpoint_every")
-    a("--resume_from", type=str, help="resume a session (not ported)", default=None, dest="resume_from")
-    a("--profile_dir", type=str, help="profiler traces (not ported)", default=None, dest="profile_dir")
+    a("--checkpoint_every", type=str, help="save a resumable session checkpoint every N iterations (0=off)", default=0, dest="checkpoint_every")
+    a("--resume_from", type=str, help="resume a session from a checkpoint file", default=None, dest="resume_from")
+    a("--profile_dir", type=str, help="write a torch.profiler trace of the run into this directory", default=None, dest="profile_dir")
     a("--steps_per_call", type=int, help="optimizer steps per dispatch (0=auto blocks of 8 DEFAULT; 1=single-step; N>1=fixed block size); on the card a block is one replay of a captured CUDA graph; host events (save/LR drops) split blocks automatically", default=0, dest="steps_per_call")
     a("--save_svg", type=str2bool, help="export vector drawers to SVG at the end of the run", default=False, dest="save_svg")
     return parser

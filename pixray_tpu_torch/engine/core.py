@@ -28,8 +28,12 @@ line_sketch); a drawer with ``load_model`` gets the device and dtype for
 its weights; a drawer with ``get_opts`` brings its own optimizer (one Adam
 per group), as in the JAX engine.  ``--init_noise pixels`` off the
 drawer's grid is resized with PIL's Lanczos, as in the JAX engine.
-``run`` ends, also after an interrupt, with the step video of the checkin
-frames (``--save_intermediates``) and ``--save_svg``'s vector export.
+``run`` ends, also after an interrupt, with ``--make_video``'s video of
+the per-step frames, the step video of the checkin frames
+(``--save_intermediates``) and ``--save_svg``'s vector export; with
+``return_display`` it returns False every ``display_every`` steps, so a
+caller can stream partial results, and ``--profile_dir`` traces the run
+(``engine/profiling.py``).
 
 ``--filters`` (``name:weight``, comma-separated) and ``--custom_loss``
 (``name:weight``, ``loss->arg->arg``) are built as the JAX engine builds
@@ -43,7 +47,7 @@ The image inputs, as the JAX engine reads them (PIL is imported only for
 them): ``--init_image`` (the last of its files, resized with Lanczos, is
 the init latent and ``--init_weight_pix``'s reference; the init noise is
 drawn all the same, and ``--init_image_alpha`` shapes only the
-animation's frames, which are not ported), ``--init_noise
+animation's frames), ``--init_noise
 gradient|snow``, ``--overlay_image`` (its first file, pasted over the canvas and re-encoded into the latent before each step
 ``apply_overlay`` names: a pre-step host event, which ends the block
 before it; the latent's tensors are written in place, and Adam's state
@@ -52,8 +56,22 @@ an ``image_label0`` term), ``--target_images``, ``--image_prompts``
 (pooled to each tower's work canvas once per run), ``--spot_prompts`` and
 ``--spot_prompts_off`` (the spot mask at the work canvas's size).
 
-Settings the ported slices do not implement raise ``NotImplementedError``
-here rather than being ignored.
+The animation ring (``--animation_dir``, as the JAX engine runs it): the
+frame list is the longest of the overlay, target, init and prompt image
+lists; each round runs every frame for ``save_every`` steps from its own
+latent, copied into the latent's tensors at the frame's start and back
+out after its span (a captured block reads them where they are), with
+one optimizer state across the frames; between rounds each frame is
+blended with the previous one (``--animation_alpha``) and re-encoded.
+The frame's index reaches the step as a device int32 in the block's
+inputs (its target row and image prompt are picked on the device); a
+block never crosses a frame's span.  A frame's first step applies its
+init image and overlay, its checkins write its PNG, and the last frame's
+checkin writes ``anim.gif``.
+
+Session checkpoints (``engine/checkpoint.py``): ``--checkpoint_every N``
+writes ``outdir/session.ckpt`` after every N-th step, ``--resume_from``
+restores one (the port's, or the JAX engine's) into the new engine.
 """
 
 from __future__ import annotations
@@ -67,10 +85,9 @@ import torch
 
 from pixray_tpu_torch.drawers import drawer_class
 from pixray_tpu_torch.engine import cutouts as C
-from pixray_tpu_torch.engine.latent import ravel, tree_map
+from pixray_tpu_torch.engine.latent import leaves, ravel, tree_map
 from pixray_tpu_torch.engine.optimizers import build_optimizer
 from pixray_tpu_torch.engine.prompts import build_prompt_tables
-from pixray_tpu_torch.engine.latent import leaves
 from pixray_tpu_torch.engine.schedule import BestTracker, apply_overlay
 from pixray_tpu_torch.engine.step import (PerceptorSpec, StepBlock, StepConfig, bank_rows, draws_to_inputs,
                                           pack_step, train_step)
@@ -82,11 +99,6 @@ from pixray_tpu_torch.models.perceptor import Perceptor
 from pixray_tpu_torch.prompt import parse_prompt
 from pixray_tpu_torch.utils import get_file_path, real_glob
 
-# (setting, value that means "off") for everything not ported yet
-_UNPORTED = [
-    ("animation_dir", None), ("make_video", False),
-    ("resume_from", None), ("checkpoint_every", 0), ("profile_dir", None),
-]
 BLOCK_STEPS = 8  # --steps_per_call 0: blocks of 8 steps, as in the JAX engine
 
 
@@ -118,9 +130,6 @@ class Engine:
     def __init__(self, args, device="cuda", state_dicts=None):
         self.args = args
         self.device = resolve_device(device)
-        for name, off in _UNPORTED:
-            if getattr(args, name, off) not in (off, None, [], 0, False):
-                raise NotImplementedError(f"setting {name}={getattr(args, name)!r} is not yet ported")
         if args.init_weight_pix and not args.init_image:
             raise ValueError("init_weight_pix needs an init_image")
 
@@ -181,15 +190,17 @@ class Engine:
         self.z_orig_flat = ravel(self.z).clone()
         self.drawer_params = {k: v.to(self.device) for k, v in self.drawer.model_params.items()}
 
+        self.overlay_image_rgba_list = []
         self.overlay_image_rgba = None
         if args.overlay_image is not None:
             from PIL import Image
 
-            rgba = IM.open_images(args.overlay_image)[0].convert("RGBA").resize((self.side_x, self.side_y),
-                                                                                Image.LANCZOS)
-            if args.overlay_alpha:
-                rgba.putalpha(args.overlay_alpha)
-            self.overlay_image_rgba = rgba
+            for overlay_image in IM.open_images(args.overlay_image):
+                rgba = overlay_image.convert("RGBA").resize((self.side_x, self.side_y), Image.LANCZOS)
+                if args.overlay_alpha:
+                    rgba.putalpha(args.overlay_alpha)
+                self.overlay_image_rgba_list.append(rgba)
+            self.overlay_image_rgba = self.overlay_image_rgba_list[0]
 
         # ---- image labels → the normalized mean of their latents
         self.z_labels = []
@@ -213,8 +224,8 @@ class Engine:
                     target_specs.append((f1, weight, stop))
                 else:
                     target_specs.extend((f, weight, stop) for f in real_glob(f1))
-        tables, spot_tables, spot_off_tables = build_prompt_tables(args, self.perceptors, self.device,
-                                                                   target_image_paths=target_specs)
+        tables, spot_tables, spot_off_tables, target_tables = build_prompt_tables(
+            args, self.perceptors, self.device, target_image_paths=target_specs)
 
         # ---- image prompts at the canvas size, (H, W, 3) on the device
         self.image_prompt_images = []
@@ -231,7 +242,8 @@ class Engine:
             perceptors=[
                 PerceptorSpec(p.name, p.input_resolution, p.image_fn, tables[p.name],
                               spot_table=spot_tables[p.name], spot_off_table=spot_off_tables[p.name],
-                              image_prompt_weight=args.image_prompt_weight,
+                              image_prompt_weight=args.image_prompt_weight, target_table=target_tables[p.name],
+                              image_prompt_frame=bool(args.animation_dir),
                               **self._image_prompt_inputs(args, p))
                 for p in self.perceptors
             ],
@@ -264,9 +276,18 @@ class Engine:
         self._block = None  # the dispatched block being walked, and the one after it
         self._next_block = None
         self.step_block = None  # the StepBlock (its graph, once captured), made at the first block
-        self._display_streaming = False  # run() streams no partial results (not ported)
+        self._display_streaming = False  # run(return_display=True) sets this
         self.steps_dispatched = 0  # steps whose work has been enqueued, blocked or eager
         self.dispatched_blocks = []  # (first step, steps) of every block dispatched
+        self.cur_anim_index = None  # the animation frame being trained, or None
+        self.anim_output_files = []
+        self.anim_cur_zs = []
+
+        if args.resume_from:
+            from pixray_tpu_torch.engine.checkpoint import restore_session
+
+            it = restore_session(args.resume_from, self)
+            print(f"Resumed session from {args.resume_from} at iteration {it}")
         print("Optimising using:", args.optimiser)
         if args.prompts:
             print("Using text prompts:", args.prompts)
@@ -275,14 +296,17 @@ class Engine:
         if args.image_prompts:
             print("Using image prompts:", args.image_prompts)
         if args.init_image:
-            print("Using initial image", args.init_image)
+            print(f"Using initial image {args.init_image} ({len(self.init_image_rgba_list)})")
 
     def _init_tensor(self, args):
         """The drawer's init image in [-1, 1] on the host, or None: the last
         init image, else the init noise (drawn under an init image too, as
         the JAX engine draws it).  Sets ``init_image_tensor``: the last init
-        image in [0, 1] on the device, or None."""
+        image in [0, 1] on the device, or None; and ``init_image_rgba_list``:
+        per init image, the image at ``--init_image_alpha`` over the init
+        noise (the animation's frames start from them)."""
         self.init_image_tensor = None
+        self.init_image_rgba_list = []
         if not (args.init_image or args.init_noise):
             return None
         starting = self._init_noise(args)
@@ -290,10 +314,17 @@ class Engine:
             return _uint8_to_unit(starting) * 2 - 1
         from PIL import Image
 
-        last = IM.open_images(args.init_image)[-1]
-        last = IM.to_tensor(last.convert("RGB").resize((self.side_x, self.side_y), Image.LANCZOS))
-        self.init_image_tensor = torch.from_numpy(last).to(self.device)
-        return torch.from_numpy(last) * 2 - 1
+        size = (self.side_x, self.side_y)
+        for init_image in IM.open_images(args.init_image):
+            rgb = IM.to_tensor(init_image.convert("RGB").resize(size, Image.LANCZOS))
+            top = init_image.convert("RGBA").resize(size, Image.LANCZOS)
+            if args.init_image_alpha and args.init_image_alpha >= 0:
+                top.putalpha(args.init_image_alpha)
+            cur = Image.fromarray(starting)
+            cur.paste(top, (0, 0), top)
+            self.init_image_rgba_list.append(cur)
+        self.init_image_tensor = torch.from_numpy(rgb).to(self.device)
+        return torch.from_numpy(rgb) * 2 - 1
 
     def _image_prompt_inputs(self, args, p) -> dict:
         """One perceptor's fixed step inputs on the device: the spot masks at
@@ -384,8 +415,10 @@ class Engine:
         JAX engine's rules): post-step host events (checkin, LR drop,
         checkpoint, display streaming) may fall only on a block's last step,
         and a pre-step event (the overlay) on none of its steps but the
-        first; ``auto_stop``, ``--video`` and a drawer with ``post_step``
-        disable blocking; ``--steps_per_call 1`` forces single steps."""
+        first; under animation a block ends with its frame's ``save_every``
+        span (the frames swap the latent between spans); ``auto_stop``,
+        ``--video`` and a drawer with ``post_step`` disable blocking;
+        ``--steps_per_call 1`` forces single steps."""
         args = self.args
         if getattr(args, "steps_per_call", 0) == 1:
             return 1
@@ -393,7 +426,8 @@ class Engine:
         if args.make_video or args.auto_stop or hasattr(self.drawer, "post_step"):
             return 1
         n = min(n, args.iterations - cur_it)
-        # (animation, which caps a block at its frame's span, is not ported)
+        if self.cur_anim_index is not None:
+            n = min(n, args.save_every - (cur_it % args.save_every))
         if n < 2:
             return 1
         for it in range(cur_it, cur_it + n - 1):  # post-step events: all but the last step
@@ -435,19 +469,25 @@ class Engine:
                                                bank_rows(self.step_cfg, self.args.num_cuts), self.device)
         rows, ints = blk.staging_inputs()
         for s in range(n):
-            pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, rows[s], ints[s])
+            pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, rows[s], ints[s],
+                      anim_index=self._anim_index())
         blk.upload()
         result = blk.run(self.z, self.opt_state, self.lr_scale)
         self.steps_dispatched += n
         self.dispatched_blocks.append((cur_it, n))
         return {"start": cur_it, "n": n, "result": result, "totals": None, "valss": None}
 
+    def _anim_index(self) -> int:
+        return 0 if self.cur_anim_index is None else self.cur_anim_index
+
     def _consume_block(self, cur_it: int):
         """(total, values) of step ``cur_it`` from the dispatched block, or None.
 
         At a block's first step the next block is dispatched, when no host
         event comes between them, before this block's losses (n,) and (n,
-        L) come to the host in one transfer."""
+        L) come to the host in one transfer.  Under animation the next
+        block never starts a frame's span: the span starts with a checkin,
+        so ``_block_size`` gives it one step."""
         b = self._block
         if b is None:
             return None
@@ -482,9 +522,16 @@ class Engine:
         rebuild_opts_when_done = False
 
         if cur_it < args.iterations:
+            if cur_it == 0 and self.init_image_rgba_list and self.cur_anim_index is not None:
+                n = len(self.init_image_rgba_list)
+                self.reapply_from_image(self.init_image_rgba_list[self.cur_anim_index % n])
             if apply_overlay(args, cur_it):
+                if self.cur_anim_index is not None and self.overlay_image_rgba_list:
+                    n = len(self.overlay_image_rgba_list)
+                    self.overlay_image_rgba = self.overlay_image_rgba_list[self.cur_anim_index % n]
                 self.re_average_z()
             buffered = None
+            img = None
             if draws is None:
                 buffered = self._consume_block(cur_it)
                 if buffered is None:
@@ -498,27 +545,34 @@ class Engine:
                 total, values = buffered
             else:
                 batch_draws = self.draw_step() if draws is None else draws
-                inputs = draws_to_inputs(self.step_cfg, batch_draws, cur_it, self.device)
-                total, values, _img = train_step(self.step_cfg, self.optimizer, self.z, self.opt_state,
-                                                 self.lr_scale, inputs)
+                inputs = draws_to_inputs(self.step_cfg, batch_draws, cur_it, self.device,
+                                         anim_index=self._anim_index())
+                total, values, img = train_step(self.step_cfg, self.optimizer, self.z, self.opt_state,
+                                                self.lr_scale, inputs)
                 self.steps_dispatched += 1
             self.last_loss_values = values
 
-            if cur_it in args.learning_rate_drops:
-                print("Dropping learning rate")
-                rebuild_opts_when_done = True
-            else:
-                # read the PREVIOUS step's loss: it is finished by now, so the
-                # host does not wait on the step it just queued
-                if self._pending_loss is not None:
-                    p_it, p_total = self._pending_loss
-                    did_drop = self.tracker.check(p_it, float(p_total))
-                    if args.auto_stop is True:
-                        rebuild_opts_when_done = did_drop
-                self._pending_loss = (cur_it, total)
+            if self.cur_anim_index is None or self.cur_anim_index == 0:
+                if cur_it in args.learning_rate_drops:
+                    print("Dropping learning rate")
+                    rebuild_opts_when_done = True
+                else:
+                    # read the PREVIOUS step's loss: it is finished by now, so the
+                    # host does not wait on the step it just queued
+                    if self._pending_loss is not None:
+                        p_it, p_total = self._pending_loss
+                        did_drop = self.tracker.check(p_it, float(p_total))
+                        if args.auto_stop is True:
+                            rebuild_opts_when_done = did_drop
+                    self._pending_loss = (cur_it, total)
 
             if cur_it % args.save_every == 0:
                 self.checkin(cur_it, values)
+
+            if args.make_video:  # single steps: every step is eager
+                video_folder = os.path.join(args.outdir, "video")
+                os.makedirs(video_folder, exist_ok=True)
+                OUT.save_png(img[..., :3].float().cpu().numpy(), os.path.join(video_folder, f"frame_{cur_it:04d}.png"))
 
         if cur_it == args.iterations:
             self.checkin(cur_it, self.last_loss_values)
@@ -529,6 +583,12 @@ class Engine:
             # in place: a captured block reads the state and the scale where they are
             self.optimizer.reset(self.opt_state)
             self.lr_scale.fill_(1.0 / self.tracker.drop_divisor)
+        ck = args.checkpoint_every
+        if ck and cur_it and cur_it % ck == 0:
+            from pixray_tpu_torch.engine.checkpoint import save_session
+
+            # after the step and its LR drop: the file resumes at the next step
+            save_session(os.path.join(args.outdir, "session.ckpt"), self, iteration=cur_it + 1)
         return True
 
     def synth_image(self):
@@ -547,9 +607,20 @@ class Engine:
         if self.overlay_image_rgba is not None:
             cur.paste(self.overlay_image_rgba, (0, 0), mask=self.overlay_image_rgba)
         cur = cur.resize((self.side_x, self.side_y), Image.LANCZOS)
-        new = self.drawer.params_from_image(torch.from_numpy(IM.to_tensor(cur)).to(self.device) * 2 - 1)
-        for dst, src in zip(leaves(self.z), leaves(new)):
-            dst.copy_(src)
+        _copy_into(self.z, self.drawer.params_from_image(torch.from_numpy(IM.to_tensor(cur)).to(self.device) * 2 - 1))
+
+    @torch.no_grad()
+    def reapply_from_image(self, pil_image):
+        """Encode an image into the latent's own tensors; a drawer without an
+        encoder keeps the latent, as the JAX engine does."""
+        from PIL import Image
+
+        pil_image = pil_image.convert("RGB").resize((self.side_x, self.side_y), Image.LANCZOS)
+        try:
+            new = self.drawer.params_from_image(torch.from_numpy(IM.to_tensor(pil_image)).to(self.device) * 2 - 1)
+        except NotImplementedError:
+            return
+        _copy_into(self.z, new)
 
     @torch.no_grad()
     def synth_array(self) -> np.ndarray:
@@ -566,30 +637,51 @@ class Engine:
             writestr = f"iter: {it}, loss: {vals.sum():1.3g}, losses: {losses_str}"
         else:
             writestr = f"iter: {it}, finished"
-        stale = it - self.tracker.best_iter
-        writestr = f"{writestr} (-{stale}=>{self.tracker.best_loss:2.4g})"
+        if self.cur_anim_index is not None:
+            writestr = f"anim: {self.cur_anim_index}/{len(self.anim_output_files)} {writestr}"
+            outfile = self.anim_output_files[self.cur_anim_index]
+        else:
+            stale = it - self.tracker.best_iter
+            writestr = f"{writestr} (-{stale}=>{self.tracker.best_loss:2.4g})"
+            outfile = get_file_path(args.outdir, args.output, ".png")
         arr = self.synth_array()
-        outfile = get_file_path(args.outdir, args.output, ".png")
         OUT.save_png(arr, outfile, OUT.png_text(args.given_args, self.seed_used))
         if args.save_intermediates:
             step_path = os.path.join(args.outdir, "steps")
             os.makedirs(step_path, exist_ok=True)
             OUT.save_png(arr, get_file_path(step_path, f"frame_{it:04d}", ".png"))
+        if self.cur_anim_index is not None and self.cur_anim_index == len(self.anim_output_files) - 1:
+            OUT.make_gif(args.animation_dir)
         print(writestr)
 
-    def run(self) -> bool:
+    def run(self, return_display: bool = False) -> bool:
         """Train until ``iterations`` (the final checkin included), or until
-        interrupted; then the step video and the SVG."""
+        interrupted; then the videos and the SVG.  True when the run is
+        complete; with ``return_display``, False every ``display_every``
+        steps, to be called again for the rest (the caller streams partial
+        results).  ``--animation_dir`` runs the animation ring instead."""
+        from pixray_tpu_torch.engine.profiling import device_trace
+
         args = self.args
+        # a block must end at a display step when the caller streams them
+        self._display_streaming = return_display
+        if args.animation_dir is not None:
+            return self._run_animation()
+        profile_dir = args.profile_dir if self.cur_iteration == 0 else None
         try:
-            keep_going = True
-            while keep_going:
-                keep_going = self.train(self.cur_iteration)
-                if self.cur_iteration == args.iterations:
-                    break
-                self.cur_iteration += 1
+            with device_trace(profile_dir, self.device, "(start of run)"):
+                keep_going = True
+                while keep_going:
+                    keep_going = self.train(self.cur_iteration)
+                    if self.cur_iteration == args.iterations:
+                        break
+                    self.cur_iteration += 1
+                    if keep_going and return_display and self.cur_iteration % args.display_every == 0:
+                        return False
         except KeyboardInterrupt:
             pass
+        if args.make_video:
+            OUT.do_video(args, self.cur_iteration)
         if args.save_intermediates:
             OUT.step_to_video(args)
         if args.save_svg:
@@ -607,6 +699,82 @@ class Engine:
             f.write(to_svg(self.z))
         print(f"saved {outfile}")
         return outfile
+
+    # ------------------------------------------------------------------ animation
+    def _anim_filelist(self) -> list[str]:
+        """The animation's frame files: the first of the overlay, target,
+        init and prompt image lists, or a later one that is longer."""
+        args = self.args
+        filelist: list[str] = []
+        source = None
+
+        def consider(cur_source, cur_list):
+            nonlocal source, filelist
+            if source is None:
+                print(f"==> setting animation filelist to {cur_source} ({len(cur_list)} files)")
+                source, filelist = cur_source, cur_list
+            elif len(cur_list) > len(filelist):
+                print(f"==> anim filelist {cur_source} has {len(cur_list)} files - switching")
+                source, filelist = cur_source, cur_list
+            else:
+                print(f"==> anim filelist {cur_source} not larger - sticking with {source}")
+
+        if args.overlay_image is not None:
+            consider("overlay_images", real_glob(args.overlay_image))
+        if args.target_images:
+            files = []
+            for t in args.target_images:
+                f1, _w, _s = parse_prompt(t)
+                files.extend(real_glob(f1))
+            consider("target_images", files)
+        if args.init_image is not None:
+            consider("init_images", real_glob(args.init_image))
+        if args.image_prompts:
+            consider("image_prompts", list(args.image_prompts))
+        return filelist
+
+    def _run_animation(self) -> bool:
+        """Rounds of ``save_every`` steps per frame, each frame from its own
+        latent, with the previous frame blended in between rounds."""
+        args = self.args
+        os.makedirs(args.animation_dir, exist_ok=True)
+        filelist = self._anim_filelist()
+        num_frames = len(filelist)
+        self.anim_output_files = [os.path.join(args.animation_dir, os.path.basename(f)) for f in filelist]
+        self.anim_cur_zs = [tree_map(torch.clone, self.z) for _ in range(num_frames)]
+
+        step_iteration = 0
+        while True:
+            cur_images = []
+            for i in range(num_frames):
+                self.cur_anim_index = i
+                self.cur_iteration = step_iteration
+                _copy_into(self.z, self.anim_cur_zs[i])
+                for _ in range(args.save_every):
+                    self.train(self.cur_iteration)
+                    self.cur_iteration += 1
+                _copy_into(self.anim_cur_zs[i], self.z)
+                cur_images.append(self.synth_image())
+            step_iteration += args.save_every
+            if step_iteration >= args.iterations:
+                break
+            for i in range(num_frames):  # blend each frame with the one before it
+                prev_i = (i + num_frames - 1) % num_frames
+                base = cur_images[i].copy().convert("RGB")
+                prev = cur_images[prev_i].copy().convert("RGBA")
+                prev.putalpha(args.animation_alpha)
+                base.paste(prev, (0, 0), prev)
+                self.reapply_from_image(base)
+                _copy_into(self.anim_cur_zs[i], self.z)
+        return True
+
+
+@torch.no_grad()
+def _copy_into(dst, src):
+    """Copy the tree ``src`` into the tensors of ``dst`` (the latent's: a
+    captured block reads them where they are)."""
+    for d, s in zip(leaves(dst), leaves(src)):
+        d.copy_(s)
 
 
 def _uint8_to_unit(arr: np.ndarray) -> torch.Tensor:

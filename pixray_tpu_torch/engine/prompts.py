@@ -1,7 +1,8 @@
 """Prompt embedding tables and the batched spherical prompt loss (port of
 ``pixray_tpu/engine/prompts.py``): target images, text, vector, label and
 noise prompts in the main table; spot and spot_off text prompts in their
-own.
+own; under ``--animation_dir`` the target images in a table of their own,
+one row per animation frame.
 
 For an image-embedding batch ``iii`` and each table row:
 
@@ -100,11 +101,12 @@ def find_vector_file(name: str):
 
 
 def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None):
-    """(tables, spot_tables, spot_off_tables), each a {perceptor name:
-    PromptTable}.
+    """(tables, spot_tables, spot_off_tables, target_tables), each a
+    {perceptor name: PromptTable}.
 
     The main table's rows in order: the target images (``(path, weight,
-    stop)`` in ``target_image_paths``, each encoded once), the text prompts
+    stop)`` in ``target_image_paths``, each encoded once; under
+    ``args.animation_dir`` they fill the target table instead), the text prompts
     ('=' prefix pools the text features at the last content token), the
     vector prompts (stored embeddings, weights scaled by 0.1), the labels
     (the normalized mean of ``IMAGENET_TEMPLATES``), then the noise prompts
@@ -112,13 +114,15 @@ def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None)
     rows = {p.name: [] for p in perceptors}
     spot_rows = {p.name: [] for p in perceptors}
     spot_off_rows = {p.name: [] for p in perceptors}
+    target_rows = {p.name: [] for p in perceptors}
 
     for p in perceptors:
         for path, weight, stop in target_image_paths or []:
             from pixray_tpu_torch.io.images import load_image_for_perceptor
 
             img = load_image_for_perceptor(path, p.input_resolution)
-            rows[p.name].append((p.encode_image(img[None]).cpu().numpy(), weight, stop))
+            out = rows if args.animation_dir is None else target_rows
+            out[p.name].append((p.encode_image(img[None]).cpu().numpy(), weight, stop))
 
     for prompt in args.prompts or []:
         txt, weight, stop = parse_prompt(prompt)
@@ -168,4 +172,4 @@ def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None)
     def tables(rdict):
         return {p.name: PromptTable.from_rows(rdict[p.name], p.output_dim, device) for p in perceptors}
 
-    return tables(rows), tables(spot_rows), tables(spot_off_rows)
+    return tables(rows), tables(spot_rows), tables(spot_off_rows), tables(target_rows)

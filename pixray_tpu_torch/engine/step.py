@@ -3,11 +3,12 @@ and ``build_multi_step`` in ``pixray_tpu/engine/step.py``, for the terms
 the ported slices have).
 
     synth → filters → [flatten alpha] → per perceptor: pool → cutouts →
-    encode → prompt losses, + the spot / spot_off banks (the masked work
-    canvas) and the image-prompt banks (each prompt image, pooled once per
-    run) on the main cuts' geometry;  + image-label, init-weight and
-    transparency terms, then the custom losses;  then grad → Adam → LR
-    scale → drawer clamp.
+    encode → prompt losses (+ the animation frame's target row), + the
+    spot / spot_off banks (the masked work canvas) and the image-prompt
+    banks (each prompt image, pooled once per run; under animation one
+    bank, of the frame's image) on the main cuts' geometry;  +
+    image-label, init-weight and transparency terms, then the custom
+    losses;  then grad → optimizer → LR scale → drawer clamp.
 
 Random draws of a step come in a ``draws`` dict (see :func:`pack_step`),
 so a caller can replay another implementation's draws.  The host packs
@@ -16,8 +17,10 @@ block of parameter rows for all the perceptors' banks (per perceptor its
 main bank, then its spot, spot_off and image-prompt banks;
 ``cutouts.pack_cutouts``: the cut geometry, the padding mode of the
 step's parity, jitter, noise factor and the fill), then an int32 tail of
-the iteration and each batch's filter shifts; and the noise planes.  The
-step itself reads only those and device state, so it runs as one captured
+the iteration, the animation frame's index and each batch's filter
+shifts; and the noise planes.  The step itself reads only those and
+device state (the frame's image prompt and target row are picked from
+tensors stacked once per run by that index), so it runs as one captured
 CUDA graph: :class:`StepBlock` holds the inputs of ``n`` steps at fixed
 addresses and runs the ``n`` steps as one replay (the counterpart of the
 JAX package's ``lax.scan`` block).  The latent
@@ -31,6 +34,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import gc
 import time
 
 import torch
@@ -56,6 +60,8 @@ class PerceptorSpec:
     spot_keep_off: Any = None
     image_prompts: Any = None  # (K, S, S, 3) prompt images pooled to the work canvas, or None
     image_prompt_weight: float | None = None
+    target_table: PromptTable | None = None  # the animation's target images, one row per frame
+    image_prompt_frame: bool = False  # animation: one image-prompt bank, of the frame's image
 
     @property
     def spot_banks(self) -> tuple[bool, bool]:
@@ -64,7 +70,10 @@ class PerceptorSpec:
 
     @property
     def n_image_prompts(self) -> int:
-        return 0 if self.image_prompts is None else int(self.image_prompts.shape[0])
+        """Image-prompt banks per step: one per prompt image, or under animation the frame's one."""
+        if self.image_prompts is None:
+            return 0
+        return 1 if self.image_prompt_frame else int(self.image_prompts.shape[0])
 
     @property
     def banks(self) -> int:
@@ -108,28 +117,29 @@ def bank_rows(cfg: StepConfig, num_cuts: int) -> list[int]:
 
 def input_sizes(cfg: StepConfig, cut_counts):
     """(float32 words of one step's parameter rows, int32 words of its tail:
-    the iteration, then (batches, filters, 2) shifts); ``cut_counts``: rows
-    per perceptor (:func:`bank_rows`)."""
-    return cfg.batches * sum(cut_counts) * PARAM_STRIDE, 1 + cfg.batches * len(cfg.filters) * 2
+    the iteration, the animation frame's index, then (batches, filters, 2)
+    shifts); ``cut_counts``: rows per perceptor (:func:`bank_rows`)."""
+    return cfg.batches * sum(cut_counts) * PARAM_STRIDE, 2 + cfg.batches * len(cfg.filters) * 2
 
 
 def split_inputs(cfg: StepConfig, buf, cut_counts):
     """Views of a (..., rows + tail) float32 step buffer: the rows (...,
-    batches, R, PARAM_STRIDE) and the int32 tail (..., 1 + batches * filters * 2)."""
+    batches, R, PARAM_STRIDE) and the int32 tail (..., 2 + batches * filters * 2)."""
     n_rows, _ = input_sizes(cfg, cut_counts)
     lead = tuple(buf.shape[:-1])
     rows = buf[..., :n_rows].view(*lead, cfg.batches, sum(cut_counts), PARAM_STRIDE)
     return rows, buf[..., n_rows:].view(torch.int32)
 
 
-def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows, out_ints):
+def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows, out_ints, anim_index: int = 0):
     """Pack one step's draws into its host inputs: the parameter rows
     ``out_rows`` (batches, sum of the banks' cut counts, PARAM_STRIDE), per
     batch each perceptor's banks in turn (``cutouts.draw_banks``: the main
     bank, then spot, spot_off and the image prompts, which carry the main
     cuts' inverses, modes and fill, no jitter and their own noise factors),
     every row carrying the batch's fill; and the int32 tail ``out_ints``:
-    the iteration, then each batch's filter shifts.
+    the iteration, the animation frame's index, then each batch's filter
+    shifts.
 
     batch_draws: one dict per batch, {"fill": float, "filters": [(rand_h,
     rand_w) per filter] (absent without filters), "perceptors": [per
@@ -139,8 +149,8 @@ def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows
     by reflection on even iterations."""
     if len(batch_draws) != cfg.batches:
         raise ValueError(f"{len(batch_draws)} draws for {cfg.batches} batches")
-    out_ints[0] = iteration
-    shifts = out_ints[1:].view(cfg.batches, len(cfg.filters), 2)
+    out_ints[0], out_ints[1] = iteration, anim_index
+    shifts = out_ints[2:].view(cfg.batches, len(cfg.filters), 2)
     for b, draws in enumerate(batch_draws):
         off = 0
         for pd in draws["perceptors"]:
@@ -160,33 +170,33 @@ def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows
 
 
 def step_inputs(cfg: StepConfig, buf, planes, cut_counts):
-    """The step's inputs, per batch {"fill", "iteration": () tensors,
-    "filters": (filters, 2) int32, "perceptors": [per perceptor {"params":
+    """The step's inputs, per batch {"fill", "iteration", "anim_index": ()
+    tensors, "filters": (filters, 2) int32, "perceptors": [per perceptor {"params":
     (R, PARAM_STRIDE), "planes": three (R, S, S) or None}]}, as views of
     the step's buffer ``buf`` on the step's device and of ``planes`` (per
     batch, per perceptor); ``cut_counts``: rows R per perceptor, bank
     after bank."""
     rows, ints = split_inputs(cfg, buf, cut_counts)
-    shifts = ints[1:].view(cfg.batches, len(cfg.filters), 2)
+    shifts = ints[2:].view(cfg.batches, len(cfg.filters), 2)
     out = []
     for b, batch_planes in enumerate(planes):
         off, perceptors = 0, []
         for zs, n in zip(batch_planes, cut_counts):
             perceptors.append({"params": rows[b, off:off + n], "planes": zs})
             off += n
-        out.append({"fill": unpack_params(rows[b])["fill"][0], "iteration": ints[0], "filters": shifts[b],
-                    "perceptors": perceptors})
+        out.append({"fill": unpack_params(rows[b])["fill"][0], "iteration": ints[0], "anim_index": ints[1],
+                    "filters": shifts[b], "perceptors": perceptors})
     return out
 
 
-def draws_to_inputs(cfg: StepConfig, batch_draws: list[dict], iteration: int, device):
+def draws_to_inputs(cfg: StepConfig, batch_draws: list[dict], iteration: int, device, anim_index: int = 0):
     """One eager step's inputs from its draws: packed on the host (pinned
     for the card) and copied to ``device`` in one copy; the draws' own
     planes (a perceptor's banks' planes concatenated)."""
     cuts = [sum(t.shape[0] for bank in C.draw_banks(pd) for t in bank[0]) for pd in batch_draws[0]["perceptors"]]
     buf = torch.zeros((sum(input_sizes(cfg, cuts)),), dtype=torch.float32,
                       pin_memory=torch.device(device).type == "cuda")
-    pack_step(cfg, batch_draws, iteration, *split_inputs(cfg, buf, cuts))
+    pack_step(cfg, batch_draws, iteration, *split_inputs(cfg, buf, cuts), anim_index=anim_index)
 
     def planes(pd):
         if pd["noise"] is None:
@@ -243,6 +253,11 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
         pl = prompt_losses(iii, spec.table)
         for i in range(spec.table.size):
             add(f"{spec.name}:prompt{i}", pl[i])
+        if spec.target_table is not None and spec.target_table.size:
+            # the frame's row, picked on the device (index_select: indexing by
+            # a () tensor syncs, which a captured block may not do)
+            frame = torch.remainder(inputs["anim_index"], spec.target_table.size).long().view(1)
+            add(f"{spec.name}:target_frame", prompt_losses(iii, spec.target_table).index_select(0, frame)[0])
         for kind, on, keep, table in (("spot", spec.spot_banks[0], spec.spot_keep_on, spec.spot_table),
                                       ("spot_off", spec.spot_banks[1], spec.spot_keep_off, spec.spot_off_table)):
             if on:
@@ -250,10 +265,15 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
                 for i in range(table.size):
                     add(f"{spec.name}:{kind}{i}", sl[i])
         weight = 1.0 if spec.image_prompt_weight is None else spec.image_prompt_weight
-        for k in range(spec.n_image_prompts):
+        if spec.image_prompt_frame and spec.n_image_prompts:
+            frame = torch.remainder(inputs["anim_index"], spec.image_prompts.shape[0]).long().view(1)
+            prompt_images = [(spec.image_prompts.index_select(0, frame)[0], "image_prompt_frame")]
+        else:
+            prompt_images = [(spec.image_prompts[k], f"image_prompt{k}") for k in range(spec.n_image_prompts)]
+        for prompt_image, name in prompt_images:
             with torch.no_grad():  # a constant image: one forward-only K1 launch
-                embed = spec.image_fn(bank(spec.image_prompts[k]))
-            add(f"{spec.name}:image_prompt{k}", single_prompt_loss(iii, embed, weight))
+                embed = spec.image_fn(bank(prompt_image))
+            add(f"{spec.name}:{name}", single_prompt_loss(iii, embed, weight))
 
     if cfg.z_labels or cfg.init_weight or cfg.init_weight_dist or cfg.init_weight_cos:
         z_flat, z0 = ravel(z), cfg.z_orig_flat
@@ -322,7 +342,7 @@ def train_step(cfg: StepConfig, optimizer, z, opt_state, lr_scale, inputs: list[
     Returns (total, values, img)."""
     grads, first = inputs_loss_and_grads(cfg, z, inputs)
     with torch.no_grad():
-        updates, _ = optimizer.update(grads, opt_state)
+        updates, _ = optimizer.update(grads, opt_state, z)
         new = cfg.drawer.clip_params(tree_map(lambda p, u: p.detach() + u * lr_scale, z, updates))
         for dst, src in zip(leaves(z), leaves(new)):
             dst.copy_(src)
@@ -358,7 +378,9 @@ class StepBlock:
     Adam, LR scale, clamp) into one CUDA graph at its first call, after one
     warm-up step on a side stream that writes copies of the latent and the
     optimizer state, and then each block is one replay, which writes the
-    latent and the state in place.  A capture that fails raises.  The launch
+    latent and the state in place.  Garbage collection is held off during
+    the capture (collecting an unreachable engine would destroy its graph
+    inside it).  A capture that fails raises.  The launch
     counters move by what the capture recorded at each replay (the capture
     itself launches nothing).  On the CPU a block is ``n`` eager steps from
     the same inputs."""
@@ -447,6 +469,11 @@ class StepBlock:
         self.values = torch.zeros((self.n, values.numel()), dtype=values.dtype, device=self.device)
         before = [dict(counter) for counter in LAUNCH_COUNTERS]
         graph = torch.cuda.CUDAGraph()
+        # no garbage collection inside the capture: collecting an unreachable
+        # engine destroys its graph, a call the capture may not see
+        gc.collect()
+        gc_was_enabled = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph):
                 for s in range(self.n):
@@ -456,6 +483,8 @@ class StepBlock:
         except Exception as exc:
             raise RuntimeError(f"capturing the {self.n}-step block into a CUDA graph failed: {exc}") from exc
         finally:
+            if gc_was_enabled:
+                gc.enable()
             self.launches = [{k: counter[k] - b[k] for k in counter}
                              for counter, b in zip(LAUNCH_COUNTERS, before)]
             for counter, b in zip(LAUNCH_COUNTERS, before):

@@ -1,6 +1,8 @@
 """Checkin PNG with ``pixray_*`` provenance text chunks, written with zlib +
-struct, and the step video of the checkin frames (port of
-``pixray_tpu/io/output.py``'s ``step_to_video`` / ``encode_frames_to_mp4``).
+struct, the step video of the checkin frames, the per-step video of
+``--make_video`` and the animation's GIF (port of
+``pixray_tpu/io/output.py``'s ``step_to_video``, ``do_video``,
+``encode_frames_to_mp4`` and ``make_gif``).
 
 The PNG carries the same metadata as ``pixray_tpu/utils/provenance.py``
 (``Software``, one ``pixray_<setting>`` chunk per non-default setting,
@@ -8,7 +10,8 @@ The PNG carries the same metadata as ``pixray_tpu/utils/provenance.py``
 The video tries the JAX package's backends in its order: the ``ffmpeg``
 binary on PATH (fed the frames' PNG files), then ``imageio`` if it imports
 and can write the MP4, else a GIF with the same warning, through PIL,
-imported only there.
+imported only there.  ``make_gif`` runs ffmpeg where it is on PATH, else
+PIL, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ import zlib
 from functools import lru_cache
 
 import numpy as np
+
+from pixray_tpu_torch.utils import get_file_path
 
 FALLBACK_VERSION = "v0.1.0+torch"
 
@@ -134,3 +139,37 @@ def step_to_video(args):
     if not frame_paths:
         return
     encode_frames_to_mp4(frame_paths, os.path.join(step_folder, "output.mp4"), _clip_fps(len(frame_paths)))
+
+
+def do_video(args, last_iteration: int):
+    """``--make_video``'s per-step frames ``video/frame_NNNN.png`` (1 to
+    ``last_iteration`` - 1) → ``<output>.mp4`` in the outdir (or the GIF)."""
+    video_folder = os.path.join(args.outdir, "video")
+    frame_paths = [os.path.join(video_folder, f"frame_{i:04d}.png") for i in range(1, last_iteration)]
+    if not frame_paths:
+        return
+    output_file = get_file_path(args.outdir, args.output, ".mp4")
+    encode_frames_to_mp4(frame_paths, output_file, _clip_fps(len(frame_paths)), comment=str(args.prompts))
+
+
+def make_gif(animation_dir: str, fps: int = 10) -> str:
+    """The animation's frame PNGs ``animation_dir/*.png`` → ``anim.gif`` there."""
+    gif_output = os.path.join(animation_dir, "anim.gif")
+    if os.path.exists(gif_output):
+        os.remove(gif_output)
+    frames = sorted(glob.glob(os.path.join(animation_dir, "*.png")))
+    if not frames:
+        return gif_output
+    if shutil.which("ffmpeg") is not None:
+        cmd = ["ffmpeg", "-framerate", str(fps), "-pattern_type", "glob",
+               "-i", f"{animation_dir}/*.png", "-loop", "0", gif_output]
+        try:
+            subprocess.check_output(cmd)
+        except subprocess.CalledProcessError as cpe:
+            print("Ignoring non-zero exit: ", cpe.output)
+    else:
+        from PIL import Image
+
+        images = [Image.open(f).convert("RGB") for f in frames]
+        images[0].save(gif_output, save_all=True, append_images=images[1:], duration=int(1000 / fps), loop=0)
+    return gif_output

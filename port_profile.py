@@ -1,13 +1,18 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's step on one NVIDIA GPU, row by row.
 
-    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft,image]
+    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft,image,anim]
 
 (``--rows ""`` measures no row; a tree without the fft drawer takes
 ``--rows pixel,clipdraw,vqgan``, one without the image inputs
-``--rows pixel,clipdraw,vqgan,fft``.)  The image row is the pixel row with
+``--rows pixel,clipdraw,vqgan,fft``, one without the animation ring
+``--rows pixel,clipdraw,vqgan,fft,image``.)  The image row is the pixel row with
 ``chip_smoke.py``'s image inputs (an init image, an image prompt, spot and
-spot_off prompts, a target image and a label, PNGs written per row).
+spot_off prompts, a target image and a label, PNGs written per row).  The
+anim row is the pixel row with ``chip_smoke.py``'s animation inputs (3
+frames: the init, image-prompt and target globs), its step as frame 0's
+(the frame's target row and forward-only image-prompt bank), without the
+frame spans' checkins (``save_every`` as the pixel row's).
 
 ``--root`` imports ``pixray_tpu_torch`` from another checkout (default:
 this one), so that two trees are measured in one call on one card, in
@@ -313,7 +318,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pixray_tpu_torch is measured")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft,image")
+    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft,image,anim")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -342,8 +347,12 @@ def main():
     for row in filter(None, args.rows.split(",")):
         for blocked in modes:
             with tempfile.TemporaryDirectory() as tmp:
-                config = (dict(cs.PIXEL_CONFIG, **cs.image_extra(cs.write_images(tmp))) if row == "image"
-                          else configs[row])
+                if row == "image":
+                    config = dict(cs.PIXEL_CONFIG, **cs.image_extra(cs.write_images(tmp)))
+                elif row == "anim":
+                    config = {**cs.PIXEL_CONFIG, **cs.anim_extra(tmp), "save_every": cs.PIXEL_CONFIG["save_every"]}
+                else:
+                    config = configs[row]
                 out["rows"].append(profile_row(cs, row, config, tmp, blocked))
             torch.cuda.empty_cache()
     line = json.dumps(out)

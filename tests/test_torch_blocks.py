@@ -48,6 +48,9 @@ from pixray_tpu_torch.engine.latent import leaves
 from pixray_tpu_torch.engine.optimizers import Adam, PerGroupAdam, state_tensors
 from pixray_tpu_torch.ops import cuda_warp
 from pixray_tpu_torch.ops.warp_batch import warp_modes_plain
+from torch_parity import jax_perceptor_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
 
 
 # ------------------------------------------------------------------ scheduling

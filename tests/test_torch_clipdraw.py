@@ -37,6 +37,9 @@ from pixray_tpu_torch.engine.latent import ravel, tree_map
 from pixray_tpu_torch.engine.step import loss_and_grads
 from pixray_tpu_torch.models.clip.bridge import state_dict_from_flax
 from test_torch_engine import _jax_step_draws
+from torch_parity import jax_perceptor_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
 
 DRAWERS = {
     "clipdraw": (JClipDrawer, ClipDrawer,

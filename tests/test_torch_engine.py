@@ -26,6 +26,9 @@ from pixray_tpu_torch.config import apply_settings
 from pixray_tpu_torch.engine.core import Engine, resolve_seed
 from pixray_tpu_torch.engine.optimizers import build_optimizer, set_learning_rate
 from pixray_tpu_torch.models.clip.bridge import state_dict_from_flax
+from torch_parity import jax_perceptor_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
 
 SLICE = dict(
     drawer="pixel", prompts="sunrise", clip_models="TinyTest", size=[96, 54], num_cuts=8,

@@ -36,6 +36,9 @@ from pixray_tpu_torch.models.clip.bridge import state_dict_from_flax
 from pixray_tpu_torch.models.vqgan import VQGAN_CONFIGS, state_dict_from_flax_vqgan
 from test_torch_engine import _jax_perceptor_draws
 from test_torch_vqgan import _assert_same_codes, _taming_weights
+from torch_parity import jax_perceptor_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
 
 
 def write_png(path, shape, mode, seed, alpha=None):

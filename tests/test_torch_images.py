@@ -29,6 +29,9 @@ from pixray_tpu_torch.drawers.pixel import PixelDrawer
 from pixray_tpu_torch.engine.core import Engine
 from pixray_tpu_torch.io import images as IM
 from pixray_tpu_torch.utils import noise
+from torch_parity import jax_perceptor_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -15,7 +15,12 @@ with custom losses, and fast_pixel under lookup and tiler with the other
 losses and a palette of colour names.  Then the image slice (PIL allowed,
 the rest refused), blocked: an init image, an overlay, image prompts,
 spot prompts, a target image, labels and an image label on the vqgan
-drawer; the runs above, without images, import no PIL.
+drawer; the runs above, without images, import no PIL.  Then the rest of
+the engine: AdamP under ``--checkpoint_every`` and ``--profile_dir``,
+streamed (``do_run(settings, return_display=True)`` until it returns
+True), and a second run resumed from its checkpoint; ``--make_video``
+(PIL allowed for the GIF, imageio refused); the animation ring over init,
+prompt and target image globs (PIL allowed).
 """
 
 import os
@@ -49,7 +54,8 @@ SCRIPT = textwrap.dedent("""
                                     vector_prompts="none"), **DRAWER))
     settings = pixray.apply_settings()
     pixray.do_init(settings, device="cpu")
-    assert pixray.do_run(settings)
+    while not pixray.do_run(settings, return_display=STREAM):
+        pass
     assert (pixray.get_engine().step_block is not None) == EXPECT_BLOCK
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not loaded, loaded
@@ -60,16 +66,19 @@ SCRIPT = textwrap.dedent("""
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "chex", "pixray_tpu", "PIL", "yaml", "regex", "ftfy", "matplotlib")
 
 
-def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False):
+def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False, stream=False, final_checkin=True):
     outdir = str(tmp_path / "run")
     env = dict(os.environ, PYTHONPATH=REPO)
-    head = f"OUTDIR = {outdir!r}\nDRAWER = {drawer!r}\nBLOCKED = {blocked!r}\nEXPECT_BLOCK = {expect_block!r}\n"
+    head = (f"OUTDIR = {outdir!r}\nDRAWER = {drawer!r}\nBLOCKED = {blocked!r}\nEXPECT_BLOCK = {expect_block!r}\n"
+            f"STREAM = {stream!r}\n")
     proc = subprocess.run(
         [sys.executable, "-c", head + SCRIPT],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "NO_JAX_OK" in proc.stdout
+    if not final_checkin:  # the animation writes its frames' PNGs instead
+        return outdir, proc.stdout
     assert f"iter: {drawer.get('iterations', 2)}" in proc.stdout  # the final checkin
     with open(os.path.join(outdir, "output.png"), "rb") as f:
         assert f.read(8) == b"\x89PNG\r\n\x1a\n"
@@ -132,3 +141,39 @@ def test_image_slice_runs_without_jax(tmp_path):
         spot_prompts="a face", spot_prompts_off="sky", target_images=paths["target"], labels="fox",
         image_labels=paths["init"]), blocked=blocked, expect_block=True)
     assert "Using image prompts" in stdout and "Using initial image" in stdout
+
+
+def test_optimizer_checkpoint_trace_and_resume_without_jax(tmp_path):
+    (tmp_path / "a").mkdir()
+    (tmp_path / "b").mkdir()
+    first, stdout = _run_blocked(tmp_path / "a", dict(drawer="pixel", optimiser="AdamP", iterations=4,
+                                                      checkpoint_every=2, display_every=2,
+                                                      profile_dir=str(tmp_path / "prof")), stream=True)
+    assert os.listdir(tmp_path / "prof") == ["trace.json"] and "wrote torch profiler trace" in stdout
+    ckpt = os.path.join(first, "session.ckpt")
+    _, stdout = _run_blocked(tmp_path / "b", dict(drawer="pixel", optimiser="AdamP", iterations=4, resume_from=ckpt))
+    assert "Resumed session from" in stdout and "at iteration 3" in stdout
+
+
+def test_make_video_without_jax(tmp_path):
+    blocked = tuple(m for m in BLOCKED if m != "PIL") + ("imageio",)
+    outdir, stdout = _run_blocked(tmp_path, dict(drawer="pixel", iterations=4, make_video=True), blocked=blocked)
+    assert sorted(os.listdir(os.path.join(outdir, "video"))) == [f"frame_{i:04d}.png" for i in range(4)]
+    assert os.path.exists(os.path.join(outdir, "output.gif")) and "WARNING: no MP4 encoder available" in stdout
+
+
+def test_animation_without_jax(tmp_path):
+    from PIL import Image
+
+    for kind in ("init", "prompt", "target"):
+        for i in range(2):
+            arr = np.random.default_rng(i).integers(0, 256, (30, 40, 3), dtype=np.uint8)
+            Image.fromarray(arr).save(tmp_path / f"{kind}{i}.png")
+    blocked = tuple(m for m in BLOCKED if m != "PIL")
+    anim = str(tmp_path / "anim")
+    _, stdout = _run_blocked(tmp_path, dict(
+        drawer="pixel", iterations=4, save_every=2, animation_dir=anim, init_image=str(tmp_path / "init*.png"),
+        image_prompts=str(tmp_path / "prompt*.png"), target_images=str(tmp_path / "target*.png")),
+        blocked=blocked, final_checkin=False)
+    assert sorted(os.listdir(anim)) == ["anim.gif", "target0.png", "target1.png"]
+    assert "anim: 1/2 iter: 2" in stdout

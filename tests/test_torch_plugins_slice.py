@@ -43,6 +43,9 @@ from pixray_tpu_torch.models.clip.bridge import state_dict_from_flax
 from pixray_tpu_torch.ops import cuda_warp
 from test_torch_engine import _jax_perceptor_draws
 from test_torch_filters import jax_filter_draws
+from torch_parity import jax_perceptor_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -70,6 +70,9 @@ CASES = {
     "spots": dict(prompts=["sunrise"], spot_prompts=["a face", "eyes:2"], spot_prompts_off=["sky:0.5:-1"]),
     "labels": dict(prompts=["sunrise"], labels=["fox", "red barn:0.3"]),
     "noise": dict(prompts=["sunrise"], noise_prompt_seeds=[3, 11], noise_prompt_weights=[0.5, -0.25]),
+    # under animation the target images fill the target table, one row per frame
+    "animation_targets": dict(prompts=["sunrise"], targets=[(0, 1.0, float("-inf")), (1, 0.5, -0.2)],
+                              animation_dir="anim"),
 }
 
 
@@ -81,13 +84,15 @@ def test_prompt_tables_match_jax(towers, pngs, case):
     args = _args(**kw)
     ref = j_tables(args, ref_p, target_image_paths=targets)
     port = build_prompt_tables(args, port_p, target_image_paths=targets)
-    assert len(port) == 3 and len(ref) == 5
-    for got, want in zip(port, ref[:3]):
+    assert len(port) == 4 and len(ref) == 5
+    for got, want in zip(port, ref[:4]):
         _assert_tables_equal(got, want, atol=1e-4)
-    # JAX's animation target table and clip_embed: empty and None without animation or a vdiff drawer
-    assert all(t.size == 0 for t in ref[3].values()) and ref[4] is None
+    # the animation's target table: its targets' rows, empty without animation; JAX's clip_embed: None
+    # without a vdiff drawer
+    frames = len(targets or []) if kw.get("animation_dir") else 0
+    assert all(t.size == frames for t in port[3].values()) and ref[4] is None
     main = port[0]
-    rows = len(kw.get("prompts", [])) + len(targets or []) + len(kw.get("labels", []))
+    rows = len(kw.get("prompts", [])) + len(targets or []) - frames + len(kw.get("labels", []))
     assert main["TinyTest"].size == rows
     # noise prompts are rows of the last perceptor only
     assert main["TinyTest48"].size == rows + len(kw.get("noise_prompt_seeds", []))

@@ -26,6 +26,7 @@ import json
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from pixray_tpu.config import apply_settings as j_apply_settings
@@ -36,6 +37,9 @@ from pixray_tpu_torch.models.clip.bridge import state_dict_from_flax
 from pixray_tpu_torch.models.vqgan import VQGAN_CONFIGS, state_dict_from_flax_vqgan
 from test_torch_engine import _jax_step_draws
 from test_torch_vqgan import _assert_same_codes, _taming_weights
+from torch_parity import jax_perceptor_cache  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
 
 SLICE = dict(
     drawer="vqgan", vqgan_model="tiny_test", prompts="sunrise", clip_models="TinyTest,TinyTest48",
