@@ -41,10 +41,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    moved off the canvas (the background back bitwise, zero stroke
    gradients, dbg == g); kernel times, plain times and bounds for
    clipdraw, line_sketch and off-canvas (the walk alone);
+4b. bank kernels at the ResNet towers' cut sizes: 12 and 64 cuts of 288
+   (RN50x4) and 64 of 384 (RN50x16), each under 3b's gates and timed
+   beside the plain composition and grid_sample, with K2's count of blocks
+   in each accumulation branch;
 5. agreement: TinyTest pixel and clipdraw runs, and a tiny_test VQGAN
    under TinyTest + TinyTest48, on the card against the same runs on the
    CPU (plain versions), same latent, weights and draws, per-step losses;
-5b. blocked: the pixel, clipdraw and vqgan rows with --steps_per_call 8
+   likewise the plug-ins, and a tiny ModifiedResNet (32 px), a tiny timm
+   trunk (48 px) and TinyTest in one pixel run (the tiny configs put into
+   the port's tables for that phase only);
+5b. blocked: the pixel, clipdraw, vqgan and RN50 rows (and
+   tiler_fft_shift's filter) with --steps_per_call 8
    against 1, from one seed, 16 steps after step 0 (vqgan 8): the first
    replayed step of each block bitwise an eager step from the state the
    block started from; with the learning-rate scale at 0, a blocked and
@@ -58,6 +66,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    CUDA graph replays); asserts the blocks, finite, descending losses, one
    K1 and one K2 launch per step (the warm-up step before the capture
    included; a replay counts what its capture recorded), and the checkin PNG;
+6b. RN50 row: the main path under RN50 (random weights), timed as 6, with
+   the peak device memory; asserts descent and one K1 and one K2 per step;
+6c. --quality best (RN50x4 at 288 px, ViT-B/32, ViT-B/16; 12 cuts,
+   batches 2) and --perceptors mixed --quality better (RN50, ViT-B/16,
+   SLIP_VITB16; 36 cuts) on the pixel row, 17 steps (two blocks): finite
+   losses, each tower's term, one K1 and one K2 per tower and batch each
+   step, ms per step, peak device memory;
 7. clipdraw path: the bench's clipdraw row (1024 strokes, same prompt,
    model, cuts and canvas), 9 + 24 steps, blocked; asserts finite, descending losses,
    one K4s + K5 + K1 + K2 launch per step, K4 at checkin, the PNG and the
@@ -112,7 +127,15 @@ Phases, each fatal on failure (exit code 1, no result line):
 18. --make_video (6 steps of the pixel row: the per-step frames and the
    video, a GIF where there is no MP4 encoder) and --profile_dir (10
    steps, one block: a trace that names K1 and K2);
-19. agreement: row 15 on TinyTest, card against CPU, both rounds, as in 5.
+19. agreement: row 15 on TinyTest, card against CPU, both rounds, as in 5;
+20. checkpoints on disk: a full-width RN50 in OpenAI's layout (RN50.pt)
+   and SLIP_VITB16 in SLIP's DDP layout (slip_base_100ep.pt), seeded random
+   weights written under $PIXRAY_TPU_MODELS: the perceptor built from each
+   file holds the in-memory state dict's weights and gives its bf16 image
+   embeddings, bitwise.
+
+The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
+towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
 
 Then one JSON line with the kernels' numbers, and as the last line
 {"ok": true, "device": {...}}.
@@ -143,11 +166,20 @@ CLIPDRAW_CONFIG = dict(PIXEL_CONFIG, drawer="clipdraw")  # CONFIGS["clipdraw"], 
 # default model, random weights) under the ViT-B/32 + ViT-B/16 ensemble
 VQGAN_CONFIG = dict(PIXEL_CONFIG, drawer="vqgan", clip_models="ViT-B/32,ViT-B/16")
 FFT_CONFIG = dict(PIXEL_CONFIG, drawer="fft", size=[256, 256])  # CONFIGS["fft"], bench.py:97 (the fft mode)
-# the product's tiler recipes (cogs/*.yaml), driven with the "normal" preset's
-# towers: their quality "better" asks for RN50, which is not ported yet
+# the pixel row under the other tower families: RN50 alone; and the presets,
+# whose towers, cuts and batches come from --quality / --perceptors
+RN50_CONFIG = dict(PIXEL_CONFIG, clip_models="RN50")
+_PRESET_BASE = {k: v for k, v in PIXEL_CONFIG.items() if k not in ("clip_models", "num_cuts", "batches")}
+BEST_CONFIG = dict(_PRESET_BASE, quality="best")  # RN50x4 (288 px), ViT-B/32, ViT-B/16; 12 cuts, batches 2
+MIXED_CONFIG = dict(_PRESET_BASE, quality="better", perceptors="mixed")  # RN50, ViT-B/16, SLIP_VITB16; 36 cuts
+PRESET_STEPS = 17  # step 0 (the checkin), then two blocks of 8
+# the product's tiler recipes (cogs/*.yaml) with their own towers (quality
+# "better": RN50, ViT-B/32, ViT-B/16, 36 cuts each)
 TILER_RECIPES = ("tiler_fft", "tiler_fft_shift", "tiler_pixel_shift")
-TILER_TOWERS = "ViT-B/32,ViT-B/16"
 TILER_STEPS = 17  # step 0 (the checkin), then two blocks of 8
+# K1/K2 at the new towers' cut sizes: (cuts, cut size) of RN50x4 (best's 12
+# cuts, the bench's 64) and RN50x16
+BANK_SIZES = ((12, 288), (64, 288), (64, 384))
 FFT_MODE_STEPS = 9  # step 0, then one block
 # the plug-ins on the card against the CPU: every filter but wallpaper (the
 # tiler recipes run it) and every ported loss, under a palette string whose
@@ -681,11 +713,12 @@ def _tie_canvas(h, w, gen):
     return work
 
 
-def flagship_bank_inputs():
+def flagship_bank_inputs(n=64, s=224):
     """The flagship bank's inputs (64 cuts of 224 on the 224x224x3 work
     canvas of the 384x216 canvas, bf16 noise, the jitter drawn with p =
-    0.8), and the generators they were drawn from: (gen, gen_dev, (work,
-    ms, modes, jitter, facs, planes))."""
+    0.8; or ``n`` cuts of ``s`` on the s x s x 3 canvas), and the
+    generators they were drawn from: (gen, gen_dev, (work, ms, modes,
+    jitter, facs, planes))."""
     import torch
 
     from pixray_tpu_torch.engine.cutouts import bank_order, cut_transforms, draw_cut_params, draw_noise
@@ -695,13 +728,13 @@ def flagship_bank_inputs():
     gen = torch.Generator().manual_seed(0)
     gen_dev = torch.Generator(device=dev).manual_seed(0)
     aspect = 384 / 216
-    zoom, wide = cut_transforms(draw_cut_params(gen, 64, aspect), 224, aspect)
+    zoom, wide = cut_transforms(draw_cut_params(gen, n, aspect), s, aspect)
     order = bank_order(zoom.shape[0], wide.shape[0])
     ms = torch.cat([zoom, wide])[order]
     modes = torch.tensor([i % 2 for i in range(zoom.shape[0])] + [3] * wide.shape[0], dtype=torch.int32)[order]
-    jitter = draw_jitter_params(gen, 64)
-    facs, planes = draw_noise(gen, gen_dev, 64, 224, torch.bfloat16, dev)
-    work = torch.rand((224, 224, 3), generator=gen).to(dev)
+    jitter = draw_jitter_params(gen, n)
+    facs, planes = draw_noise(gen, gen_dev, n, s, torch.bfloat16, dev)
+    work = torch.rand((s, s, 3), generator=gen).to(dev)
     return gen, gen_dev, (work, ms, modes, jitter, facs, planes)
 
 
@@ -825,6 +858,37 @@ def phase_bank_kernels():
           f"{f['bwd_bound_ms']:.4f}, {f['bwd_bound_by']}, {f['bwd_bytes'] / 1e6:.2f} MB) vs plain backward "
           f"{t('bwd_plain')} vs grid_sample input gradient {t('bwd_lib')}", flush=True)
     return flagship, ragged
+
+
+def phase_bank_sizes(flagship):
+    """K1/K2 with the epilogue at the cut sizes of the ResNet towers, on
+    banks drawn as the flagship's (jitter p = 0.8, noise, an s x s x 3
+    canvas): RN50x4's 288 at best's 12 cuts and at 64, RN50x16's 384 at 64,
+    under the flagship's gates, timed beside the plain composition and
+    grid_sample, with K2's count of blocks in each accumulation branch
+    (a larger cut spans more canvas per 16x16 tile).  ``flagship``: phase
+    3b's numbers at 224, printed beside these."""
+    import torch
+
+    out = []
+    for n, s in BANK_SIZES:
+        _, _, (work, ms, modes, jitter, facs, planes) = flagship_bank_inputs(n, s)
+        r = bank_case(f"{n} cuts of {s}", work, ms, modes, 0.37, s, jitter, facs, planes, time_it=True)
+        out.append(r)
+        t = lambda k: f"{r[k + '_ms']:.4f} / {r[k + '_event_ms']:.4f}"
+        print(f"bank kernels at {s} (N={n}, S={s}, {s}x{s}x3, bf16, {r['jittered']} cuts jittered, noise): "
+              f"pre-jitter bank bitwise {r['pre_bitwise']}; {r['ulp_diffs']} of {r['elements']} bank elements one "
+              f"bf16 ulp off (max {r['max_ulps']}, tol {BANK_ULPS}); K2 max_abs_err {r['bwd_err']:.3g} against "
+              f"max|dwork| {r['bwd_scale']:.3g} (tol {r['bwd_tol']:.3g}); K2 blocks summing in shared memory "
+              f"{r['blocks_local']}, adding to device memory {r['blocks_direct']} (flagship at 224: "
+              f"{flagship['blocks_local']}, {flagship['blocks_direct']})", flush=True)
+        print(f"bank kernels at {s} times, N={n} (ms, summed kernel time / CUDA events of one call): K1 {t('fwd')} "
+              f"(bound {r['fwd_bound_ms']:.4f}, {r['fwd_bound_by']}, {r['fwd_bytes'] / 1e6:.2f} MB) vs plain "
+              f"composition {t('fwd_plain')} vs grid_sample {t('fwd_lib')}; K2 {t('bwd')} (bound "
+              f"{r['bwd_bound_ms']:.4f}, {r['bwd_bound_by']}, {r['bwd_bytes'] / 1e6:.2f} MB) vs plain backward "
+              f"{t('bwd_plain')} vs grid_sample input gradient {t('bwd_lib')}", flush=True)
+    torch.cuda.empty_cache()  # the plain compositions' autograd buffers at 384 (~8 GB) go back to the card
+    return out
 
 
 def stroke_bounds(samples, widths, colors, h, w, state, chunk):
@@ -1996,6 +2060,170 @@ def phase_anim_agreement(tmp):
     if len(diffs) != 2 * ANIM_FRAMES * 2 or not worst <= AGREE_ATOL:
         fail(f"animation row card run disagrees with the CPU run: {diffs}")
 
+def phase_rn50_path(tmp, card):
+    """The pixel row under RN50 (random weights), timed as the pixel row
+    is, with the peak device memory of the run; K1/K2 once per step."""
+    import torch
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    engine, losses, launches, init_s, elapsed, timed = drive_path(dict(RN50_CONFIG, iterations=steps), tmp,
+                                                                  steps, WARMUP_STEPS)
+    capture_s = check_blocked("rn50", engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
+    first5, last5 = check_descent("rn50", losses)
+    check_launches("rn50", launches, {"warp_fwd": ran, "warp_bwd": ran, "strokes_fwd": 0,
+                                      "strokes_fwd_store": 0, "strokes_bwd": 0})
+    check_png("rn50", os.path.join(tmp, "output.png"))
+    rate = timed / elapsed
+    print(f"rn50 path: pixel 384x216, RN50 (random weights), 64 cuts, blocked: init {init_s:.1f} s, capture "
+          f"{capture_s:.2f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over the {timed} steps dispatched "
+          f"after {WARMUP_STEPS} warm-up; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"on {card}", flush=True)
+    print(f"rn50 losses: first5 {first5:.4f} -> last5 {last5:.4f} (descends); K1/K2 launches per step "
+          f"{launches['warp_fwd'] / ran:.2f} / {launches['warp_bwd'] / ran:.2f} over {ran} steps; launches "
+          f"{launches}", flush=True)
+
+
+def phase_preset_row(tmp, card, config, label):
+    """The pixel row under a quality / perceptors preset (its towers, cuts
+    and batches), 17 steps (step 0, two blocks of 8): finite losses, each
+    tower's prompt term, one K1 and one K2 per tower and batch each step,
+    ms per step after step 0 without the capture, peak device memory."""
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+
+    want = apply_settings(dict(config, outdir=tmp), apply_side_effects=False)
+    torch.cuda.reset_peak_memory_stats()
+    engine, losses, launches, init_s, elapsed, timed = drive_path(dict(config, iterations=PRESET_STEPS), tmp,
+                                                                  PRESET_STEPS, 1)
+    capture_s = check_blocked(label, engine, [(1, 8), (9, 8)])
+    ran = steps_run(engine, PRESET_STEPS)
+    per_step = len(want.clip_models) * want.batches
+    check_launches(label, launches, {"warp_fwd": per_step * ran, "warp_bwd": per_step * ran, "strokes_fwd": 0,
+                                     "strokes_fwd_store": 0, "strokes_bwd": 0})
+    names = [f"{m}:prompt0" for m in want.clip_models]
+    if engine.loss_names != names or engine.args.clip_models != want.clip_models:
+        fail(f"{label}: towers {engine.args.clip_models}, terms {engine.loss_names}; expected {names}")
+    sizes = sorted({p.input_resolution for p in engine.perceptors})
+    check_png(label, os.path.join(tmp, "output.png"))
+    print(f"{label} row: pixel 384x216, towers {','.join(want.clip_models)} (cut sizes {sizes}, random weights), "
+          f"{want.num_cuts} cuts, batches {want.batches}, blocked: init {init_s:.1f} s, capture {capture_s:.2f} s, "
+          f"{1e3 * (elapsed - capture_s) / timed:.2f} ms per step over the {timed} steps after step 0 (without "
+          f"the capture); peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; finite losses, "
+          f"first {[round(v, 4) for v in losses[:3]]} last {[round(v, 4) for v in losses[-3:]]}; K1/K2 launches "
+          f"per step {launches['warp_fwd'] / ran:.2f} / {launches['warp_bwd'] / ran:.2f} over {ran} steps; on "
+          f"{card}", flush=True)
+
+
+TINY_TOWERS = {
+    # a ModifiedResNet (width 8, one block per stage) and a timm trunk at
+    # 48 px, beside TinyTest's text tower widths: put into the port's tables
+    # for the agreement phase only
+    "CLIP_CONFIGS": {"TinyRN": dict(name="TinyRN", vision_kind="resnet", vision_width=8,
+                                    vision_layers=(1, 1, 1, 1), vision_patch_size=None, vision_heads=4)},
+    "SLIP_CONFIGS": {"TinyTimm48": dict(name="TinyTimm48", image_resolution=48, vision_patch_size=16,
+                                        vision_style="timm")},
+}
+
+
+def phase_tower_agreement(tmp):
+    """The tiny ResNet, the tiny timm trunk and TinyTest in one pixel run,
+    card against CPU (as phase 5)."""
+    import dataclasses
+
+    from pixray_tpu_torch.models.clip import configs as cfg
+
+    tiny = cfg.CLIP_CONFIGS["TinyTest"]
+    added = [(getattr(cfg, table), name) for table, towers in TINY_TOWERS.items() for name in towers]
+    for table, towers in TINY_TOWERS.items():
+        for name, fields in towers.items():
+            getattr(cfg, table)[name] = dataclasses.replace(tiny, **fields)
+    try:
+        phase_agreement(tmp, PIXEL_CONFIG, "tiny towers (ModifiedResNet 32 px, timm trunk 48 px, TinyTest)",
+                        clip_models="TinyRN,TinyTimm48,TinyTest")
+    finally:
+        for table, name in added:
+            del table[name]
+
+
+def slip_layout(sd):
+    """The port's state dict of a timm tower under SLIP's names (the
+    inverse of the loader's renaming, checked key by key)."""
+    from pixray_tpu_torch.models.clip.checkpoint import _SLIP_BLOCK, _SLIP_PREFIXES, slip_name
+
+    out = {}
+    for key, value in sd.items():
+        old = key
+        if old.startswith("visual.transformer.resblocks."):
+            for slip, port in _SLIP_BLOCK:
+                old = old.replace(port, slip)
+        for slip, port in _SLIP_PREFIXES:
+            if old.startswith(port):
+                old = slip + old[len(port):]
+                break
+        if slip_name(old) != key:
+            fail(f"no SLIP name for {key}: {old} maps back to {slip_name(old)}")
+        out[old] = value
+    out["visual.cls_token"] = out["visual.cls_token"].reshape(1, 1, -1)
+    out["visual.pos_embed"] = out["visual.pos_embed"][None]
+    return out
+
+
+def phase_checkpoints(tmp):
+    """Perceptor checkpoints found on disk: a full-width RN50 state dict in
+    OpenAI's layout (seeded random weights, ``torch.save``) as RN50.pt, and
+    SLIP_VITB16 in SLIP's DDP layout (``module.`` names, the run's args,
+    heads the perceptor does not use) as slip_base_100ep.pt, under
+    $PIXRAY_TPU_MODELS: each perceptor built from the file must hold the
+    in-memory state dict's weights and give its image embeddings on the
+    card (bf16), bitwise."""
+    import argparse
+
+    import torch
+
+    from pixray_tpu_torch.models import perceptor as P
+
+    dev = torch.device("cuda")
+    env = {k: os.environ.get(k) for k in ("PIXRAY_TPU_MODELS", "PIXRAY_TPU_ALLOW_DEGRADED_TOKENIZER")}
+    os.environ.update(PIXRAY_TPU_MODELS=tmp, PIXRAY_TPU_ALLOW_DEGRADED_TOKENIZER="1")
+    try:
+        for name in ("RN50", "SLIP_VITB16"):
+            if P._find_checkpoint(name) is not None:
+                fail(f"checkpoints: a {name} file exists before the phase wrote one")
+            sd = {k: v.contiguous() for k, v in P.Perceptor(name, "cpu").model.state_dict().items()}
+            path = os.path.join(tmp, P._CKPT_ALIASES[name][0])
+            if name == "RN50":
+                torch.save(sd, path)
+            else:
+                heads = {"logit_scale": torch.tensor(2.0), "image_mlp.layer1.weight": torch.ones(16, 768)}
+                torch.save({"epoch": 99, "args": argparse.Namespace(model="SLIP_VITB16"),
+                            "state_dict": {f"module.{k}": v for k, v in {**slip_layout(sd), **heads}.items()}}, path)
+            t0 = time.perf_counter()
+            loaded = P.Perceptor(name, dev, torch.bfloat16)
+            load_s = time.perf_counter() - t0
+            memory = P.Perceptor(name, dev, torch.bfloat16, state_dict=sd)
+            same_weights = all(torch.equal(a, b) for a, b in zip(loaded.model.state_dict().values(),
+                                                                  memory.model.state_dict().values()))
+            imgs = torch.rand((8, 3, 224, 224), device=dev, generator=torch.Generator(device=dev).manual_seed(5))
+            with torch.no_grad():
+                a, b = loaded.image_fn(imgs.to(torch.bfloat16)), memory.image_fn(imgs.to(torch.bfloat16))
+            if not (same_weights and torch.equal(a, b) and bool(torch.isfinite(a).all())):
+                fail(f"checkpoints: {name} from {path} differs from the in-memory state dict: weights "
+                     f"{same_weights}, embeddings max |diff| {float((a - b).abs().max())}")
+            print(f"checkpoint {name}: {os.path.basename(path)} ({os.path.getsize(path) / 2**20:.1f} MiB) found "
+                  f"under $PIXRAY_TPU_MODELS and loaded in {load_s:.1f} s; weights and bf16 image embeddings of 8 "
+                  f"cuts bitwise the in-memory state dict's", flush=True)
+            os.remove(path)
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def phase_vqgan_default(tmp):
     """``pixray_tpu_torch.run`` with its defaults (vqgan, quality normal:
     ViT-B/32 + ViT-B/16, 30 cuts, the init noise resized and encoded, the
@@ -2079,14 +2307,14 @@ def phase_fft_path(tmp, card):
 
 
 def tiler_config(recipe, **overrides):
-    """``cogs/<recipe>.yaml`` with the towers of the normal preset, no LR
-    drop and checkins only at step 0 (so the steps after it run blocked)."""
+    """``cogs/<recipe>.yaml`` (its quality's towers), no LR drop and
+    checkins only at step 0 (so the steps after it run blocked)."""
     import yaml
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "cogs", f"{recipe}.yaml")) as f:
         cfg = yaml.safe_load(f)
     cfg.pop("outdir")
-    cfg.update(prompts="a seamless tiled pattern", clip_models=TILER_TOWERS, seed=1, save_every=100000,
+    cfg.update(prompts="a seamless tiled pattern", seed=1, save_every=100000,
                learning_rate_drops=[], save_intermediates=False)
     cfg.update(overrides)
     return cfg
@@ -2108,14 +2336,19 @@ def phase_tiler_recipes(tmp, card):
     """cogs/tiler_fft.yaml (vqgan 416x416, wallpaper with edge match 4,
     smoothness clipped), tiler_fft_shift.yaml (fft dwt 720x360, wallpaper
     shift) and tiler_pixel_shift.yaml (pixel 256x128, 64x32 grid, wallpaper
-    shift), each for 17 steps under ViT-B/32 + ViT-B/16."""
+    shift), each for 17 steps under its quality's towers (better: RN50,
+    ViT-B/32 and ViT-B/16, 36 cuts each)."""
     for recipe in TILER_RECIPES:
         with tempfile.TemporaryDirectory() as sub:
             config = tiler_config(recipe, iterations=TILER_STEPS)
             engine, losses, launches, init_s, elapsed, timed = drive_path(config, sub, TILER_STEPS, 1)
             capture_s = check_blocked(recipe, engine, [(1, 8), (9, 8)])
             ran = steps_run(engine, TILER_STEPS)
-            check_launches(recipe, launches, {"warp_fwd": 2 * ran, "warp_bwd": 2 * ran, "strokes_fwd": 0,
+            towers = len(engine.args.clip_models)
+            if engine.args.clip_models != ["RN50", "ViT-B/32", "ViT-B/16"]:
+                fail(f"{recipe}: towers {engine.args.clip_models}, its quality {config['quality']} asks for "
+                     "RN50, ViT-B/32, ViT-B/16")
+            check_launches(recipe, launches, {"warp_fwd": towers * ran, "warp_bwd": towers * ran, "strokes_fwd": 0,
                                               "strokes_fwd_store": 0, "strokes_bwd": 0})
             if not tiler_names(engine):
                 fail(f"{recipe}: term names {engine.loss_names}")
@@ -2127,8 +2360,8 @@ def phase_tiler_recipes(tmp, card):
             print(f"tiler {recipe}: {config['drawer']}{'/' + config['fft_use'] if 'fft_use' in config else ''} "
                   f"{size[0]}x{size[1]}, filters {config['filters']} (type {config.get('wallpaper_type')}, edge "
                   f"match {config.get('wallpaper_edge_match', 0)}), custom loss {config.get('custom_loss')}, "
-                  f"{engine.args.num_cuts} cuts per tower, towers {TILER_TOWERS} (the recipe's quality "
-                  f"{config['quality']} asks for RN50 too, not ported): {blocked} of {TILER_STEPS} steps blocked; "
+                  f"{engine.args.num_cuts} cuts per tower, towers {','.join(engine.args.clip_models)} (quality "
+                  f"{config['quality']}): {blocked} of {TILER_STEPS} steps blocked; "
                   f"{1e3 * (elapsed - capture_s) / timed:.2f} ms per step over the {timed} steps after step 0 "
                   f"(without the capture, {capture_s:.2f} s); finite losses, last "
                   f"{dict(zip(engine.loss_names, [round(v, 4) for v in engine.last_loss_values.float().tolist()]))}"
@@ -2250,6 +2483,7 @@ def main():
     bank = phase_bank_kernels()
     phase_bank_no_jitter(bank[0])
     strokes = phase_stroke_kernels()
+    sizes = phase_bank_sizes(bank[0])
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, "pixel")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2261,14 +2495,21 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, f"plug-ins (pixel, transparent, {PLUGIN_EXTRA['filters']}, "
                         f"{PLUGIN_EXTRA['custom_loss']}, palette {PLUGIN_EXTRA['palette']})", **PLUGIN_EXTRA)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_tower_agreement(tmp)
     for config, label, steps in ((PIXEL_CONFIG, "pixel", BLOCKED_STEPS), (CLIPDRAW_CONFIG, "clipdraw", BLOCKED_STEPS),
-                                 (VQGAN_CONFIG, "vqgan", 8),
+                                 (VQGAN_CONFIG, "vqgan", 8), (RN50_CONFIG, "rn50", BLOCKED_STEPS),
                                  (tiler_config("tiler_fft_shift"), "tiler_fft_shift (a filter's shifts)",
                                   BLOCKED_STEPS)):
         with tempfile.TemporaryDirectory() as tmp:
             phase_blocked(tmp, config, label, steps, card)
     with tempfile.TemporaryDirectory() as tmp:
         launches, _ = phase_main_path(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_rn50_path(tmp, card)
+    for config, label in ((BEST_CONFIG, "best"), (MIXED_CONFIG, "mixed better")):
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_preset_row(tmp, card, config, label)
     with tempfile.TemporaryDirectory() as tmp:
         stroke_launches, _ = phase_clipdraw_path(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2302,6 +2543,8 @@ def main():
         phase_video_and_trace(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_anim_agreement(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_checkpoints(tmp)
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
     warp_src = "pixray_tpu_torch/csrc/warp.cu"
@@ -2309,12 +2552,12 @@ def main():
     kernels = [
         {"name": "bank_fwd (K1)", "route": "cuda", "source": warp_src, "replaces": replaces.format(549),
          "launches": launches["warp_fwd"],
-         "max_abs_err": max([flagship["fwd_err"], small["fwd_err"]] + [r["fwd_err"] for r in bank]),
+         "max_abs_err": max([flagship["fwd_err"], small["fwd_err"]] + [r["fwd_err"] for r in [*bank, *sizes]]),
          "ms": bf["fwd_ms"], "plain_ms": bf["fwd_plain_ms"], "bound_ms": bf["fwd_bound_ms"],
          "bound_by": bf["fwd_bound_by"], "library_ms": bf["fwd_lib_ms"]},
         {"name": "bank_bwd (K2)", "route": "cuda", "source": warp_src, "replaces": replaces.format(693),
          "launches": launches["warp_bwd"],
-         "max_abs_err": max([flagship["bwd_err"], small["bwd_err"]] + [r["bwd_err"] for r in bank]),
+         "max_abs_err": max([flagship["bwd_err"], small["bwd_err"]] + [r["bwd_err"] for r in [*bank, *sizes]]),
          "ms": bf["bwd_ms"], "plain_ms": bf["bwd_plain_ms"], "bound_ms": bf["bwd_bound_ms"],
          "bound_by": bf["bwd_bound_by"], "library_ms": bf["bwd_lib_ms"]},
     ]

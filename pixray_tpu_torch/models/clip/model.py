@@ -1,20 +1,30 @@
-"""CLIP ViT image tower and causal text tower as ``nn.Module``s.
+"""CLIP image towers (ViT, timm-style ViT, ModifiedResNet) and the causal
+text tower as ``nn.Module``s.
 
-Port of ``VisionTransformer`` and ``TextTransformer`` in
+Port of ``VisionTransformer``, ``ModifiedResNet`` and ``TextTransformer`` in
 ``pixray_tpu/models/clip/model.py``.  Parameter names are OpenAI CLIP's
 state-dict keys (``visual.conv1.weight``, ``transformer.resblocks.0.attn.in_proj_weight``,
-...), so ``bridge.py`` maps the JAX package's flax params onto them and an
-OpenAI state dict loads without a converter.
+``visual.layer1.0.bn1.running_mean``, ...), so ``bridge.py`` maps the JAX
+package's flax variables onto them and an OpenAI state dict loads without a
+converter.  A SLIP (timm) tower uses the same names, plus the patch conv's
+bias ``visual.conv1.bias`` and no ``ln_pre`` (see ``perceptor.py`` for the
+renaming of a SLIP file).
 
-Numerics follow the JAX tower's "bf16" rung: every matmul runs in the
-module's parameter dtype (bf16 on the card, float32 in the CPU tests), and
-attention is plain matmul + softmax with float32 scores.  The patch
-embedding is one matmul on channel-major patches (the conv1 weight's own
-(c, py, px) row order), with the perceptor's preprocessing affine folded
-into the kernel rows as the JAX tower does.
+Numerics follow the JAX tower's "bf16" rung: every matmul and convolution
+runs in the module's parameter dtype (bf16 on the card, float32 in the CPU
+tests), and attention is plain matmul + softmax with float32 scores.  The
+ViT patch embedding is one matmul on channel-major patches (the conv1
+weight's own (c, py, px) row order), with the perceptor's preprocessing
+affine folded into the kernel rows as the JAX tower does.  The ResNet
+tower materialises the affine in float32 instead, and runs its frozen
+BatchNorms, ReLUs and residual sums in float32 on the convolutions'
+outputs, in the ``channels_last`` memory format.
 """
 
 from __future__ import annotations
+
+import math
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -52,22 +62,26 @@ class MultiHeadAttention(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, width: int):
+    """``act``: QuickGELU (OpenAI towers, every text tower) or exact erf GELU
+    (the timm vision trunks of the SLIP family)."""
+
+    def __init__(self, width: int, act: str = "quick_gelu"):
         super().__init__()
         self.c_fc = nn.Linear(width, 4 * width)
         self.c_proj = nn.Linear(4 * width, width)
+        self.act = quick_gelu if act == "quick_gelu" else F.gelu
 
     def forward(self, x):
-        return self.c_proj(quick_gelu(self.c_fc(x)))
+        return self.c_proj(self.act(self.c_fc(x)))
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, act: str = "quick_gelu"):
         super().__init__()
         self.ln_1 = nn.LayerNorm(width)
         self.attn = MultiHeadAttention(width, heads)
         self.ln_2 = nn.LayerNorm(width)
-        self.mlp = _MLP(width)
+        self.mlp = _MLP(width, act)
 
     def forward(self, x, causal: bool = False):
         x = x + self.attn(self.ln_1(x), causal)
@@ -75,9 +89,9 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int, act: str = "quick_gelu"):
         super().__init__()
-        self.resblocks = nn.ModuleList(ResidualAttentionBlock(width, heads) for _ in range(layers))
+        self.resblocks = nn.ModuleList(ResidualAttentionBlock(width, heads, act) for _ in range(layers))
 
     def forward(self, x, causal: bool = False):
         for block in self.resblocks:
@@ -86,11 +100,13 @@ class Transformer(nn.Module):
 
 
 class _PatchConv(nn.Module):
-    """Holds OpenAI's ``conv1.weight`` (width, 3, p, p); applied as a matmul."""
+    """Holds OpenAI's ``conv1.weight`` (width, 3, p, p), and for a timm
+    trunk the patch conv's ``bias``; applied as a matmul."""
 
-    def __init__(self, width: int, patch: int):
+    def __init__(self, width: int, patch: int, bias: bool = False):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(width, 3, patch, patch))
+        self.bias = nn.Parameter(torch.empty(width)) if bias else None
 
 
 def patchify_cm(x, p: int):
@@ -102,18 +118,22 @@ def patchify_cm(x, p: int):
 
 
 class VisionTransformer(nn.Module):
+    """An OpenAI ViT or, with ``vision_style == "timm"``, a timm ViT trunk:
+    a biased patch conv, no ``ln_pre``, exact GELU in the MLPs (LayerNorm
+    eps 1e-5 in both, as the JAX tower has it)."""
+
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
-        if cfg.vision_kind != "vit" or cfg.vision_style != "openai":
-            raise NotImplementedError(f"perceptor {cfg.name!r}: only OpenAI ViT towers are ported")
         width, p = cfg.vision_width, cfg.vision_patch_size
         self.patch = p
-        self.conv1 = _PatchConv(width, p)
+        self.timm = cfg.vision_style == "timm"
+        self.conv1 = _PatchConv(width, p, bias=self.timm)
         self.class_embedding = nn.Parameter(torch.empty(width))
         n_tok = (cfg.image_resolution // p) ** 2 + 1
         self.positional_embedding = nn.Parameter(torch.empty(n_tok, width))
-        self.ln_pre = nn.LayerNorm(width)
-        self.transformer = Transformer(width, cfg.vision_layers, cfg.vision_heads)
+        self.ln_pre = None if self.timm else nn.LayerNorm(width)
+        self.transformer = Transformer(width, cfg.vision_layers, cfg.vision_heads,
+                                       "gelu" if self.timm else "quick_gelu")
         self.ln_post = nn.LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, cfg.embed_dim))
 
@@ -136,21 +156,154 @@ class VisionTransformer(nn.Module):
         if aff_bias is not None:
             x = x + aff_bias
         x = x.to(dtype)
+        if self.conv1.bias is not None:  # the timm patch conv's bias, after the fold's
+            x = x + self.conv1.bias.to(dtype)
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
-        x = self.ln_pre(x)
+        if self.ln_pre is not None:
+            x = self.ln_pre(x)
         x = self.transformer(x)
         x = self.ln_post(x[:, 0, :])
         return torch.matmul(x, self.proj).float()
 
 
+class FrozenBatchNorm2d(nn.Module):
+    """BatchNorm2d at its running statistics, every tensor a buffer
+    (``weight``, ``bias``, ``running_mean``, ``running_var``: OpenAI's
+    names; a file's ``num_batches_tracked`` is accepted and dropped).
+    Applied in float32 to the convolution's output, eps 1e-5, as the JAX
+    tower's ``nn.BatchNorm(dtype=float32)``; the perceptor keeps these
+    buffers in float32 whatever the compute dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        state_dict.pop(prefix + "num_batches_tracked", None)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def forward(self, x):
+        return F.batch_norm(x.float(), self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)
+
+
+def _conv(conv: nn.Conv2d, x):
+    """The convolution in its weight's dtype (the input cast to it)."""
+    return conv(x.to(conv.weight.dtype))
+
+
+class Bottleneck(nn.Module):
+    """ModifiedResNet bottleneck: 1x1, 3x3 and 1x1 convs at stride 1, an
+    average pool after ``conv2`` where the stride is 2, and a downsample
+    branch (average pool, 1x1 conv, BN) where the stride or the width
+    changes."""
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(planes)
+        self.conv2 = nn.Conv2d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = FrozenBatchNorm2d(planes)
+        self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(planes * 4)
+        self.stride = stride
+        self.downsample = None
+        if stride > 1 or inplanes != planes * 4:
+            self.downsample = nn.Sequential(OrderedDict([
+                ("0", nn.Conv2d(inplanes, planes * 4, 1, bias=False)), ("1", FrozenBatchNorm2d(planes * 4))]))
+
+    def forward(self, x):
+        out = F.relu(self.bn1(_conv(self.conv1, x)))
+        out = F.relu(self.bn2(_conv(self.conv2, out)))
+        if self.stride > 1:
+            out = F.avg_pool2d(out, self.stride)
+        out = self.bn3(_conv(self.conv3, out))
+        identity = x
+        if self.downsample is not None:
+            if self.stride > 1:
+                identity = F.avg_pool2d(identity, self.stride)
+            identity = self.downsample[1](_conv(self.downsample[0], identity))
+        return F.relu(out + identity)
+
+
+class AttentionPool2d(nn.Module):
+    """The mean token prepended to the (h, w) row-major tokens, the
+    positional table added in float32, one query (the mean's) over all
+    tokens, float32 scores and softmax, then ``c_proj``."""
+
+    def __init__(self, spatial: int, width: int, heads: int, out_dim: int):
+        super().__init__()
+        self.heads = heads
+        self.positional_embedding = nn.Parameter(torch.empty(spatial * spatial + 1, width))
+        self.k_proj = nn.Linear(width, width)
+        self.q_proj = nn.Linear(width, width)
+        self.v_proj = nn.Linear(width, width)
+        self.c_proj = nn.Linear(width, out_dim)
+
+    def forward(self, x):
+        b, c = x.shape[:2]
+        x = x.flatten(2).transpose(1, 2)  # (B, HW, C), float32
+        x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1)
+        dtype = self.q_proj.weight.dtype
+        x = (x + self.positional_embedding.float()).to(dtype)
+        hd = c // self.heads
+        q = self.q_proj(x[:, :1]).reshape(b, 1, self.heads, hd).transpose(1, 2)
+        k = self.k_proj(x).reshape(b, -1, self.heads, hd).transpose(1, 2)
+        v = self.v_proj(x).reshape(b, -1, self.heads, hd).transpose(1, 2)
+        q = q / float(torch.tensor(math.sqrt(hd)).to(dtype))  # sqrt(hd) rounded to the compute dtype, as JAX
+        scores = torch.matmul(q, k.transpose(-1, -2)).float()
+        probs = torch.softmax(scores, dim=-1).to(v.dtype)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, c)
+        return self.c_proj(out)
+
+
+class ModifiedResNet(nn.Module):
+    """The stem (three 3x3 convs, the first with stride 2, then a 2x2
+    average pool), four stages of bottlenecks (stride 2 at the first block
+    of stages 2-4) and the attention pool, with ``width * 32 // 64`` heads."""
+
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        width = cfg.vision_width
+        self.conv1 = nn.Conv2d(3, width // 2, 3, stride=2, padding=1, bias=False)
+        self.bn1 = FrozenBatchNorm2d(width // 2)
+        self.conv2 = nn.Conv2d(width // 2, width // 2, 3, padding=1, bias=False)
+        self.bn2 = FrozenBatchNorm2d(width // 2)
+        self.conv3 = nn.Conv2d(width // 2, width, 3, padding=1, bias=False)
+        self.bn3 = FrozenBatchNorm2d(width)
+        inplanes = width
+        for stage, blocks in enumerate(cfg.vision_layers):
+            planes = width * 2 ** stage
+            layer = []
+            for blk in range(blocks):
+                layer.append(Bottleneck(inplanes, planes, 2 if (blk == 0 and stage > 0) else 1))
+                inplanes = planes * 4
+            setattr(self, f"layer{stage + 1}", nn.Sequential(*layer))
+        self.attnpool = AttentionPool2d(cfg.image_resolution // 32, width * 32, width * 32 // 64, cfg.embed_dim)
+
+    def forward(self, images):
+        """images: (B, 3, H, W) preprocessed, float32."""
+        x = images.contiguous(memory_format=torch.channels_last)
+        for conv, bn in ((self.conv1, self.bn1), (self.conv2, self.bn2), (self.conv3, self.bn3)):
+            x = F.relu(bn(_conv(conv, x)))
+        x = F.avg_pool2d(x, 2)
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+        return self.attnpool(x).float()
+
+
 class CLIP(nn.Module):
-    """ViT image tower + text tower with OpenAI's state-dict layout."""
+    """An image tower + the text tower with OpenAI's state-dict layout."""
 
     def __init__(self, cfg: CLIPConfig):
         super().__init__()
         self.config = cfg
-        self.visual = VisionTransformer(cfg)
+        self.visual = VisionTransformer(cfg) if cfg.vision_kind == "vit" else ModifiedResNet(cfg)
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.text_width)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, cfg.text_width))
         self.transformer = Transformer(cfg.text_width, cfg.text_layers, cfg.text_heads)
@@ -158,7 +311,15 @@ class CLIP(nn.Module):
         self.text_projection = nn.Parameter(torch.empty(cfg.text_width, cfg.embed_dim))
 
     def encode_image(self, images, in_affine=None):
-        return self.visual(images, in_affine)
+        """images: (B, 3, H, W).  A ViT folds ``in_affine`` into its patch
+        embedding; a ResNet starts with a strided conv, so the affine is
+        applied to the images in float32 first."""
+        if self.config.vision_kind == "vit":
+            return self.visual(images, in_affine)
+        if in_affine is not None:
+            scale, shift = (a.float()[:, None, None] for a in in_affine)
+            images = images.float() * scale + shift
+        return self.visual(images)
 
     def encode_text(self, tokens, pool_indices=None):
         """tokens: (B, T) int.  Pools at argmax(tokens) (the EOT id) unless
@@ -186,8 +347,10 @@ def _trunc_normal(shape, std: float, gen):
 @torch.no_grad()
 def init_random_(model: CLIP, gen) -> CLIP:
     """Random weights with the JAX tower's initializer distributions:
-    lecun_normal kernels (fan-in), normal(0.02) embeddings and projections,
-    normal(0.01) positional tables, unit/zero LayerNorms, zero biases."""
+    lecun_normal kernels and convolutions (fan-in, k*k*c_in for a conv),
+    normal(0.02) embeddings and projections, normal(0.01) positional tables,
+    unit/zero LayerNorms, zero biases; the BatchNorms keep their
+    construction values (scale 1, bias 0, running mean 0, variance 1)."""
     def lecun(p, fan_in):
         p.copy_(_trunc_normal(p.shape, (1.0 / fan_in) ** 0.5, gen))
 
@@ -196,14 +359,28 @@ def init_random_(model: CLIP, gen) -> CLIP:
 
     cfg = model.config
     v = model.visual
-    lecun(v.conv1.weight, 3 * cfg.vision_patch_size ** 2)
-    normal(v.class_embedding, 0.02)
-    normal(v.positional_embedding, 0.01)
-    normal(v.proj, 0.02)
+    towers = [model.transformer]
+    if cfg.vision_kind == "vit":
+        lecun(v.conv1.weight, 3 * cfg.vision_patch_size ** 2)
+        if v.conv1.bias is not None:
+            v.conv1.bias.zero_()
+        normal(v.class_embedding, 0.02)
+        normal(v.positional_embedding, 0.01)
+        normal(v.proj, 0.02)
+        towers.insert(0, v.transformer)
+    else:
+        for m in v.modules():
+            if isinstance(m, nn.Conv2d):
+                lecun(m.weight, m.weight[0].numel())
+        pool = v.attnpool
+        normal(pool.positional_embedding, 0.01)
+        for lin in (pool.q_proj, pool.k_proj, pool.v_proj, pool.c_proj):
+            lecun(lin.weight, lin.in_features)
+            lin.bias.zero_()
     normal(model.token_embedding.weight, 0.02)
     normal(model.positional_embedding, 0.01)
     normal(model.text_projection, 0.02)
-    for tower in (v.transformer, model.transformer):
+    for tower in towers:
         for blk in tower.resblocks:
             d = blk.attn.out_proj.in_features
             lecun(blk.attn.in_proj_weight, d)

@@ -1,24 +1,86 @@
-"""Perceptor: a frozen CLIP tower with the JAX package's scoring API.
+"""Perceptor: a frozen CLIP or SLIP tower with the JAX package's scoring API.
 
-Port of ``pixray_tpu/models/perceptor.py`` for OpenAI ViT perceptors:
-``image_fn`` (batch range-stretch + CLIP standardization folded into the
-patch embedding, then the tower, then L2 normalization), ``encode_text``
-and ``encode_text_with_stops``.  Weights come from a state dict (see
-``clip/bridge.py``) or, with none given, from a seeded ``torch.Generator``
-with the flax initializers' distributions and a loud warning.
+Port of ``pixray_tpu/models/perceptor.py`` for every tower of
+``CLIP_CONFIGS`` (OpenAI ViTs and ModifiedResNets) and ``SLIP_CONFIGS``
+(timm ViT trunks, ImageNet statistics): ``image_fn`` (batch range-stretch +
+standardization, folded into a ViT's patch embedding or applied before a
+ResNet's stem, then the tower, then L2 normalization), ``encode_text`` and
+``encode_text_with_stops``.  Weights come from a state dict (see
+``clip/bridge.py``), else from a checkpoint file found by the JAX
+package's names in ``$PIXRAY_TPU_MODELS``, ``models/`` or
+``~/.cache/pixray_tpu`` (OpenAI, HuggingFace or SLIP layout, see
+``clip/checkpoint.py``; nothing is downloaded), else from a seeded
+``torch.Generator`` with the flax initializers' distributions and a loud
+warning.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
 
 import torch
 
 from pixray_tpu_torch.ops.grad import l2_normalize
 
-from .clip.configs import CLIP_CONFIGS, CLIP_MEAN, CLIP_STD
-from .clip.model import CLIP, init_random_
-from .clip.tokenizer import tokenize
+from .clip.checkpoint import port_state_dict, read_state_dict
+from .clip.configs import CLIP_CONFIGS, CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD, SLIP_CONFIGS
+from .clip.model import CLIP, FrozenBatchNorm2d, init_random_
+from .clip.tokenizer import get_tokenizer, tokenize
+
+# checkpoint file names, as the JAX package looks for them
+_CKPT_ALIASES = {
+    "TinyTest": ["tinytest.pt"],
+    "ViT-B/32": ["ViT-B-32.pt", "vit_b_32.pt"],
+    "ViT-B/16": ["ViT-B-16.pt", "vit_b_16.pt"],
+    "ViT-L/14": ["ViT-L-14.pt"],
+    "RN50": ["RN50.pt"],
+    "RN101": ["RN101.pt"],
+    "RN50x4": ["RN50x4.pt"],
+    "RN50x16": ["RN50x16.pt"],
+    "SLIP_VITS16": ["slip_small_100ep.pt"],
+    "SLIP_VITB16": ["slip_base_100ep.pt"],
+    "SLIP_VITL16": ["slip_large_100ep.pt"],
+    "SIMCLR_VITS16": ["simclr_small_25ep.pt"],
+    "CLIP_VITS16": ["clip_small_25ep.pt"],
+    "CLIP_VITB16": ["clip_base_25ep.pt"],
+    "CLIP_VITL16": ["clip_large_25ep.pt"],
+    "SLIP_CC3M": ["slip_base_cc3m_40ep.pt"],
+    "SLIP_CC12M": ["slip_base_cc12m_35ep.pt"],
+}
+
+
+def _find_checkpoint(name: str):
+    search_dirs = [os.environ.get("PIXRAY_TPU_MODELS", ""), "models", os.path.expanduser("~/.cache/pixray_tpu")]
+    for d in search_dirs:
+        if not d:
+            continue
+        for alias in _CKPT_ALIASES.get(name, []):
+            path = os.path.join(d, alias)
+            if os.path.exists(path):
+                return path
+    return None
+
+
+def _require_checkpoint_tokenizer(name: str):
+    """Real weights fed byte-level fallback ids give meaningless text
+    embeddings: refuse them unless ``PIXRAY_TPU_ALLOW_DEGRADED_TOKENIZER=1``
+    (image prompts only)."""
+    if get_tokenizer().degraded and os.environ.get("PIXRAY_TPU_ALLOW_DEGRADED_TOKENIZER") != "1":
+        raise RuntimeError(
+            f"Perceptor {name!r} loaded REAL checkpoint weights but the CLIP BPE vocab "
+            "(bpe_simple_vocab_16e6.txt.gz) is missing — text embeddings would be meaningless. Place the "
+            "vocab under models/ or set $PIXRAY_TPU_BPE; to proceed anyway (image prompts only) set "
+            "PIXRAY_TPU_ALLOW_DEGRADED_TOKENIZER=1.")
+
+
+def _cast_towers_(model, dtype):
+    """Every floating tensor to ``dtype`` but the BatchNorms', which the
+    towers apply in float32 (as the JAX package stores them)."""
+    keep = {id(t) for m in model.modules() if isinstance(m, FrozenBatchNorm2d) for t in m.buffers()}
+    for t in list(model.parameters()) + list(model.buffers()):
+        if t.is_floating_point() and id(t) not in keep:
+            t.data = t.data.to(dtype)
 
 
 def adjust_range_affine(img, out_lo=0.0, out_hi=1.0):
@@ -39,27 +101,41 @@ class Perceptor:
     """A frozen scoring model.  ``dtype`` is the tower's compute dtype."""
 
     def __init__(self, name: str, device="cpu", dtype=torch.float32, state_dict=None):
-        if name not in CLIP_CONFIGS:
-            raise NotImplementedError(f"perceptor {name!r} is not yet ported to pixray_tpu_torch")
-        self.config = CLIP_CONFIGS[name]
+        if name in CLIP_CONFIGS:
+            self.config, mean, std = CLIP_CONFIGS[name], CLIP_MEAN, CLIP_STD
+        elif name in SLIP_CONFIGS:
+            self.config, mean, std = SLIP_CONFIGS[name], IMAGENET_MEAN, IMAGENET_STD
+        else:
+            raise ValueError(f"Unknown perceptor: {name} (have {sorted(CLIP_CONFIGS) + sorted(SLIP_CONFIGS)})")
         self.name = name
         self.device = torch.device(device)
         self.dtype = dtype
         self.input_resolution = self.config.image_resolution
         self.output_dim = self.config.embed_dim
-        self.mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=self.device)
-        self.std = torch.tensor(CLIP_STD, dtype=torch.float32, device=self.device)
+        self.mean = torch.tensor(mean, dtype=torch.float32, device=self.device)
+        self.std = torch.tensor(std, dtype=torch.float32, device=self.device)
         model = CLIP(self.config)
+        ckpt = _find_checkpoint(name) if state_dict is None else None
+        if ckpt is not None:
+            state_dict = port_state_dict(read_state_dict(ckpt), self.config, set(model.state_dict()))
         if state_dict is None:
             print(
-                f"WARNING: no checkpoint given for perceptor {name} — initializing "
-                "random weights from a seed derived from its name."
+                f"WARNING: no checkpoint found for perceptor {name} — initializing random weights "
+                "from a seed derived from its name (set $PIXRAY_TPU_MODELS or place weights under models/)."
             )
             stable = int.from_bytes(hashlib.sha256(name.encode()).digest()[:4], "big")
             init_random_(model, torch.Generator().manual_seed(stable % (2**31)))
         else:
             model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
-        self.model = model.to(device=self.device, dtype=dtype).eval().requires_grad_(False)
+        if ckpt is not None:
+            n_params = sum(p.numel() for p in model.parameters())
+            print(f"Loaded perceptor {name} from {ckpt}: {self.input_resolution}px, {n_params / 1e6:.2f}M params")
+            _require_checkpoint_tokenizer(name)
+        model = model.to(device=self.device).eval().requires_grad_(False)
+        _cast_towers_(model, dtype)
+        if self.config.vision_kind == "resnet":
+            model.visual.to(memory_format=torch.channels_last)
+        self.model = model
 
     def preprocess_affine(self, imgs):
         """Per-channel (scale, shift) with ``imgs*scale + shift`` = the range

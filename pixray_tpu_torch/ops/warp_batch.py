@@ -70,7 +70,9 @@ def _bilinear_zeros(work, x, y):
     def tap(yi, xi):
         valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
         lin = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
-        vals = flat[lin.reshape(-1)].reshape(*lin.shape, c).permute(0, 3, 1, 2)
+        # index_select: its gradient (index_add_) sums the taps in one order on
+        # the CPU, where indexing's (index_put_) parts by thread above its grain
+        vals = flat.index_select(0, lin.reshape(-1)).reshape(*lin.shape, c).permute(0, 3, 1, 2)
         return torch.where(valid[:, None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
 
     return (

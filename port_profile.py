@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's step on one NVIDIA GPU, row by row.
 
-    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft,image,anim]
+    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft,image,anim,rn50,mixed]
 
 (``--rows ""`` measures no row; a tree without the fft drawer takes
 ``--rows pixel,clipdraw,vqgan``, one without the image inputs
 ``--rows pixel,clipdraw,vqgan,fft``, one without the animation ring
-``--rows pixel,clipdraw,vqgan,fft,image``.)  The image row is the pixel row with
+``--rows pixel,clipdraw,vqgan,fft,image``, one without the ResNet and
+SLIP towers ``--rows pixel,clipdraw,vqgan,fft,image,anim``.)  The rn50 row
+is the pixel row under RN50; the mixed row the pixel row under
+``--perceptors mixed --quality better`` (RN50, ViT-B/16 and SLIP_VITB16,
+36 cuts each).  The image row is the pixel row with
 ``chip_smoke.py``'s image inputs (an init image, an image prompt, spot and
 spot_off prompts, a target image and a label, PNGs written per row).  The
 anim row is the pixel row with ``chip_smoke.py``'s animation inputs (3
@@ -37,7 +41,8 @@ blocked (the default, blocks of 8 steps as CUDA graph replays):
   device busy per step (the union of device intervals), and the cutout
   module's device ms per step (the bank's forward and its backward,
   bracketed by 1-cycle ``torch.cuda._sleep`` marker kernels on the stream,
-  inside the graph too) with its kernels by name.
+  inside the graph too) with its kernels by name, and the step's 20
+  costliest kernels by name (count and device ms per step; JSON only).
 
 Before the rows, at the flagship bank (the 224x224x3 work canvas of a
 384x216 canvas, 64 cuts of 224, bf16, the step's own draws), each as summed
@@ -112,7 +117,7 @@ def _device_profile(events, steps):
 
     dev = sorted((e for e in events if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
-    inside, cut_us, cut_names, intervals = False, 0.0, {}, []
+    inside, cut_us, cut_names, intervals, all_names = False, 0.0, {}, [], {}
     kernels = 0
     for e in dev:
         if MARKER in e.name:
@@ -120,6 +125,8 @@ def _device_profile(events, steps):
             continue
         start, end = e.time_range.start, e.time_range.end
         intervals.append((start, end))
+        n, us = all_names.get(e.name, (0, 0.0))
+        all_names[e.name] = (n + 1, us + end - start)
         if not e.name.startswith(("Memcpy", "Memset")):
             kernels += 1
         if inside:
@@ -137,6 +144,7 @@ def _device_profile(events, steps):
     if cur is not None:
         busy += cur[1] - cur[0]
     top = sorted(cut_names.items(), key=lambda kv: -kv[1][1])
+    top_all = sorted(all_names.items(), key=lambda kv: -kv[1][1])
     return {
         "device_events_per_step": len(intervals) / steps,
         "kernels_per_step": kernels / steps,
@@ -144,6 +152,7 @@ def _device_profile(events, steps):
         "cutouts_device_ms": cut_us / 1e3 / steps,
         "cutouts_kernels_per_step": sum(n for n, _ in cut_names.values()) / steps,
         "cutouts_top": [[name[:90], n / steps, us / 1e3 / steps] for name, (n, us) in top[:12]],
+        "top_kernels": [[name[:90], n / steps, us / 1e3 / steps] for name, (n, us) in top_all[:20]],
     }
 
 
@@ -318,7 +327,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pixray_tpu_torch is measured")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft,image,anim")
+    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft,image,anim,rn50,mixed")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -339,7 +348,7 @@ def main():
            "flagship_bank": flagship_bank(cs), "flagship_strokes": flagship_strokes(cs)}
     _install_markers()
     configs = {"pixel": cs.PIXEL_CONFIG, "clipdraw": cs.CLIPDRAW_CONFIG, "vqgan": cs.VQGAN_CONFIG,
-               "fft": cs.FFT_CONFIG}
+               "fft": cs.FFT_CONFIG, "rn50": cs.RN50_CONFIG, "mixed": cs.MIXED_CONFIG}
     from pixray_tpu_torch.engine.core import Engine
 
     modes = (False, True) if hasattr(Engine, "_block_size") else (False,)  # a tree without blocks: eager only

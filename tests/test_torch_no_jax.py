@@ -20,7 +20,9 @@ the engine: AdamP under ``--checkpoint_every`` and ``--profile_dir``,
 streamed (``do_run(settings, return_display=True)`` until it returns
 True), and a second run resumed from its checkpoint; ``--make_video``
 (PIL allowed for the GIF, imageio refused); the animation ring over init,
-prompt and target image globs (PIL allowed).
+prompt and target image globs (PIL allowed).  Then the two other tower
+kinds, blocked: a tiny ModifiedResNet and a tiny timm (SLIP-style) trunk,
+put into the port's config tables by the subprocess, beside TinyTest.
 """
 
 import os
@@ -29,6 +31,8 @@ import sys
 import textwrap
 
 import numpy as np
+
+from torch_parity import TINY_CLIP, TINY_SLIP
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -46,6 +50,7 @@ SCRIPT = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     import pixray_tpu_torch as pixray
+    exec(SETUP)
 
     pixray.reset_settings()
     pixray.add_settings(**dict(dict(prompts="sunrise", clip_models="TinyTest", size=[64, 36],
@@ -66,11 +71,12 @@ SCRIPT = textwrap.dedent("""
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "chex", "pixray_tpu", "PIL", "yaml", "regex", "ftfy", "matplotlib")
 
 
-def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False, stream=False, final_checkin=True):
+def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False, stream=False, final_checkin=True,
+                 setup=""):
     outdir = str(tmp_path / "run")
     env = dict(os.environ, PYTHONPATH=REPO)
     head = (f"OUTDIR = {outdir!r}\nDRAWER = {drawer!r}\nBLOCKED = {blocked!r}\nEXPECT_BLOCK = {expect_block!r}\n"
-            f"STREAM = {stream!r}\n")
+            f"STREAM = {stream!r}\nSETUP = {setup!r}\n")
     proc = subprocess.run(
         [sys.executable, "-c", head + SCRIPT],
         cwd=str(tmp_path), env=env, capture_output=True, text=True, timeout=300,
@@ -177,3 +183,15 @@ def test_animation_without_jax(tmp_path):
         blocked=blocked, final_checkin=False)
     assert sorted(os.listdir(anim)) == ["anim.gif", "target0.png", "target1.png"]
     assert "anim: 1/2 iter: 2" in stdout
+
+
+# the tiny towers of tests/torch_parity.py, put into the port's tables in the subprocess
+TINY_TOWERS = "from pixray_tpu_torch.models.clip import configs as cfg\n" + "".join(
+    f"cfg.{table}[{name!r}] = cfg.CLIPConfig(**{fields!r})\n"
+    for table, towers in (("CLIP_CONFIGS", TINY_CLIP), ("SLIP_CONFIGS", TINY_SLIP)) for name, fields in towers.items())
+
+
+def test_resnet_and_timm_towers_run_without_jax(tmp_path):
+    _, stdout = _run_blocked(tmp_path, dict(drawer="pixel", clip_models="TinyRN,TinyTimm48,TinyTest", iterations=10,
+                                            save_every=100), expect_block=True, setup=TINY_TOWERS)
+    assert "losses: " in stdout and stdout.count("WARNING: no checkpoint found for perceptor") == 3
