@@ -132,12 +132,35 @@ Phases, each fatal on failure (exit code 1, no result line):
    and SLIP_VITB16 in SLIP's DDP layout (slip_base_100ep.pt), seeded random
    weights written under $PIXRAY_TPU_MODELS: the perceptor built from each
    file holds the in-memory state dict's weights and gives its bf16 image
-   embeddings, bitwise.
+   embeddings, bitwise;
+21. vdiff agreement: tiny_up, tiny_up_mod32 (tiny_up_mod's spec with
+   TinyTest's 32-wide clip embedding) and tiny_test under the log schedule
+   and --vdiff_skip 10, card against CPU as in 5, the re-noise draws too;
+22. vdiff row: the bench's last row (bench.py:108: yfcc_2 on random weights
+   drawn on the card, 256x256, ViT-B/32, 64 cuts), 9 warm-up and 24 timed
+   steps, eager (the drawer re-noises after every step): finite losses,
+   one K1 and one K2 per step, a fresh optimizer after every step from 1
+   on at min(sigma / alpha * 0.001, 0.01) of its schedule entry, the latent
+   re-noised, the 256x256 PNG; one step's host enqueue, device busy and
+   events, peak device memory, the weights' init seconds;
+23. cc12m: --vdiff_model cc12m_1 --clip_models ViT-B/16 at 256x256, 5
+   steps: the clip embedding is the prompt's normalized ViT-B/16 embedding,
+   finite losses, ms per step, peak memory;
+24. cogs/pixray_vdiff.yaml as written (quality better: RN50, ViT-B/32,
+   ViT-B/16), cut to 9 steps: each tower's term, 3 K1 and 3 K2 per step;
+25. ESRGAN: the bench's one-shot 4x pass (bench.py:158, 256x256 ->
+   1024x1024, 23 blocks, random weights) in bf16 and f32 beside its FLOP
+   count, and a tiny RRDBNet card against CPU;
+26. super_resolution: the pixel row's settings under --drawer
+   super_resolution, blocked vs eager as in 5b, then 9 + 24 steps timed
+   blocked with one K1 and one K2 per step.
 
 The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
 towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
 
-Then one JSON line with the kernels' numbers, and as the last line
+Then one JSON line with the kernels' numbers (K1/K2 also with their
+launches on the pixel, vdiff, cc12m, recipe and super_resolution rows), and
+as the last line
 {"ok": true, "device": {...}}.
 """
 
@@ -225,6 +248,7 @@ AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTes
 BLOCKED_STATE_RTOL = 0.25
 BLOCKED_FLOOR = 1e-5
 BLOCKED_STEPS = 16  # after step 0; vqgan 8
+PROFILER_PAUSE_S = 0.03  # host idle on both sides of each traced call (profiled_events)
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
 
 
@@ -318,16 +342,22 @@ def profiled_events(step, steps):
     """The device events of ``steps`` calls of ``step`` under torch.profiler,
     each call ended by a synchronize.  One call before them is the
     profiler's warm-up step: it starts tracing the card late, and a fresh
-    window loses its first kernels."""
+    window loses its first kernels.  Each call sits between two host pauses
+    of ``PROFILER_PAUSE_S``: the profiler drops device events that lie near
+    the edges of its window, up to all of them in a window of a few short
+    kernels, several windows in a row (``port_profiler_windows.py``)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     traces = []
-    with torch.profiler.profile(activities=acts, schedule=torch.profiler.schedule(wait=0, warmup=1, active=steps),
+    schedule = torch.profiler.schedule(wait=0, warmup=1, active=steps, repeat=1)
+    with torch.profiler.profile(activities=acts, schedule=schedule,
                                 on_trace_ready=lambda p: traces.append(list(p.events()))) as prof:
         for _ in range(steps + 1):
+            time.sleep(PROFILER_PAUSE_S)
             step()
             torch.cuda.synchronize()
+            time.sleep(PROFILER_PAUSE_S)
             prof.step()
     if not traces:
         fail("the profiler finished no window")
@@ -364,6 +394,7 @@ def kernel_times(fn, reps=5, tries=3):
         for _ in range(reps):
             fn()
 
+    windows = []
     for _ in range(tries):
         sums, counts = {}, {}
         for ev in profiled_events(step, 1):
@@ -371,7 +402,8 @@ def kernel_times(fn, reps=5, tries=3):
             counts[ev.name] = counts.get(ev.name, 0) + 1
         if counts and all(c % reps == 0 for c in counts.values()):
             return {name: us / 1e3 / reps for name, us in sums.items()}
-    fail(f"the profiler dropped kernels in {tries} windows: {counts}")
+        windows.append(counts)
+    fail(f"the profiler dropped kernels of {reps} calls in {tries} windows: {windows}")
 
 
 def device_ms(fn, reps=5, name=None):
@@ -1196,10 +1228,12 @@ def wide_codebook_weights(name):
     return sd
 
 
-def phase_agreement(tmp, drawer_config, label, state_dicts=None, **extra):
+def phase_agreement(tmp, drawer_config, label, state_dicts=None, renoise=False, **extra):
     """TinyTest on the card vs on the CPU, same latent, weights and draws:
     per-step losses.  Random weights come from fixed seeds, so both engines
-    hold the same ones unless ``state_dicts`` gives them."""
+    hold the same ones unless ``state_dicts`` gives them.  ``renoise``: the
+    drawer re-noises its latent after each step (vdiff), both engines from
+    one normal draw of the CPU's."""
     import torch
 
     from pixray_tpu_torch.config import apply_settings
@@ -1215,10 +1249,13 @@ def phase_agreement(tmp, drawer_config, label, state_dicts=None, **extra):
     for k, v in cpu.drawer_params.items():
         gpu.drawer_params[k] = v.to("cuda")
     diffs = []
+    gen = torch.Generator().manual_seed(7)
     for it in range(3):
         draws = cpu.draw_step()
-        cpu.train(it, draws)
-        gpu.train(it, _draws_to(draws, torch.device("cuda"), torch.bfloat16))
+        noise = torch.randn(cpu.z.shape, generator=gen) if renoise else None
+        cpu.train(it, draws, renoise=noise)
+        gpu.train(it, _draws_to(draws, torch.device("cuda"), torch.bfloat16),
+                  renoise=None if noise is None else noise.to("cuda"))
         a = cpu.last_loss_values.numpy()
         b = gpu.last_loss_values.float().cpu().numpy()
         diffs.append(float(abs(a - b).max()))
@@ -1229,7 +1266,7 @@ def phase_agreement(tmp, drawer_config, label, state_dicts=None, **extra):
         fail(f"{label} card run disagrees with the CPU run: {worst}")
 
 
-def drive_path(config, tmp, steps, warmup, before=None):
+def drive_path(config, tmp, steps, warmup, before=None, on_engine=None):
     """An Engine on the card, stepped ``steps`` times with a host read of the
     loss after each (as bench.py reads it), blocked unless the config says
     ``steps_per_call`` 1; every launch counter is set to 0 just before the
@@ -1239,7 +1276,8 @@ def drive_path(config, tmp, steps, warmup, before=None):
     the next one before it, so the steps timed are those dispatched after
     the synchronize at ``warmup`` (every one of them finished by the final
     synchronize), not the steps walked.  ``before``: a dict that receives
-    a copy of the initial latent as "z"."""
+    a copy of the initial latent as "z"; ``on_engine``: called with the
+    engine before its first step."""
     import torch
 
     from pixray_tpu_torch.config import apply_settings
@@ -1252,6 +1290,8 @@ def drive_path(config, tmp, steps, warmup, before=None):
     init_s = time.perf_counter() - t0
     if before is not None:
         before["z"] = engine.z.clone()
+    if on_engine is not None:
+        on_engine(engine)
     dispatched = lambda it: getattr(engine, "steps_dispatched", it)  # a tree without blocks: one per step
 
     cuda_warp.reset_launch_counts()
@@ -2171,6 +2211,299 @@ def slip_layout(sd):
     return out
 
 
+# bench.py's last row, CONFIGS["vdiff"] (bench.py:108): the vdiff drawer's
+# default model (yfcc_2, 968 M parameters, random weights) at 256x256
+VDIFF_CONFIG = dict(PIXEL_CONFIG, drawer="vdiff", size=[256, 256])
+CC12M_CONFIG = dict(VDIFF_CONFIG, vdiff_model="cc12m_1", clip_models="ViT-B/16")  # conditioned on ViT-B/16
+CC12M_STEPS = 5
+VDIFF_RECIPE_STEPS = 9  # cogs/pixray_vdiff.yaml cut to 9 steps
+VDIFF_PROFILE_STEPS = 3
+# the pixel row's settings under the super_resolution drawer (Real-ESRGAN 4x, random weights)
+SR_CONFIG = dict(PIXEL_CONFIG, drawer="super_resolution")
+# the JAX package's tiny_up_mod takes a 12-wide clip embedding, TinyTest
+# gives 32: the agreement runs the same spec 32 wide, put into the port's
+# table for that phase only
+TINY_UP_MOD32 = dict(clip_embed_dim=32, mapping_width=16, mapping_ff=8, clip_model="TinyTest")
+ESRGAN_ATOL = 1e-3  # a tiny RRDBNet in f32 (TF32 off), card against CPU
+ESRGAN_REPS = 3
+
+
+def vdiff_weights(name):
+    """The vdiff drawer's seeded random weights for model ``name``, made on
+    the CPU (the drawer draws them on its device), for both engines of an
+    agreement phase."""
+    from pixray_tpu_torch.drawers.vdiff import build_vdiff_model
+
+    model, _, _, _ = build_vdiff_model(name, "cpu")
+    return model.state_dict()
+
+
+def phase_vdiff_agreement(tmp):
+    """tiny_up, tiny_up_mod32 (TinyTest's clip embedding) and tiny_test, card
+    against CPU as phase 5: the same latent, weights, draws and re-noise
+    draws, per-step losses within AGREE_ATOL."""
+    from pixray_tpu_torch.models import vdiff_upstream as U
+
+    U.UPSTREAM_SPECS["tiny_up_mod32"] = U.build_spec("tiny_up_mod32", 32, (8, 16), (1,), "modconv", **TINY_UP_MOD32)
+    try:
+        for name in ("tiny_up", "tiny_up_mod32", "tiny_test"):
+            with tempfile.TemporaryDirectory() as sub:
+                phase_agreement(sub, VDIFF_CONFIG, f"vdiff {name}", state_dicts={"vdiff": vdiff_weights(name)},
+                                renoise=True, vdiff_model=name, vdiff_schedule="log", vdiff_skip=10)
+    finally:
+        del U.UPSTREAM_SPECS["tiny_up_mod32"]
+
+
+def watch_vdiff(engine):
+    """Wrap the engine's re-noising and optimizer rebuilds: per step (its
+    ``post_step`` call) whether the latent changed, and per rebuild the
+    step before it, the new state's learning rate and the drawer's."""
+    import torch
+
+    record = {"post": [], "opts": []}
+    post, build = engine.drawer.post_step, engine._build_optimizer
+
+    def watched_post(z, cur_it, noise):
+        before = z.clone()
+        out = post(z, cur_it, noise)
+        record["post"].append((cur_it, out is not None and not torch.equal(out, before)))
+        return out
+
+    def watched_build():
+        build()
+        record["opts"].append((record["post"][-1][0], float(engine.opt_state.learning_rate),
+                               engine.drawer.learning_rate))
+
+    engine.drawer.post_step, engine._build_optimizer = watched_post, watched_build
+    return record
+
+
+def check_vdiff_schedule(label, engine, record, steps):
+    """A fresh optimizer after every step from 1 on, at min(sigma / alpha *
+    0.001, 0.01) of the step's schedule entry (float32 division, as the
+    JAX drawer takes it), and a re-noised latent."""
+    import numpy as np
+
+    alphas, sigmas = engine.drawer.alphas_host, engine.drawer.sigmas_host
+    want = [min(float(sigmas[i] / np.maximum(alphas[i], np.float32(1e-8))) * 0.001, 0.01) for i in range(1, steps)]
+    got = [lr for _, _, lr in record["opts"]]
+    if [it for it, _, _ in record["opts"]] != list(range(1, steps)) or got != want:
+        fail(f"{label}: optimizer rebuilds {[(it, lr) for it, _, lr in record['opts']]}, expected one after each "
+             f"step 1..{steps - 1} at {want}")
+    if not all(opt_lr == np.float32(lr) for _, opt_lr, lr in record["opts"]):
+        fail(f"{label}: the optimizers' learning rates {[o for _, o, _ in record['opts']]} are not the drawer's")
+    renoised = [it for it, changed in record["post"] if changed]
+    if renoised != list(range(1, steps)):
+        fail(f"{label}: the latent was re-noised after steps {renoised}, expected 1..{steps - 1}")
+    return want
+
+
+def eager_split(engine, first, steps):
+    """Host ms enqueueing ``engine.train`` and ms per step until the device
+    is done (medians over ``steps`` steps, each ended by a synchronize),
+    then device busy and events per step from ``torch.profiler`` over
+    ``steps`` more.  Returns (enqueue ms, step ms, busy ms, events, next step)."""
+    import torch
+
+    enqueue, total = [], []
+    it = first
+    torch.cuda.synchronize()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        engine.train(it)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        enqueue.append(1e3 * (t1 - t0))
+        total.append(1e3 * (time.perf_counter() - t0))
+        it += 1
+    its = iter(range(it, it + steps + 1))
+    events = profiled_events(lambda: engine.train(next(its)), steps)
+    return (statistics.median(enqueue), statistics.median(total), busy_ms(events) / steps, len(events) / steps,
+            it + steps + 1)
+
+
+def phase_vdiff_path(tmp, card):
+    """The bench's vdiff row at full width (yfcc_2 on random weights,
+    256x256, "sunrise", ViT-B/32, 64 cuts): 9 warm-up and 24 timed steps,
+    every one eager (the drawer re-noises after each); finite losses (the
+    bench's gate for this row, bench.py:121), one K1 and one K2 per step,
+    a fresh optimizer after every step from 1 on at the schedule's learning
+    rate, the latent re-noised, the 256x256 PNG; then the split of a step
+    and the device's share."""
+    import torch
+
+    steps = WARMUP_STEPS + TIMED_STEPS
+    extra = 2 * VDIFF_PROFILE_STEPS + 1
+    torch.cuda.reset_peak_memory_stats()
+    holder = {}
+    engine, losses, launches, init_s, elapsed, timed = drive_path(
+        dict(VDIFF_CONFIG, iterations=steps + extra), tmp, steps, WARMUP_STEPS,
+        on_engine=lambda e: holder.update(record=watch_vdiff(e)))
+    record = holder["record"]
+    if engine.dispatched_blocks:
+        fail(f"vdiff: blocks {engine.dispatched_blocks}: a drawer with post_step runs eager")
+    check_launches("vdiff", launches, {"warp_fwd": steps, "warp_bwd": steps, "strokes_fwd": 0,
+                                       "strokes_fwd_store": 0, "strokes_bwd": 0})
+    lrs = check_vdiff_schedule("vdiff", engine, record, steps)
+    check_png("vdiff", os.path.join(tmp, "output.png"), VDIFF_CONFIG["size"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    enqueue, step_ms, busy, events, _ = eager_split(engine, steps, VDIFF_PROFILE_STEPS)
+    rate = timed / elapsed
+    n_params = sum(p.numel() for p in engine.drawer.model.parameters())
+    print(f"vdiff path: yfcc_2 ({n_params / 1e6:.1f} M parameters, random weights drawn on the card in "
+          f"{engine.drawer.init_seconds:.2f} s), 256x256, ViT-B/32 (random weights), 64 cuts, eager: init "
+          f"{init_s:.1f} s, {rate:.3f} steps/s ({1000 / rate:.2f} ms/step) over the {timed} steps after "
+          f"{WARMUP_STEPS} warm-up; one step {step_ms:.2f} ms, host enqueue {enqueue:.2f} ms, device busy {busy:.2f} "
+          f"ms in {events:.1f} device events (medians / {VDIFF_PROFILE_STEPS} profiled steps); peak device memory "
+          f"{peak:.2f} GiB; on {card}", flush=True)
+    print(f"vdiff losses (finite): first {[round(v, 4) for v in losses[:3]]} last {[round(v, 4) for v in losses[-3:]]}"
+          f"; a fresh Adam after each step 1..{steps - 1} at the schedule's rate ({lrs[0]:.3g} .. {lrs[-1]:.3g}); the "
+          f"latent re-noised after each; K1/K2 launches per step {launches['warp_fwd'] / steps:.2f} / "
+          f"{launches['warp_bwd'] / steps:.2f} over {steps} steps", flush=True)
+    return launches, steps
+
+
+def phase_cc12m(tmp, card):
+    """--vdiff_model cc12m_1 --clip_models ViT-B/16 at 256x256, a few steps:
+    the clip embedding set, equal to the prompt's normalized ViT-B/16 text
+    embedding (one prompt of weight 1), finite losses."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    engine, losses, launches, init_s, elapsed, timed = drive_path(
+        dict(CC12M_CONFIG, iterations=CC12M_STEPS + 2 * VDIFF_PROFILE_STEPS + 1), tmp, CC12M_STEPS, 1)
+    embed = engine.drawer.model_params.get("clip_embed")
+    if embed is None or engine.drawer_params.get("clip_embed") is not embed:
+        fail("cc12m: no clip embedding set in the drawer's parameters")
+    text = engine.perceptors[0].encode_text("sunrise").float()
+    want = text / text.norm(dim=-1, keepdim=True)
+    gap = float((embed.float() - want.reshape(embed.shape)).abs().max())
+    if not gap <= 1e-5:
+        fail(f"cc12m: the clip embedding is {gap} from the normalized prompt embedding")
+    check_launches("cc12m", launches, {"warp_fwd": CC12M_STEPS, "warp_bwd": CC12M_STEPS})
+    enqueue, step_ms, busy, events, _ = eager_split(engine, CC12M_STEPS, VDIFF_PROFILE_STEPS)
+    print(f"cc12m row: cc12m_1 ({sum(p.numel() for p in engine.drawer.model.parameters()) / 1e6:.1f} M parameters, "
+          f"random weights), ViT-B/16, 256x256, 64 cuts, eager: init {init_s:.1f} s, {1e3 * elapsed / timed:.2f} ms "
+          f"per step over {timed} steps after step 0; one step {step_ms:.2f} ms, host enqueue {enqueue:.2f} ms, "
+          f"device busy {busy:.2f} ms in {events:.1f} device events; clip embedding {tuple(embed.shape)} = the normalized prompt "
+          f"embedding (max gap {gap:.2g}); finite losses {[round(v, 4) for v in losses]}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; on {card}", flush=True)
+    return launches, CC12M_STEPS
+
+
+def phase_vdiff_recipe(tmp, card):
+    """cogs/pixray_vdiff.yaml as written (quality better: RN50, ViT-B/32,
+    ViT-B/16; yfcc_2 on random weights), cut to 9 steps: each tower's term,
+    3 K1 and 3 K2 per step, finite losses, the PNG at the recipe's size."""
+    import yaml
+
+    from pixray_tpu_torch.utils import get_file_path
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "cogs", "pixray_vdiff.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg.pop("outdir")
+    cfg.update(prompts="sunrise", seed=1, iterations=VDIFF_RECIPE_STEPS, save_intermediates=False)
+    engine, losses, launches, init_s, elapsed, timed = drive_path(cfg, tmp, VDIFF_RECIPE_STEPS, 1)
+    towers = engine.args.clip_models
+    if towers != ["RN50", "ViT-B/32", "ViT-B/16"]:
+        fail(f"pixray_vdiff: towers {towers}, quality better asks for RN50, ViT-B/32, ViT-B/16")
+    rows = len(engine.loss_names) // len(towers)  # the text prompt, then the default vector prompt
+    names = [f"{m}:prompt{i}" for m in towers for i in range(rows)]
+    if engine.loss_names != names or rows < 1:
+        fail(f"pixray_vdiff: terms {engine.loss_names}, expected {names}")
+    n = VDIFF_RECIPE_STEPS
+    check_launches("pixray_vdiff", launches, {"warp_fwd": 3 * n, "warp_bwd": 3 * n, "strokes_fwd": 0,
+                                              "strokes_fwd_store": 0, "strokes_bwd": 0})
+    size = (engine.side_x, engine.side_y)
+    check_png("pixray_vdiff", get_file_path(tmp, engine.args.output, ".png"), size)
+    print(f"recipe pixray_vdiff: vdiff yfcc_2 {size[0]}x{size[1]} (generated {engine.drawer.gen_width}x"
+          f"{engine.drawer.gen_height}), towers {','.join(towers)}, {engine.args.num_cuts} cuts each, eager: init "
+          f"{init_s:.1f} s, {1e3 * elapsed / timed:.2f} ms per step over {timed} steps after step 0; terms "
+          f"{engine.loss_names}; finite losses; K1/K2 launches per step {launches['warp_fwd'] / n:.2f} / "
+          f"{launches['warp_bwd'] / n:.2f}; on {card}", flush=True)
+    return launches, n
+
+
+def conv_flops(model, h, w):
+    """Multiply-adds × 2 of an RRDBNet's convolutions at an (h, w) input."""
+    import torch
+
+    total = 0
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.Conv2d):
+            scale = {"conv_up1": 2, "conv_up2": 4, "conv_hr": 4, "conv_last": 4}.get(name, 1)  # after the upsamplings
+            total += 2 * m.in_channels * m.out_channels * m.kernel_size[0] * m.kernel_size[1] * h * w * scale * scale
+    return total
+
+
+def phase_esrgan(card):
+    """The bench's one-shot Real-ESRGAN 4x pass (bench_esrgan_once,
+    bench.py:158): 256x256 -> 1024x1024 through the 23-block RRDBNet on
+    random weights, in bf16 (the port's rung under --precision bf16) and in
+    f32, best of 3, each forced by a host read of the sum as the bench
+    does; and a tiny RRDBNet (16 features, 1 block, growth 8) on the card
+    against the CPU in f32."""
+    import torch
+
+    from pixray_tpu_torch.models.esrgan import RRDBNet, init_random_
+
+    dev = torch.device("cuda")
+    tiny = init_random_(RRDBNet(num_feat=16, num_block=1, num_grow_ch=8), torch.Generator().manual_seed(0)).eval()
+    x = torch.rand((1, 3, 24, 40), generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = tiny(x)
+        got = tiny.to(dev)(x.to(dev)).cpu()
+    err = float((got - want).abs().max())
+    if not (got.shape == (1, 3, 96, 160) and err <= ESRGAN_ATOL):
+        fail(f"esrgan: the tiny RRDBNet on the card is {err} from the CPU (tol {ESRGAN_ATOL}), shape {got.shape}")
+    model = init_random_(RRDBNet().to(dev), torch.Generator(device=dev).manual_seed(1)).eval().requires_grad_(False)
+    img = torch.rand((1, 3, 256, 256), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    flops = conv_flops(model, 256, 256)
+    secs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model.to_compute_dtype(dtype)
+        with torch.no_grad():
+            out = model(img)
+            if tuple(out.shape) != (1, 3, 1024, 1024) or not bool(torch.isfinite(out).all()):
+                fail(f"esrgan {dtype}: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+            best = math.inf
+            for _ in range(ESRGAN_REPS):
+                t0 = time.perf_counter()
+                float(model(img).sum())
+                best = min(best, time.perf_counter() - t0)
+        secs[str(dtype).split(".")[-1]] = best
+    peak = {"bfloat16": 989e12, "float32": F32_FLOPS}
+    print(f"esrgan: the one-shot 4x pass 256x256 -> 1024x1024, RRDBNet 23 blocks (random weights), "
+          f"{flops / 1e12:.3f} TFLOP of convolutions: "
+          + ", ".join(f"{k} {v:.4f} s ({flops / v / 1e12:.1f} TFLOP/s, bound {flops / peak[k]:.4f} s)"
+                      for k, v in secs.items())
+          + f"; tiny RRDBNet card vs CPU max |diff| {err:.3g} (tol {ESRGAN_ATOL}); on {card}", flush=True)
+    return secs
+
+
+def phase_sr_path(tmp, card):
+    """The super_resolution row: the pixel row's settings (384x216,
+    ViT-B/32, 64 cuts) under --drawer super_resolution (the full RRDBNet,
+    random weights), blocked, timed as the pixel row: finite losses, one K1
+    and one K2 per step, the PNG."""
+    steps = WARMUP_STEPS + TIMED_STEPS
+    engine, losses, launches, init_s, elapsed, timed = drive_path(dict(SR_CONFIG, iterations=steps), tmp,
+                                                                  steps, WARMUP_STEPS)
+    capture_s = check_blocked("super_resolution", engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
+    check_launches("super_resolution", launches, {"warp_fwd": ran, "warp_bwd": ran, "strokes_fwd": 0,
+                                                  "strokes_fwd_store": 0, "strokes_bwd": 0})
+    check_png("super_resolution", os.path.join(tmp, "output.png"), SR_CONFIG["size"])
+    rate = timed / elapsed
+    print(f"super_resolution path: RRDBNet 23 blocks (random weights) from a 96x54 latent to 384x216, ViT-B/32, "
+          f"64 cuts, blocked: init {init_s:.1f} s, capture {capture_s:.2f} s, {rate:.3f} steps/s "
+          f"({1000 / rate:.2f} ms/step) over the {timed} steps dispatched after {WARMUP_STEPS} warm-up; finite losses "
+          f"first {[round(v, 4) for v in losses[:3]]} last {[round(v, 4) for v in losses[-3:]]}; K1/K2 launches per "
+          f"step {launches['warp_fwd'] / ran:.2f} / {launches['warp_bwd'] / ran:.2f} over {ran} steps; on {card}",
+          flush=True)
+    return launches, ran
+
+
 def phase_checkpoints(tmp):
     """Perceptor checkpoints found on disk: a full-width RN50 state dict in
     OpenAI's layout (seeded random weights, ``torch.save``) as RN50.pt, and
@@ -2504,7 +2837,7 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             phase_blocked(tmp, config, label, steps, card)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, _ = phase_main_path(tmp, card)
+        launches, main_steps = phase_main_path(tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         phase_rn50_path(tmp, card)
     for config, label in ((BEST_CONFIG, "best"), (MIXED_CONFIG, "mixed better")):
@@ -2545,18 +2878,33 @@ def main():
         phase_anim_agreement(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         phase_checkpoints(tmp)
+    rows = {"pixel": (launches, main_steps)}
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_vdiff_agreement(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["vdiff"] = phase_vdiff_path(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["cc12m"] = phase_cc12m(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["pixray_vdiff.yaml"] = phase_vdiff_recipe(tmp, card)
+    phase_esrgan(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_blocked(tmp, SR_CONFIG, "super_resolution", BLOCKED_STEPS, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows["super_resolution"] = phase_sr_path(tmp, card)
+    per_row = lambda counter: {row: {"launches": got[counter], "steps": n} for row, (got, n) in rows.items()}
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
     warp_src = "pixray_tpu_torch/csrc/warp.cu"
     bf = bank[0]
     kernels = [
         {"name": "bank_fwd (K1)", "route": "cuda", "source": warp_src, "replaces": replaces.format(549),
-         "launches": launches["warp_fwd"],
+         "launches": launches["warp_fwd"], "launches_by_row": per_row("warp_fwd"),
          "max_abs_err": max([flagship["fwd_err"], small["fwd_err"]] + [r["fwd_err"] for r in [*bank, *sizes]]),
          "ms": bf["fwd_ms"], "plain_ms": bf["fwd_plain_ms"], "bound_ms": bf["fwd_bound_ms"],
          "bound_by": bf["fwd_bound_by"], "library_ms": bf["fwd_lib_ms"]},
         {"name": "bank_bwd (K2)", "route": "cuda", "source": warp_src, "replaces": replaces.format(693),
-         "launches": launches["warp_bwd"],
+         "launches": launches["warp_bwd"], "launches_by_row": per_row("warp_bwd"),
          "max_abs_err": max([flagship["bwd_err"], small["bwd_err"]] + [r["bwd_err"] for r in [*bank, *sizes]]),
          "ms": bf["bwd_ms"], "plain_ms": bf["bwd_plain_ms"], "bound_ms": bf["bwd_bound_ms"],
          "bound_by": bf["bwd_bound_by"], "library_ms": bf["bwd_lib_ms"]},

@@ -1,5 +1,6 @@
-"""Drawer registry of the port: ``pixel``, ``fast_pixel``, ``fft``, ``clipdraw``,
-``line_sketch`` and ``vqgan`` so far (``vdiff`` and ``super_resolution`` raise)."""
+"""Drawer registry of the port: every drawer of the JAX package (``pixel``,
+``fast_pixel``, ``fft``, ``clipdraw``, ``line_sketch``, ``vqgan``, ``vdiff``,
+``super_resolution``); another name raises."""
 
 from __future__ import annotations
 
@@ -12,6 +13,8 @@ _DRAWER_MODULES = {
     "clipdraw": ("pixray_tpu_torch.drawers.clipdraw", "ClipDrawer"),
     "line_sketch": ("pixray_tpu_torch.drawers.line_sketch", "LineDrawer"),
     "vqgan": ("pixray_tpu_torch.drawers.vqgan", "VqganDrawer"),
+    "vdiff": ("pixray_tpu_torch.drawers.vdiff", "VdiffDrawer"),
+    "super_resolution": ("pixray_tpu_torch.drawers.super_resolution", "SuperResolutionDrawer"),
 }
 
 

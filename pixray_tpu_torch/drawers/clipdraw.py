@@ -122,7 +122,7 @@ class ClipDrawer:
         return PerGroupAdam({"points": 1.0 / decay_divisor, "widths": 0.1 / decay_divisor,
                              "colors": 0.01 / decay_divisor})
 
-    def synth(self, model_params, z):
+    def synth(self, model_params, z, iteration=None):
         bg = torch.ones((self.canvas_height, self.canvas_width, 3), device=z["points"].device)
         out = render_strokes_auto(z["points"], z["widths"], z["colors"], model_params["basis"],
                                   self.canvas_height, self.canvas_width, bg)

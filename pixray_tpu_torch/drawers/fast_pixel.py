@@ -63,6 +63,6 @@ class FastPixelDrawer:
     def clip_params(self, z):
         return z.clamp(0.0, 1.0)
 
-    def synth(self, model_params, z):
+    def synth(self, model_params, z, iteration=None):
         """(rows, cols, 3) latent → (H, W, 3) canvas in [0, 1]."""
         return clamp_with_grad(nearest_resize(z, self.canvas_height, self.canvas_width), 0.0, 1.0)

@@ -141,7 +141,7 @@ class FftDrawer:
         return z
 
     # ------------------------------------------------------------------- render
-    def synth(self, model_params, z):
+    def synth(self, model_params, z, iteration=None):
         """The latent → (H, W, 3) canvas in (0, 1)."""
         h, w = self.canvas_height, self.canvas_width
         if self.fft_use == "fft":

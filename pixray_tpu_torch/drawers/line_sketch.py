@@ -108,7 +108,7 @@ class LineDrawer:
         # filled on the device (no copy from the host, so a CUDA graph can capture it)
         return torch.stack([z["points"].new_full((), c) for c in PAPER_COLOR])
 
-    def synth(self, model_params, z):
+    def synth(self, model_params, z, iteration=None):
         bg = self._paper(z).expand(self.canvas_height, self.canvas_width, 3)
         colors = torch.cat([z["points"].new_zeros((self.num_paths, 3)), z["points"].new_ones((self.num_paths, 1))], 1)
         out = render_strokes_auto(z["points"], z["widths"], colors, model_params["basis"],

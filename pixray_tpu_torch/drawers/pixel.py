@@ -3,8 +3,8 @@
 Grid sizing, latent init, image encoding and the post-step clamp follow
 the JAX drawer.  The render is the separable two-matmul form
 (``ops/cellrender.py``), which is exact for the rectangle grid; the other
-cell geometries (rectshift, hex, tri, diamond, knit) and SVG export are not
-ported yet.
+cell geometries (rectshift, hex, tri, diamond, knit) are not ported yet.
+``to_svg`` writes one polygon per cell, as the JAX drawer does.
 """
 
 from __future__ import annotations
@@ -148,8 +148,26 @@ class PixelDrawer:
         return torch.cat([z[:, :3].clamp(0.0, 1.0), z[:, 3:].clamp(alpha_min, 1.0)], dim=1)
 
     # ------------------------------------------------------------------- render
-    def synth(self, model_params, z):
+    def synth(self, model_params, z, iteration=None):
         """(cells, 4) latent → (H, W, 4) canvas in [0, 1]."""
         return composite_cells_separable(
             z, model_params["sep_row_op"], model_params["sep_col_op"], self.num_rows, self.num_cols
         )
+
+    # ------------------------------------------------------------------- export
+    def to_svg(self, z) -> str:
+        """One ``<polygon>`` per cell, filled with its clipped colour and alpha."""
+        self._build_geometry()
+        colors = z.detach().float().cpu().numpy()
+        parts = [
+            f'<svg xmlns="http://www.w3.org/2000/svg" '
+            f'width="{self.canvas_width}" height="{self.canvas_height}" '
+            f'viewBox="0 0 {self.canvas_width} {self.canvas_height}">'
+        ]
+        for poly, rgba in zip(self.polygons, colors):
+            pts = " ".join(f"{x:.2f},{y:.2f}" for x, y in poly)
+            r, g, b = (np.clip(rgba[:3], 0, 1) * 255).astype(int)
+            a = float(np.clip(rgba[3], 0, 1))
+            parts.append(f'<polygon points="{pts}" fill="rgb({r},{g},{b})" fill-opacity="{a:.3f}"/>')
+        parts.append("</svg>")
+        return "\n".join(parts)

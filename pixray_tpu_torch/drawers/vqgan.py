@@ -129,7 +129,7 @@ class VqganDrawer:
         return torch.clamp(z, self.z_min, self.z_max)
 
     # ------------------------------------------------------------------- render
-    def synth(self, model_params, z):
+    def synth(self, model_params, z, iteration=None):
         """(toks_y, toks_x, C) latent → (H, W, 3) canvas in [0, 1]."""
         decoded = self.model.decode_from_continuous(z.permute(2, 0, 1)[None])[0].permute(1, 2, 0)
         return clamp_with_grad((decoded + 1.0) / 2.0, 0.0, 1.0)

@@ -23,11 +23,17 @@ there is none raises (there is no CPU fallback).  The towers and the VQGAN
 compute in bfloat16 on CUDA when ``--precision bf16`` (the default), the
 post-warp epilogue in bfloat16 on CUDA; all in float32 on the CPU.
 
-The latent is a tensor (pixel, vqgan) or a dict of tensors (clipdraw,
-line_sketch); a drawer with ``load_model`` gets the device and dtype for
-its weights; a drawer with ``get_opts`` brings its own optimizer (one Adam
-per group), as in the JAX engine.  ``--init_noise pixels`` off the
-drawer's grid is resized with PIL's Lanczos, as in the JAX engine.
+The latent is a tensor (pixel, vqgan, vdiff, super_resolution, ...) or a
+dict of tensors (clipdraw, line_sketch); a drawer with ``load_model`` gets
+the device and dtype for its weights; a drawer with ``get_opts`` brings
+its own optimizer (one Adam per group), as in the JAX engine.  A drawer
+with ``set_clip_embed`` (vdiff's cc12m models) gets the weighted prompt
+embedding of the perceptor it names; one with ``post_step`` (vdiff) runs
+every step eager, re-noises the latent after it and starts a fresh
+optimizer at its own rate.  ``synth`` takes the iteration (a () device
+tensor in the step, the engine's iteration at a checkin).
+``--init_noise pixels`` off the drawer's grid is resized with PIL's
+Lanczos, as in the JAX engine.
 ``run`` ends, also after an interrupt, with ``--make_video``'s video of
 the per-step frames, the step video of the checkin frames
 (``--save_intermediates``) and ``--save_svg``'s vector export; with
@@ -224,8 +230,11 @@ class Engine:
                     target_specs.append((f1, weight, stop))
                 else:
                     target_specs.extend((f, weight, stop) for f in real_glob(f1))
-        tables, spot_tables, spot_off_tables, target_tables = build_prompt_tables(
-            args, self.perceptors, self.device, target_image_paths=target_specs)
+        tables, spot_tables, spot_off_tables, target_tables, clip_embed = build_prompt_tables(
+            args, self.perceptors, self.device, target_image_paths=target_specs, drawer=self.drawer)
+        if clip_embed is not None and hasattr(self.drawer, "set_clip_embed"):
+            self.drawer.set_clip_embed(clip_embed)
+            self.drawer_params.update({k: v.to(self.device) for k, v in self.drawer.model_params.items()})
 
         # ---- image prompts at the canvas size, (H, W, 3) on the device
         self.image_prompt_images = []
@@ -511,13 +520,17 @@ class Engine:
         return total, values
 
     # ------------------------------------------------------------------ train/run
-    def train(self, cur_it: int, draws=None) -> bool:
+    def train(self, cur_it: int, draws=None, renoise=None) -> bool:
         """One optimizer step + host scheduling; False when the run should end.
 
         The step comes from a dispatched block where one covers ``cur_it``
         (a full-size block is dispatched here when ``_block_size`` allows
         one), else it runs eagerly.  ``draws`` (one dict per batch) replaces
-        this step's random draws and makes it one eager step."""
+        this step's random draws and makes it one eager step.  A drawer with
+        ``post_step`` (vdiff) then re-noises the latent with ``renoise``, or
+        a normal draw from the device generator, and the optimizer starts
+        afresh, as in the JAX engine (after the checkin and the video,
+        before the LR drop)."""
         args = self.args
         rebuild_opts_when_done = False
 
@@ -574,6 +587,17 @@ class Engine:
                 os.makedirs(video_folder, exist_ok=True)
                 OUT.save_png(img[..., :3].float().cpu().numpy(), os.path.join(video_folder, f"frame_{cur_it:04d}.png"))
 
+        post_step = getattr(self.drawer, "post_step", None)
+        if post_step is not None:
+            # the vdiff drawer: re-noise the latent to the next schedule entry
+            # (in place) and start a fresh optimizer at the drawer's new rate
+            if renoise is None:
+                renoise = torch.randn(leaves(self.z)[0].shape, generator=self.gen_device, device=self.device)
+            new_z = post_step(self.z, cur_it, renoise)
+            if new_z is not None:
+                _copy_into(self.z, new_z)
+                self._build_optimizer()
+
         if cur_it == args.iterations:
             self.checkin(cur_it, self.last_loss_values)
             return False
@@ -623,8 +647,10 @@ class Engine:
         _copy_into(self.z, new)
 
     @torch.no_grad()
-    def synth_array(self) -> np.ndarray:
-        arr = self.drawer.synth(self.drawer_params, self.z).float().cpu().numpy()
+    def synth_array(self, iteration=None) -> np.ndarray:
+        """The drawer's canvas at ``iteration`` (default: the engine's)."""
+        it = self.cur_iteration if iteration is None else iteration
+        arr = self.drawer.synth(self.drawer_params, self.z, it).float().cpu().numpy()
         if arr.shape[-1] == 4 and not self.args.transparent:
             arr = arr[..., :3]
         return arr
@@ -644,7 +670,7 @@ class Engine:
             stale = it - self.tracker.best_iter
             writestr = f"{writestr} (-{stale}=>{self.tracker.best_loss:2.4g})"
             outfile = get_file_path(args.outdir, args.output, ".png")
-        arr = self.synth_array()
+        arr = self.synth_array(it)
         OUT.save_png(arr, outfile, OUT.png_text(args.given_args, self.seed_used))
         if args.save_intermediates:
             step_path = os.path.join(args.outdir, "steps")
@@ -689,7 +715,7 @@ class Engine:
         return True
 
     def save_svg(self):
-        """Vector export for drawers that have one (clipdraw, line_sketch)."""
+        """Vector export for drawers that have one (pixel, clipdraw, line_sketch)."""
         to_svg = getattr(self.drawer, "to_svg", None)
         if to_svg is None:
             print(f"drawer {self.args.drawer} has no SVG export")

@@ -2,7 +2,8 @@
 ``pixray_tpu/engine/prompts.py``): target images, text, vector, label and
 noise prompts in the main table; spot and spot_off text prompts in their
 own; under ``--animation_dir`` the target images in a table of their own,
-one row per animation frame.
+one row per animation frame; and the conditioning embedding of a drawer
+that names a perceptor (``clip_model``: the cc12m diffusion models).
 
 For an image-embedding batch ``iii`` and each table row:
 
@@ -100,9 +101,12 @@ def find_vector_file(name: str):
     return None
 
 
-def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None):
-    """(tables, spot_tables, spot_off_tables, target_tables), each a
-    {perceptor name: PromptTable}.
+def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None, drawer=None):
+    """(tables, spot_tables, spot_off_tables, target_tables, clip_embed):
+    each table a {perceptor name: PromptTable}; ``clip_embed`` the
+    normalized weighted sum of the target-image and text embeddings of the
+    perceptor ``drawer.clip_model`` names (the cc12m diffusion models'
+    conditioning, (1, D) numpy), or None.
 
     The main table's rows in order: the target images (``(path, weight,
     stop)`` in ``target_image_paths``, each encoded once; under
@@ -115,14 +119,21 @@ def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None)
     spot_rows = {p.name: [] for p in perceptors}
     spot_off_rows = {p.name: [] for p in perceptors}
     target_rows = {p.name: [] for p in perceptors}
+    clip_target = getattr(drawer, "clip_model", None)
+    clip_rows = []  # (embed, weight) of the perceptor clip_target names
 
     for p in perceptors:
         for path, weight, stop in target_image_paths or []:
             from pixray_tpu_torch.io.images import load_image_for_perceptor
 
             img = load_image_for_perceptor(path, p.input_resolution)
-            out = rows if args.animation_dir is None else target_rows
-            out[p.name].append((p.encode_image(img[None]).cpu().numpy(), weight, stop))
+            feats = p.encode_image(img[None]).cpu().numpy()
+            if args.animation_dir is None:
+                rows[p.name].append((feats, weight, stop))
+                if p.name == clip_target:
+                    clip_rows.append((feats, weight))
+            else:
+                target_rows[p.name].append((feats, weight, stop))
 
     for prompt in args.prompts or []:
         txt, weight, stop = parse_prompt(prompt)
@@ -130,8 +141,10 @@ def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None)
         if use_stops:
             txt = txt[1:]
         for p in perceptors:
-            embed = p.encode_text_with_stops(txt) if use_stops else p.encode_text(txt)
-            rows[p.name].append((embed.cpu().numpy(), weight, stop))
+            embed = (p.encode_text_with_stops(txt) if use_stops else p.encode_text(txt)).cpu().numpy()
+            rows[p.name].append((embed, weight, stop))
+            if p.name == clip_target:
+                clip_rows.append((embed, weight))
 
     for vect_prompt in args.vector_prompts or []:
         name, weight, stop = parse_prompt(vect_prompt)
@@ -172,4 +185,10 @@ def build_prompt_tables(args, perceptors, device="cpu", target_image_paths=None)
     def tables(rdict):
         return {p.name: PromptTable.from_rows(rdict[p.name], p.output_dim, device) for p in perceptors}
 
-    return tables(rows), tables(spot_rows), tables(spot_off_rows), tables(target_rows)
+    clip_embed = None
+    if clip_target is not None and clip_rows:
+        embeds = np.concatenate([np.atleast_2d(e) for e, _w in clip_rows], axis=0)
+        weights = np.asarray([w for _e, w in clip_rows], np.float32)[:, None]
+        summed = (embeds * weights).sum(axis=0, keepdims=True)
+        clip_embed = summed / np.linalg.norm(summed, axis=-1, keepdims=True)
+    return tables(rows), tables(spot_rows), tables(spot_off_rows), tables(target_rows), clip_embed

@@ -217,7 +217,9 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
         names.append(name)
         values.append(value)
 
-    img = cfg.drawer.synth(cfg.drawer_params, z)
+    # the iteration as a () device tensor (the vdiff drawer picks its
+    # schedule entry by it; the other drawers ignore it)
+    img = cfg.drawer.synth(cfg.drawer_params, z, inputs["iteration"])
 
     for i, (filt, weight) in enumerate(cfg.filters):
         img, f_loss = filt(img, inputs["filters"][i])

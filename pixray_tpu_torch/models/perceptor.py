@@ -22,6 +22,7 @@ import os
 import torch
 
 from pixray_tpu_torch.ops.grad import l2_normalize
+from pixray_tpu_torch.utils.files import find_model_file
 
 from .clip.checkpoint import port_state_dict, read_state_dict
 from .clip.configs import CLIP_CONFIGS, CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD, SLIP_CONFIGS
@@ -51,15 +52,7 @@ _CKPT_ALIASES = {
 
 
 def _find_checkpoint(name: str):
-    search_dirs = [os.environ.get("PIXRAY_TPU_MODELS", ""), "models", os.path.expanduser("~/.cache/pixray_tpu")]
-    for d in search_dirs:
-        if not d:
-            continue
-        for alias in _CKPT_ALIASES.get(name, []):
-            path = os.path.join(d, alias)
-            if os.path.exists(path):
-                return path
-    return None
+    return find_model_file(_CKPT_ALIASES.get(name, []))
 
 
 def _require_checkpoint_tokenizer(name: str):

@@ -121,3 +121,17 @@ def emit_filename(filename: str, template_dict: dict | None = None) -> str:
 def map_number(n, start1, stop1, start2, stop2):
     """Linear range remap (p5.js ``map``)."""
     return ((n - start1) / (stop1 - start1)) * (stop2 - start2) + start2
+
+
+def find_model_file(names) -> str | None:
+    """The first of the file ``names`` found in ``$PIXRAY_TPU_MODELS``,
+    ``models/`` or ``~/.cache/pixray_tpu`` (in that order), else None.
+    Nothing is downloaded."""
+    for d in (os.environ.get("PIXRAY_TPU_MODELS", ""), "models", os.path.expanduser("~/.cache/pixray_tpu")):
+        if not d:
+            continue
+        for name in names:
+            path = os.path.join(d, name)
+            if os.path.exists(path):
+                return path
+    return None

@@ -1,13 +1,19 @@
 #!/usr/bin/env python3
 """Profile the PyTorch port's step on one NVIDIA GPU, row by row.
 
-    python3 port_profile.py [--root DIR] [--label NAME] [--rows pixel,clipdraw,vqgan,fft,image,anim,rn50,mixed]
+    python3 port_profile.py [--root DIR] [--label NAME]
+        [--rows pixel,clipdraw,vqgan,fft,image,anim,rn50,mixed,vdiff,super_resolution]
 
 (``--rows ""`` measures no row; a tree without the fft drawer takes
 ``--rows pixel,clipdraw,vqgan``, one without the image inputs
 ``--rows pixel,clipdraw,vqgan,fft``, one without the animation ring
 ``--rows pixel,clipdraw,vqgan,fft,image``, one without the ResNet and
-SLIP towers ``--rows pixel,clipdraw,vqgan,fft,image,anim``.)  The rn50 row
+SLIP towers ``--rows pixel,clipdraw,vqgan,fft,image,anim``, one without
+the vdiff and super_resolution drawers ``--rows
+pixel,clipdraw,vqgan,fft,image,anim,rn50,mixed``.)  The vdiff row is the
+bench's (``chip_smoke.VDIFF_CONFIG``: yfcc_2 on random weights, 256x256),
+eager only (the drawer re-noises after every step, so it never runs
+blocked); the super_resolution row the pixel row under that drawer.  The rn50 row
 is the pixel row under RN50; the mixed row the pixel row under
 ``--perceptors mixed --quality better`` (RN50, ViT-B/16 and SLIP_VITB16,
 36 cuts each).  The image row is the pixel row with
@@ -327,7 +333,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pixray_tpu_torch is measured")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft,image,anim,rn50,mixed")
+    ap.add_argument("--rows", default="pixel,clipdraw,vqgan,fft,image,anim,rn50,mixed,vdiff,super_resolution")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -348,13 +354,14 @@ def main():
            "flagship_bank": flagship_bank(cs), "flagship_strokes": flagship_strokes(cs)}
     _install_markers()
     configs = {"pixel": cs.PIXEL_CONFIG, "clipdraw": cs.CLIPDRAW_CONFIG, "vqgan": cs.VQGAN_CONFIG,
-               "fft": cs.FFT_CONFIG, "rn50": cs.RN50_CONFIG, "mixed": cs.MIXED_CONFIG}
+               "fft": cs.FFT_CONFIG, "rn50": cs.RN50_CONFIG, "mixed": cs.MIXED_CONFIG, "vdiff": cs.VDIFF_CONFIG,
+               "super_resolution": cs.SR_CONFIG}
     from pixray_tpu_torch.engine.core import Engine
 
     modes = (False, True) if hasattr(Engine, "_block_size") else (False,)  # a tree without blocks: eager only
     out["rows"] = []
     for row in filter(None, args.rows.split(",")):
-        for blocked in modes:
+        for blocked in modes if row != "vdiff" else (False,):  # vdiff re-noises after every step: eager only
             with tempfile.TemporaryDirectory() as tmp:
                 if row == "image":
                     config = dict(cs.PIXEL_CONFIG, **cs.image_extra(cs.write_images(tmp)))

@@ -161,7 +161,7 @@ def test_init_weight_pix_gradient_at_its_image():
     img0 = torch.rand((6, 5, 3), generator=torch.Generator().manual_seed(0))
 
     class Drawer:
-        def synth(self, params, z):
+        def synth(self, params, z, iteration=None):  # the drawers' synth takes the step's iteration
             return z
 
     cfg = StepConfig(drawer=Drawer(), drawer_params={}, perceptors=[], batches=1, init_weight_pix=0.5,

@@ -23,6 +23,9 @@ True), and a second run resumed from its checkpoint; ``--make_video``
 prompt and target image globs (PIL allowed).  Then the two other tower
 kinds, blocked: a tiny ModifiedResNet and a tiny timm (SLIP-style) trunk,
 put into the port's config tables by the subprocess, beside TinyTest.
+Then the pixel drawer's SVG export, a ``tiny_up`` vdiff run (eager,
+re-noised after every step) and a super_resolution run (a tiny RRDBNet
+from a basicsr file on disk, blocked).
 """
 
 import os
@@ -93,6 +96,36 @@ def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False, st
 
 def test_port_runs_without_jax(tmp_path):
     _run_blocked(tmp_path, dict(drawer="pixel"))
+
+
+def test_pixel_svg_without_jax(tmp_path):
+    outdir, _ = _run_blocked(tmp_path, dict(drawer="pixel", pixel_size=[16, 9], save_svg=True))
+    with open(os.path.join(outdir, "output.svg")) as f:
+        assert f.read().count("<polygon ") == 16 * 9
+
+
+def test_vdiff_runs_without_jax(tmp_path):
+    """tiny_up (random weights, the generated canvas 128x128): every step
+    eager, each re-noised after it from step 1 on."""
+    _, stdout = _run_blocked(tmp_path, dict(drawer="vdiff", vdiff_model="tiny_up", vdiff_schedule="log"))
+    assert "WARNING: v-diffusion weights for tiny_up not found" in stdout
+
+
+# a tiny RRDBNet checkpoint in basicsr's layout, written by the subprocess
+# where the drawer looks for one (the full 23 blocks crawl on a loaded CPU)
+TINY_RRDBNET = (
+    "import os, torch\n"
+    "from pixray_tpu_torch.models.esrgan import RRDBNet, init_random_\n"
+    "os.environ['PIXRAY_TPU_MODELS'] = os.getcwd()\n"
+    "net = init_random_(RRDBNet(num_feat=16, num_block=1, num_grow_ch=8), torch.Generator().manual_seed(0))\n"
+    "torch.save({'params_ema': net.state_dict()}, 'super_resolution_RealESRGAN_x4plus.ckpt')\n")
+
+
+def test_super_resolution_runs_without_jax(tmp_path):
+    """A tiny RRDBNet read from a basicsr file on disk, a 16x9 latent, blocked."""
+    _, stdout = _run_blocked(tmp_path, dict(drawer="super_resolution", iterations=10, save_every=100),
+                             expect_block=True, setup=TINY_RRDBNET)
+    assert "Loaded RealESRGAN from" in stdout
 
 
 def test_clipdraw_runs_without_jax(tmp_path):

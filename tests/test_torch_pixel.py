@@ -1,6 +1,7 @@
 """Port pixel drawer against the JAX one: grid sizing, coverage map and
 separable operators (equal), synth and clip_params (float32, 1e-6: the same
-small matmuls), params_from_image (see its tolerance)."""
+small matmuls), params_from_image (see its tolerance), the SVG export
+(the JAX drawer's text)."""
 
 from types import SimpleNamespace
 
@@ -90,3 +91,18 @@ def test_init_noise_matches_jax(w, h):
 
     ref = np.asarray(random_noise_image(w, h, np.random.default_rng(5)))
     np.testing.assert_array_equal(random_noise_array(w, h, np.random.default_rng(5)), ref)
+
+
+@pytest.mark.parametrize("size", [(96, 54), (50, 30)])
+def test_to_svg_matches_jax(size):
+    """One polygon per cell, the colours clipped and truncated to 0-255 and
+    the alpha to 3 decimals: the JAX drawer's text exactly (latent values
+    outside [0, 1] included)."""
+    s = _settings(size, transparent=True)
+    port, ref = PixelDrawer(s), JPixel(s)
+    port.snap_canvas(size)
+    ref.snap_canvas(size)
+    z = np.random.default_rng(7).uniform(-0.2, 1.2, (port.num_cells, 4)).astype(np.float32)
+    text = port.to_svg(torch.tensor(z))
+    assert text == ref.to_svg(jnp.asarray(z))
+    assert text.count("<polygon") == port.num_cells

@@ -4,7 +4,8 @@ once through ``encode_image``), spot and spot_off text prompts, ImageNet
 labels and noise prompts (rows of the last perceptor), on TinyTest and
 TinyTest48 with the JAX towers' weights bridged; every table's embeddings,
 weights and stops to 1e-4 (the towers sum in other orders, ~1e-6), the
-row counts and order equal.  Also ``encode_image`` (channels-last images
+row counts and order equal; the clip embedding of a drawer that names a
+tower (the cc12m diffusion models' conditioning) to 1e-5.  Also ``encode_image`` (channels-last images
 in, the port's channel-major tower) and ``single_prompt_loss`` with its
 gradient, against the JAX functions, to 1e-5.
 """
@@ -73,6 +74,10 @@ CASES = {
     # under animation the target images fill the target table, one row per frame
     "animation_targets": dict(prompts=["sunrise"], targets=[(0, 1.0, float("-inf")), (1, 0.5, -0.2)],
                               animation_dir="anim"),
+    # a drawer conditioned on a perceptor's embedding (the cc12m diffusion
+    # models): the weighted sum of that tower's target-image and text rows
+    "clip_embed": dict(prompts=["sunrise", "=a barn:0.5", "sky:-0.3"], targets=[(1, 0.7, float("-inf"))],
+                       drawer="TinyTest48"),
 }
 
 
@@ -81,16 +86,22 @@ def test_prompt_tables_match_jax(towers, pngs, case):
     kw = dict(CASES[case])
     targets = [(pngs[i], w, s) for i, w, s in kw.pop("targets", [])] or None
     ref_p, port_p = towers
+    drawer = SimpleNamespace(clip_model=kw.pop("drawer")) if "drawer" in kw else None
     args = _args(**kw)
-    ref = j_tables(args, ref_p, target_image_paths=targets)
-    port = build_prompt_tables(args, port_p, target_image_paths=targets)
-    assert len(port) == 4 and len(ref) == 5
+    ref = j_tables(args, ref_p, drawer=drawer, target_image_paths=targets)
+    port = build_prompt_tables(args, port_p, target_image_paths=targets, drawer=drawer)
+    assert len(port) == len(ref) == 5
     for got, want in zip(port, ref[:4]):
         _assert_tables_equal(got, want, atol=1e-4)
-    # the animation's target table: its targets' rows, empty without animation; JAX's clip_embed: None
-    # without a vdiff drawer
+    # the animation's target table: its targets' rows, empty without animation; the clip embedding only
+    # for a drawer that names a tower
     frames = len(targets or []) if kw.get("animation_dir") else 0
-    assert all(t.size == frames for t in port[3].values()) and ref[4] is None
+    assert all(t.size == frames for t in port[3].values())
+    if drawer is None:
+        assert port[4] is None and ref[4] is None
+    else:
+        assert port[4].shape == ref[4].shape == (1, 32)
+        np.testing.assert_allclose(port[4], np.asarray(ref[4]), atol=1e-5)
     main = port[0]
     rows = len(kw.get("prompts", [])) + len(targets or []) - frames + len(kw.get("labels", []))
     assert main["TinyTest"].size == rows
