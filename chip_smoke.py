@@ -153,13 +153,28 @@ Phases, each fatal on failure (exit code 1, no result line):
    count, and a tiny RRDBNet card against CPU;
 26. super_resolution: the pixel row's settings under --drawer
    super_resolution, blocked vs eager as in 5b, then 9 + 24 steps timed
-   blocked with one K1 and one K2 per step.
+   blocked with one K1 and one K2 per step;
+27. agreement: a hex pixel run with --custom_loss resmem,style
+   (--styleloss_skip 0, a style image the script writes) on TinyTest,
+   card against CPU as in 5;
+28. blocked: the pixel row under --pixel_type hex (the gather render and
+   its inverse-map adjoint inside the graph) as in 5b;
+29. the other cell geometries: the pixel row under rectshift, hex,
+   diamond, tri and knit (grids 81x45, 81x63, 81x91, 113x46, 80x45 from
+   the iso and edge checks), 9 + 24 steps timed blocked, descending, one
+   K1 and one K2 per step; ms per blocked step, device busy and events per
+   step from one replay;
+30. the heavy losses: the pixel row with --custom_loss style
+   --styleloss_skip 0 (VGG16 at 384x216 over three scales) and with
+   --custom_loss resmem, timed as 29 (finite losses, the loss's term),
+   with the peak device memory.
 
 The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
 towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
 
 Then one JSON line with the kernels' numbers (K1/K2 also with their
-launches on the pixel, vdiff, cc12m, recipe and super_resolution rows), and
+launches on the pixel, vdiff, cc12m, recipe and super_resolution rows and
+on rows 29 and 30), and
 as the last line
 {"ok": true, "device": {...}}.
 """
@@ -215,6 +230,13 @@ OVERLAY_STEPS = 17  # step 0, 1-3 eager, blocks of 4 from each overlay at 4, 8, 
 TIMED_STEPS = 24
 LINE_SKETCH_STEPS = 9  # step 0, then one block
 DEFAULT_RUN_STEPS = 12  # pixray_tpu_torch.run's defaults, cut to 12 iterations
+# the pixel row under the other cell geometries, each with the grid the JAX
+# drawer's iso and edge checks give the bench's default 80x45 at 384x216
+GEOMETRY_GRIDS = {"rectshift": (81, 45), "hex": (81, 63), "diamond": (81, 91), "tri": (113, 46), "knit": (80, 45)}
+# the pixel row with the two heavy losses: STROTSS against a style image the
+# script writes (VGG16 at 384x216 over the three scales 4, 2, 1), and ResMem
+STYLE_EXTRA = dict(custom_loss="style", styleloss_skip=0)
+RESMEM_EXTRA = dict(custom_loss="resmem")
 
 CODEBOOK_ATOL = 1e-5  # an encoded latent row against its nearest codebook row
 FWD_ATOL = 0.0  # the bare warp: the kernel repeats the plain version's f32 ops in its order
@@ -2796,6 +2818,99 @@ def phase_decoder_times(model):
     return out
 
 
+def write_style_image(tmp):
+    """A seeded 300x400 RGB style image in ``tmp``."""
+    import numpy as np
+    from PIL import Image
+
+    path = os.path.join(tmp, "style.png")
+    rng = np.random.default_rng(12)
+    # smooth colour fields plus texture, so the pyramid's levels all carry something
+    yy, xx = np.mgrid[0:300, 0:400] / 40.0
+    base = np.stack([np.sin(xx), np.cos(yy), np.sin(xx + yy)], -1) * 80 + 128
+    arr = np.clip(base + rng.normal(0, 30, base.shape), 0, 255).astype(np.uint8)
+    Image.fromarray(arr).save(path)
+    return path
+
+
+def phase_row(tmp, card, config, label, descent=True, grid=None, term=None):
+    """One pixel-row variant timed as the pixel row is (9 warm-up and 24
+    timed steps, blocked), one K1 and one K2 per step, finite losses (and
+    descent as bench.py gates it, where ``descent``), the checkin PNG, the
+    drawer's grid (``grid``: (cols, rows)), the loss term ``term`` among
+    the step's terms; then one replay under torch.profiler: device busy
+    and events per step.  Returns (launches, steps run)."""
+    steps = WARMUP_STEPS + TIMED_STEPS
+    engine, losses, launches, init_s, elapsed, timed = drive_path(dict(config, iterations=steps), tmp, steps,
+                                                                  WARMUP_STEPS)
+    capture_s = check_blocked(label, engine, PATH_BLOCKS)
+    ran = steps_run(engine, steps)
+    check_launches(label, launches, {"warp_fwd": ran, "warp_bwd": ran, "strokes_fwd": 0,
+                                     "strokes_fwd_store": 0, "strokes_bwd": 0})
+    check_png(label, os.path.join(tmp, "output.png"), (384, 216))
+    first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    if descent:
+        check_descent(label, losses)
+    if grid is not None and (engine.drawer.num_cols, engine.drawer.num_rows) != grid:
+        fail(f"{label}: grid {engine.drawer.num_cols}x{engine.drawer.num_rows}, expected {grid[0]}x{grid[1]}")
+    if term is not None and term not in engine.loss_names:
+        fail(f"{label}: no {term} among the terms {engine.loss_names}")
+    blk = engine.step_block
+    events, _, windows = replay_events(blk.graph, {"bank_fwd_kernel": blk.n, "bank_bwd_kernel": blk.n}, label)
+    rate = timed / elapsed
+    print(f"{label}: blocked: init {init_s:.1f} s, capture {capture_s:.2f} s, {rate:.3f} steps/s "
+          f"({1000 / rate:.2f} ms per blocked step) over the {timed} steps dispatched after {WARMUP_STEPS} warm-up; "
+          f"one replay (profiler window {windows}): {len(events) / blk.n:.1f} device events and "
+          f"{busy_ms(events) / blk.n:.3f} ms device busy per step; K1/K2 launches per step "
+          f"{launches['warp_fwd'] / ran:.2f} / {launches['warp_bwd'] / ran:.2f} over {ran} steps (the warm-up step "
+          f"before the capture included); on {card}", flush=True)
+    by_name = {}
+    for ev in events:
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3 / blk.n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"{label} split: the replay's costliest kernels, ms per step: "
+          f"{[(name[:60], round(ms, 3)) for name, ms in top]}", flush=True)
+    print(f"{label} losses: first5 {first5:.4f} -> last5 {last5:.4f}{' (descends)' if descent else ''}; last "
+          f"{dict(zip(engine.loss_names, [round(v, 5) for v in engine.last_loss_values.float().tolist()]))}",
+          flush=True)
+    return launches, ran
+
+
+def phase_geometry_rows(tmp, card):
+    """The pixel row under rectshift, hex, diamond, tri and knit: the gather
+    render (``composite_cells``) and its inverse-map adjoint in the graph."""
+    rows = {}
+    for pixel_type, grid in GEOMETRY_GRIDS.items():
+        with tempfile.TemporaryDirectory() as sub:
+            rows[f"pixel {pixel_type}"] = phase_row(sub, card, dict(PIXEL_CONFIG, pixel_type=pixel_type),
+                                                    f"pixel {pixel_type} row ({grid[0]}x{grid[1]} grid)", grid=grid)
+    return rows
+
+
+def phase_loss_rows(tmp, card):
+    """The pixel row with ``--custom_loss style --styleloss_skip 0`` (a
+    style image the script writes) and with ``--custom_loss resmem``:
+    finite losses, the loss's own term, 1 K1 and 1 K2 per step."""
+    import torch
+
+    rows = {}
+    style = write_style_image(tmp)
+    for name, extra, term in (("style", dict(STYLE_EXTRA, style_file=style), "loss:StyleLoss"),
+                              ("resmem", RESMEM_EXTRA, "loss:ResmemLoss")):
+        with tempfile.TemporaryDirectory() as sub:
+            torch.cuda.reset_peak_memory_stats()
+            rows[name] = phase_row(sub, card, dict(PIXEL_CONFIG, **extra), f"{name} row (pixel 384x216, ViT-B/32, "
+                                   f"64 cuts, --custom_loss {extra['custom_loss']})", descent=False, term=term)
+            print(f"{name} row: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return rows
+
+
+def phase_new_agreement(tmp):
+    """hex + resmem + style on TinyTest, card against CPU, as in 5."""
+    phase_agreement(tmp, PIXEL_CONFIG, "hex + resmem + style", pixel_type="hex", custom_loss="resmem,style",
+                    styleloss_skip=0, style_file=write_style_image(tmp))
+
+
 def main():
     import torch
 
@@ -2892,6 +3007,14 @@ def main():
         phase_blocked(tmp, SR_CONFIG, "super_resolution", BLOCKED_STEPS, card)
     with tempfile.TemporaryDirectory() as tmp:
         rows["super_resolution"] = phase_sr_path(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_new_agreement(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_blocked(tmp, dict(PIXEL_CONFIG, pixel_type="hex"), "pixel hex", BLOCKED_STEPS, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        rows.update(phase_geometry_rows(tmp, card))
+    with tempfile.TemporaryDirectory() as tmp:
+        rows.update(phase_loss_rows(tmp, card))
     per_row = lambda counter: {row: {"launches": got[counter], "steps": n} for row, (got, n) in rows.items()}
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"

@@ -5,7 +5,7 @@ The same flag table, preset matrices and resolution rules as
 namespace in both packages.  Differences:
 
 - the drawer, filter and loss registries are this package's own
-  (``drawers``, ``filters`` and ``losses``; ``style`` and ``resmem`` raise);
+  (``drawers``, ``filters`` and ``losses``);
 - ``yaml`` is imported only where a YAML file is read or the
   ``settings.yaml`` dump is written, so the package runs without PyYAML.
 """

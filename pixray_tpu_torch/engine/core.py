@@ -46,8 +46,14 @@ caller can stream partial results, and ``--profile_dir`` traces the run
 them, with the losses' ``add_globals``.  Each step's draws are, per batch,
 the fill, then each filter's shifts (over the shape the filters before it
 leave), then per perceptor its cuts and the noise of the banks that reuse
-them (``cutouts.draw_step_cutouts``): a run without filters, spot or
-image prompts draws exactly what it drew before those were ported.
+them (``cutouts.draw_step_cutouts``), and after all batches each
+batch's custom-loss draws (``style``'s, ``draw_layout``): a run without
+filters, spot or image prompts or a drawing loss draws exactly what it
+drew before those were ported.  A loss with weights (``style``'s VGG16,
+``resmem``'s network) gets the engine's device and model dtype through
+``place``; a loss with a gate (``host_active``) is left out of an eager
+step, or a block, in which the gate is off at every step (the block is
+captured for that set of losses: at most one graph per set).
 
 The image inputs, as the JAX engine reads them (PIL is imported only for
 them): ``--init_image`` (the last of its files, resized with Lanczos, is
@@ -185,6 +191,9 @@ class Engine:
                 name, weight, _stop = parse_prompt(loss_spec)
                 loss_obj = loss_class(name)(args)
                 loss_obj.instance_settings(instance_args)
+                place = getattr(loss_obj, "place", None)
+                if place is not None:  # frozen weights on the engine's device, in the towers' dtype
+                    place(self.device, model_dtype, state_dicts.get(name))
                 self.custom_losses.append((loss_obj, weight))
             for loss_obj, _w in self.custom_losses:
                 self.loss_globals.update(loss_obj.add_globals(args))
@@ -272,6 +281,8 @@ class Engine:
             filters=self.filters,
             custom_losses=self.custom_losses,
             loss_globals=self.loss_globals,
+            loss_layouts=[getattr(loss_obj, "draw_layout", lambda h, w: [])(*self._loss_canvas())
+                          for loss_obj, _w in self.custom_losses],
             args=args,
         )
         self.loss_names = self.step_cfg.names
@@ -284,7 +295,8 @@ class Engine:
         self._pending_loss = None
         self._block = None  # the dispatched block being walked, and the one after it
         self._next_block = None
-        self.step_block = None  # the StepBlock (its graph, once captured), made at the first block
+        self.step_block = None  # the last StepBlock dispatched (its graph, once captured)
+        self.step_blocks = {}  # StepBlocks by (steps, custom losses left out)
         self._display_streaming = False  # run(return_display=True) sets this
         self.steps_dispatched = 0  # steps whose work has been enqueued, blocked or eager
         self.dispatched_blocks = []  # (first step, steps) of every block dispatched
@@ -385,13 +397,27 @@ class Engine:
             arr = np.asarray(Image.fromarray(arr).resize((self.side_x, self.side_y), Image.LANCZOS))
         return arr
 
+    def _loss_canvas(self) -> tuple[int, int]:
+        """(h, w) of the canvas the custom losses see: the drawer's, through the filters."""
+        h, w = self.side_y, self.side_x
+        for filt, _weight in self.filters:
+            h, w = filt.out_shape(h, w)
+        return h, w
+
+    def _skipped_losses(self, its) -> frozenset:
+        """Indices of the custom losses whose gate (``host_active``) is off at every iteration of ``its``."""
+        return frozenset(i for i, (loss_obj, _w) in enumerate(self.custom_losses)
+                         if hasattr(loss_obj, "host_active") and not any(loss_obj.host_active(it) for it in its))
+
     # ------------------------------------------------------------------ draws
     def draw_step(self, planes_out=None) -> list[dict]:
         """One draws dict per batch of the next step (see ``step.pack_step``),
         drawn in the order fill, filter shifts (each in the range of the
         shape the filters before it leave), then per perceptor its cuts and
-        its other banks (``cutouts.draw_step_cutouts``); ``planes_out`` (per
-        batch, per perceptor: three planes) receives the noise planes."""
+        its other banks (``cutouts.draw_step_cutouts``); after all batches,
+        per batch each custom loss's draws (``draw``, for a loss that
+        draws); ``planes_out`` (per batch, per perceptor: three planes)
+        receives the noise planes."""
         out = []
         for b in range(self.args.batches):
             fill = float(torch.rand((), generator=self.gen))
@@ -413,6 +439,11 @@ class Engine:
                     for i, spec in enumerate(self.step_cfg.perceptors)
                 ],
             })
+        if any(self.step_cfg.loss_layouts):
+            h, w = self._loss_canvas()
+            for d in out:
+                d["losses"] = [loss_obj.draw(self.gen, h, w) if layout else {}
+                               for (loss_obj, _w), layout in zip(self.custom_losses, self.step_cfg.loss_layouts)]
         return out
 
     # ------------------------------------------------------------------ blocks
@@ -472,10 +503,13 @@ class Engine:
 
     def _dispatch_block(self, cur_it: int, n: int) -> dict:
         """Draw, stage and dispatch ``n`` steps from ``cur_it``; the losses stay pending."""
-        blk = self.step_block
-        if blk is None or blk.n != n:
-            blk = self.step_block = StepBlock(self.step_cfg, self.optimizer, n,
-                                               bank_rows(self.step_cfg, self.args.num_cuts), self.device)
+        skip = self._skipped_losses(range(cur_it, cur_it + n))
+        blk = self.step_blocks.get((n, skip))
+        if blk is None:
+            blk = self.step_blocks[(n, skip)] = StepBlock(self.step_cfg, self.optimizer, n,
+                                                          bank_rows(self.step_cfg, self.args.num_cuts),
+                                                          self.device, skip)
+        self.step_block = blk
         rows, ints = blk.staging_inputs()
         for s in range(n):
             pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, rows[s], ints[s],
@@ -559,7 +593,7 @@ class Engine:
             else:
                 batch_draws = self.draw_step() if draws is None else draws
                 inputs = draws_to_inputs(self.step_cfg, batch_draws, cur_it, self.device,
-                                         anim_index=self._anim_index())
+                                         anim_index=self._anim_index(), skip=self._skipped_losses([cur_it]))
                 total, values, img = train_step(self.step_cfg, self.optimizer, self.z, self.opt_state,
                                                 self.lr_scale, inputs)
                 self.steps_dispatched += 1

@@ -17,8 +17,10 @@ block of parameter rows for all the perceptors' banks (per perceptor its
 main bank, then its spot, spot_off and image-prompt banks;
 ``cutouts.pack_cutouts``: the cut geometry, the padding mode of the
 step's parity, jitter, noise factor and the fill), then an int32 tail of
-the iteration, the animation frame's index and each batch's filter
-shifts; and the noise planes.  The step itself reads only those and
+the iteration, the animation frame's index, each batch's filter shifts
+and each batch's custom-loss draws (a loss that draws, as ``style``
+does, declares them with ``draw_layout``; float32 draws ride in the tail
+as their bits); and the noise planes.  The step itself reads only those and
 device state (the frame's image prompt and target row are picked from
 tensors stacked once per run by that index), so it runs as one captured
 CUDA graph: :class:`StepBlock` holds the inputs of ``n`` steps at fixed
@@ -102,6 +104,7 @@ class StepConfig:
     filters: list = field(default_factory=list)  # [(filter, weight)]
     custom_losses: list = field(default_factory=list)  # [(loss, weight)]
     loss_globals: dict = field(default_factory=dict)  # the losses' add_globals
+    loss_layouts: list = field(default_factory=list)  # per custom loss: its draws' [(name, shape, dtype)]
     args: Any = None  # the settings, which the custom losses read
     names: list = field(default_factory=list)
 
@@ -115,11 +118,32 @@ def bank_rows(cfg: StepConfig, num_cuts: int) -> list[int]:
     return [num_cuts * spec.banks for spec in cfg.perceptors]
 
 
+def loss_draw_words(cfg: StepConfig) -> int:
+    """32-bit words of one batch's custom-loss draws."""
+    return sum(int(torch.Size(shape).numel()) for layout in cfg.loss_layouts for _n, shape, _d in layout)
+
+
 def input_sizes(cfg: StepConfig, cut_counts):
     """(float32 words of one step's parameter rows, int32 words of its tail:
     the iteration, the animation frame's index, then (batches, filters, 2)
-    shifts); ``cut_counts``: rows per perceptor (:func:`bank_rows`)."""
-    return cfg.batches * sum(cut_counts) * PARAM_STRIDE, 2 + cfg.batches * len(cfg.filters) * 2
+    shifts, then per batch the custom losses' draws); ``cut_counts``: rows
+    per perceptor (:func:`bank_rows`)."""
+    return (cfg.batches * sum(cut_counts) * PARAM_STRIDE,
+            2 + cfg.batches * (len(cfg.filters) * 2 + loss_draw_words(cfg)))
+
+
+def _loss_draw_views(cfg: StepConfig, words):
+    """Per custom loss, {name: view} of one batch's int32 draw words, float32 draws viewed as float32."""
+    out, off = [], 0
+    for layout in cfg.loss_layouts:
+        views = {}
+        for name, shape, dtype in layout:
+            n = int(torch.Size(shape).numel())
+            view = words[off:off + n]
+            views[name] = (view.view(torch.float32) if dtype == torch.float32 else view).view(shape)
+            off += n
+        out.append(views)
+    return out
 
 
 def split_inputs(cfg: StepConfig, buf, cut_counts):
@@ -145,12 +169,15 @@ def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows
     rand_w) per filter] (absent without filters), "perceptors": [per
     perceptor {"transforms", "jitter", "noise"} as
     ``cutouts.render_cutouts`` takes them, and the keys of
-    ``cutouts.draw_step_cutouts`` for the other banks]}.  The zoom cuts pad
-    by reflection on even iterations."""
+    ``cutouts.draw_step_cutouts`` for the other banks], "losses": [per
+    custom loss {name: host tensor} of its ``draw_layout``] (absent when
+    no loss draws)}.  The zoom cuts pad by reflection on even iterations."""
     if len(batch_draws) != cfg.batches:
         raise ValueError(f"{len(batch_draws)} draws for {cfg.batches} batches")
     out_ints[0], out_ints[1] = iteration, anim_index
-    shifts = out_ints[2:].view(cfg.batches, len(cfg.filters), 2)
+    n_shifts = cfg.batches * len(cfg.filters) * 2
+    shifts = out_ints[2:2 + n_shifts].view(cfg.batches, len(cfg.filters), 2)
+    loss_words = out_ints[2 + n_shifts:].view(cfg.batches, loss_draw_words(cfg))
     for b, draws in enumerate(batch_draws):
         off = 0
         for pd in draws["perceptors"]:
@@ -167,17 +194,25 @@ def pack_step(cfg: StepConfig, batch_draws: list[dict], iteration: int, out_rows
             raise ValueError(f"{len(filter_draws)} filter draws for {len(cfg.filters)} filters")
         for i, pair in enumerate(filter_draws):
             shifts[b, i, 0], shifts[b, i, 1] = int(pair[0]), int(pair[1])
+        if loss_words.shape[1]:
+            for views, draws_i in zip(_loss_draw_views(cfg, loss_words[b]), draws["losses"]):
+                for name, view in views.items():
+                    view.copy_(draws_i[name].reshape(view.shape))
 
 
-def step_inputs(cfg: StepConfig, buf, planes, cut_counts):
+def step_inputs(cfg: StepConfig, buf, planes, cut_counts, skip=frozenset()):
     """The step's inputs, per batch {"fill", "iteration", "anim_index": ()
     tensors, "filters": (filters, 2) int32, "perceptors": [per perceptor {"params":
-    (R, PARAM_STRIDE), "planes": three (R, S, S) or None}]}, as views of
-    the step's buffer ``buf`` on the step's device and of ``planes`` (per
-    batch, per perceptor); ``cut_counts``: rows R per perceptor, bank
-    after bank."""
+    (R, PARAM_STRIDE), "planes": three (R, S, S) or None}], "losses": [per
+    custom loss {name: its draw}], "skip": the custom losses left out},
+    as views of the step's buffer ``buf`` on the step's device and of
+    ``planes`` (per batch, per perceptor); ``cut_counts``: rows R per
+    perceptor, bank after bank; ``skip``: indices of custom losses whose
+    gate is off at every step these inputs serve (their term is 0)."""
     rows, ints = split_inputs(cfg, buf, cut_counts)
-    shifts = ints[2:].view(cfg.batches, len(cfg.filters), 2)
+    n_shifts = cfg.batches * len(cfg.filters) * 2
+    shifts = ints[2:2 + n_shifts].view(cfg.batches, len(cfg.filters), 2)
+    loss_words = ints[2 + n_shifts:].view(cfg.batches, loss_draw_words(cfg))
     out = []
     for b, batch_planes in enumerate(planes):
         off, perceptors = 0, []
@@ -185,11 +220,13 @@ def step_inputs(cfg: StepConfig, buf, planes, cut_counts):
             perceptors.append({"params": rows[b, off:off + n], "planes": zs})
             off += n
         out.append({"fill": unpack_params(rows[b])["fill"][0], "iteration": ints[0], "anim_index": ints[1],
-                    "filters": shifts[b], "perceptors": perceptors})
+                    "filters": shifts[b], "perceptors": perceptors,
+                    "losses": _loss_draw_views(cfg, loss_words[b]), "skip": skip})
     return out
 
 
-def draws_to_inputs(cfg: StepConfig, batch_draws: list[dict], iteration: int, device, anim_index: int = 0):
+def draws_to_inputs(cfg: StepConfig, batch_draws: list[dict], iteration: int, device, anim_index: int = 0,
+                    skip=frozenset()):
     """One eager step's inputs from its draws: packed on the host (pinned
     for the card) and copied to ``device`` in one copy; the draws' own
     planes (a perceptor's banks' planes concatenated)."""
@@ -205,7 +242,7 @@ def draws_to_inputs(cfg: StepConfig, batch_draws: list[dict], iteration: int, de
         return tuple(torch.cat([nz[c] for nz in noises]) if len(noises) > 1 else noises[0][c] for c in range(3))
 
     return step_inputs(cfg, buf.to(device, non_blocking=True),
-                       [[planes(pd) for pd in d["perceptors"]] for d in batch_draws], cuts)
+                       [[planes(pd) for pd in d["perceptors"]] for d in batch_draws], cuts, skip)
 
 
 def loss_fn(cfg: StepConfig, z, inputs: dict):
@@ -297,9 +334,13 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
         add("transparent", cfg.transparent_weight * torch.mean(alpha))
 
     loss_globals = {"cur_iteration": inputs["iteration"], "embeds": embeds, "fill_color": inputs["fill"]}
-    for loss_obj, weight in cfg.custom_losses:
-        out = loss_obj.get_loss(cur_cutouts, img, cfg.args, globals=loss_globals, lossGlobals=cfg.loss_globals)
+    for i, (loss_obj, weight) in enumerate(cfg.custom_losses):
         name = type(loss_obj).__name__
+        if i in inputs["skip"]:  # its gate is off at every step of this dispatch: the term is 0
+            add(f"loss:{name}", weight * img.new_zeros(()))
+            continue
+        globals_i = dict(loss_globals, draws=inputs["losses"][i])
+        out = loss_obj.get_loss(cur_cutouts, img, cfg.args, globals=globals_i, lossGlobals=cfg.loss_globals)
         if isinstance(out, (list, tuple)):
             for j, value in enumerate(out):
                 add(f"loss:{name}:{j}", weight * value)
@@ -387,8 +428,9 @@ class StepBlock:
     itself launches nothing).  On the CPU a block is ``n`` eager steps from
     the same inputs."""
 
-    def __init__(self, cfg: StepConfig, optimizer, n: int, cut_counts: list[int], device):
+    def __init__(self, cfg: StepConfig, optimizer, n: int, cut_counts: list[int], device, skip=frozenset()):
         self.cfg, self.optimizer, self.n, self.cut_counts = cfg, optimizer, n, cut_counts
+        self.skip = frozenset(skip)  # custom losses whose gate is off at every step of the blocks it runs
         self.device = torch.device(device)
         on_cuda = self.device.type == "cuda"
         shape = (n, sum(input_sizes(cfg, cut_counts)))
@@ -411,7 +453,7 @@ class StepBlock:
         return [[tuple(p[s, b].unbind(0)) for p in self.planes] for b in range(self.cfg.batches)]
 
     def inputs(self, s: int):
-        return step_inputs(self.cfg, self.buf[s], self.plane_targets(s), self.cut_counts)
+        return step_inputs(self.cfg, self.buf[s], self.plane_targets(s), self.cut_counts, self.skip)
 
     def staging_inputs(self):
         """The next staging buffer, free to write, as (rows (n, batches, R,

@@ -63,6 +63,13 @@ def resize_area_preserving(image, out_size):
     return image.resize(size, Image.LANCZOS)
 
 
+def resize_bicubic(image, size_wh) -> np.ndarray:
+    """A PIL image as RGB at ``size_wh`` (w, h), bicubic, → (H, W, 3) float32 in [0, 1] (the style image)."""
+    from PIL import Image
+
+    return to_tensor(image.convert("RGB").resize(size_wh, Image.BICUBIC))
+
+
 def load_image_rgb(path: str, size_wh) -> np.ndarray:
     from PIL import Image
 

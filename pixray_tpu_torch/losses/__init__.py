@@ -1,8 +1,7 @@
-"""Loss registry of the port (``pixray_tpu/registry.py``'s loss table).
-
-``style`` (STROTSS, with its VGG) and ``resmem`` are not ported yet and
-raise ``NotImplementedError`` naming themselves.
-"""
+"""Loss registry of the port (``pixray_tpu/registry.py``'s loss table):
+every loss of the JAX package.  ``style`` (STROTSS with VGG16) and
+``resmem`` carry frozen weights, which the engine places on its device
+(``place``)."""
 
 from __future__ import annotations
 
@@ -16,16 +15,15 @@ _LOSS_MODULES = {
     "edge": ("pixray_tpu_torch.losses.edge", "EdgeLoss"),
     "aesthetic": ("pixray_tpu_torch.losses.aesthetic", "AestheticLoss"),
     "gaussian": ("pixray_tpu_torch.losses.gaussian", "GaussianLoss"),
+    "style": ("pixray_tpu_torch.losses.style", "StyleLoss"),
+    "resmem": ("pixray_tpu_torch.losses.resmem", "ResmemLoss"),
 }
-_NOT_PORTED = ("style", "resmem")
 _CUSTOM: dict[str, type] = {}
 
 
 def loss_class(name: str) -> type:
     if name in _CUSTOM:
         return _CUSTOM[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"loss {name!r} is not yet ported to pixray_tpu_torch")
     if name not in _LOSS_MODULES:
         raise KeyError(name)
     module_name, class_name = _LOSS_MODULES[name]

@@ -5,7 +5,13 @@ coverage map is built once on the host (numpy; the same algorithm as the
 JAX package's numpy path and its optional C++ rasterizer), and the render
 is a function of the per-cell RGBA fills only.  For the plain rectangle grid
 the map factorizes and the whole render is two small float32 matmuls
-(``composite_cells_separable``).
+(``composite_cells_separable``).  The other geometries (shifted rows,
+overlapping cells, uncovered subsamples) take ``composite_cells``: a
+gather of the cells' colours at each subsample's painter stack, the "over"
+composite from the deepest slot up and the SS box filter.  Its colour
+gradient is a gather too, of the cotangent at each cell's slots in the
+static inverse map (``build_inverse_map``), summed in slot order: no
+scatter and no float atomics.
 """
 
 from __future__ import annotations
@@ -106,3 +112,75 @@ def composite_cells_separable(colors, r_op, c_op, num_rows: int, num_cols: int):
     p = prem.reshape(num_rows, num_cols * 4)
     t = torch.matmul(r_op, p).reshape(-1, num_cols, 4)
     return torch.einsum("hck,cw->hwk", t, c_op)
+
+
+def build_inverse_map(indices, valid, num_cells: int):
+    """Static inverse of the coverage map for a scatter-free backward pass.
+
+    Returns (cell_slots (cells, max_occ) int32, cell_slot_valid (cells,
+    max_occ) bool): for each cell, the flat indices of the (subsample,
+    depth) slots it occupies in ascending order, padded to the largest
+    occupancy."""
+    flat_idx = np.asarray(indices).reshape(-1)
+    flat_valid = np.asarray(valid).reshape(-1)
+    slot_ids = np.arange(flat_idx.size, dtype=np.int64)
+
+    # slots sorted by cell id (invalid slots go to a sentinel bucket)
+    keyed = np.where(flat_valid, flat_idx, num_cells)
+    order = np.argsort(keyed, kind="stable")
+    sorted_cells = keyed[order]
+    sorted_slots = slot_ids[order]
+
+    counts = np.bincount(sorted_cells, minlength=num_cells + 1)[:num_cells]
+    max_occ = int(counts.max()) if counts.size else 1
+    starts = np.zeros(num_cells, dtype=np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+
+    cell_slots = np.zeros((num_cells, max_occ), dtype=np.int32)
+    cell_valid = np.arange(max_occ)[None, :] < counts[:, None]
+    for_cell = np.repeat(np.arange(num_cells), counts)
+    pos_in_cell = np.arange(for_cell.size) - np.repeat(starts, counts)
+    cell_slots[for_cell, pos_in_cell] = sorted_slots[: for_cell.size]
+    return cell_slots, cell_valid
+
+
+class _TakeCells(torch.autograd.Function):
+    """``colors[indices]`` whose adjoint is a gather of the cotangent at the
+    precomputed ``cell_slots``, masked and summed over the slots (the JAX
+    package's ``_take_cells`` custom VJP), where the default adjoint of an
+    index would scatter with ``index_add_``."""
+
+    @staticmethod
+    def forward(ctx, colors, indices, cell_slots, cell_valid):
+        ctx.save_for_backward(cell_slots, cell_valid)
+        flat = colors.index_select(0, indices.reshape(-1).long())
+        return flat.view(*indices.shape, colors.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        cell_slots, cell_valid = ctx.saved_tensors
+        c = g.shape[-1]
+        flat_g = g.reshape(-1, c)  # one row per (subsample, depth) slot
+        per_cell = flat_g.index_select(0, cell_slots.reshape(-1).long()).view(*cell_slots.shape, c)
+        per_cell = torch.where(cell_valid[..., None], per_cell, per_cell.new_zeros(()))
+        return per_cell.sum(dim=1), None, None, None
+
+
+def composite_cells(colors, indices, valid, canvas_height: int, canvas_width: int, inverse_map):
+    """Per-cell RGBA (cells, 4) → (H, W, 4) canvas: back-to-front "over"
+    per subsample over the trimmed painter stack (slot 0 is the topmost),
+    then the SS box filter.  ``inverse_map``: (cell_slots, cell_slot_valid)
+    of :func:`build_inverse_map`, on the colours' device."""
+    cell_slots, cell_valid = inverse_map
+    gathered = _TakeCells.apply(colors, indices, cell_slots, cell_valid)  # (hs, ws, depth, 4)
+    valid = valid[..., None]
+    hs, ws = gathered.shape[0], gathered.shape[1]
+    rgb = colors.new_zeros((hs, ws, 3))
+    alpha = colors.new_zeros((hs, ws, 1))
+    for d in range(gathered.shape[2] - 1, -1, -1):
+        layer = gathered[:, :, d, :]
+        a = torch.where(valid[:, :, d, :], layer[..., 3:4], layer.new_zeros(()))
+        rgb = a * layer[..., :3] + (1.0 - a) * rgb
+        alpha = a + (1.0 - a) * alpha
+    out = torch.cat([rgb, alpha], dim=-1)
+    return out.reshape(canvas_height, SS, canvas_width, SS, 4).mean(dim=(1, 3))

@@ -4,14 +4,9 @@
   both called as unbound methods on one stub, over iterations, checkin
   cadences, LR drops, ``steps_per_call`` 0/1/4/8, ``auto_stop``, a drawer
   with ``post_step``, an overlay schedule and every ``cur_it``: equal.
-- A pixel and a clipdraw run (TinyTest, an LR drop and checkins inside the
-  run; pixel also with two batches over a transparent canvas; the fft
-  drawer with two batches, the wallpaper and tiler filters and three custom
-  losses) with
-  ``steps_per_call`` 8 and 1 from one seed: per-step losses, the
-  final latent, the optimizer state and the checkin images bitwise equal
-  (on the CPU a block is its steps in a loop, from inputs staged as the
-  card's graph reads them, so nothing may differ).
+- The parametrized pixel / clipdraw / fft runs, blocked against single
+  steps, are in ``test_torch_block_runs.py`` (a file of its own, so that
+  the two files run on two workers).
 - Without filters a step draws exactly the stream it drew before (the
   fill, then the cuts); with filters the shifts come between the two, each
   in its own input's range; with spot, spot_off and image prompts their
@@ -131,34 +126,6 @@ def _run(tmp_path, label, steps_per_call, **extra):
     images = {name: _idat(outdir / "steps" / name) for name in frames}
     images["output.png"] = _idat(outdir / "output.png")
     return engine, losses, images, engine.dispatched_blocks
-
-
-@pytest.mark.parametrize("drawer", [
-    dict(drawer="pixel"), dict(drawer="clipdraw", strokes=12),
-    # two batches, and the transparency composite over each batch's fill
-    dict(drawer="pixel", batches=2, transparent=True, transparent_weight=0.5),
-    # filter shifts and the iteration in the staged int32 tail, and custom losses
-    dict(drawer="fft", fft_use="dwt", batches=2, filters="wallpaper,tiler", wallpaper_type="shift",
-         custom_loss="smoothness:0.5,saturation,symmetry"),
-], ids=["pixel", "clipdraw", "pixel-batches2-transparent", "fft-filters-losses"])
-def test_blocked_run_equals_single_steps(tmp_path, drawer):
-    blocked, b_losses, b_images, b_blocks = _run(tmp_path, "blocked", 8, **drawer)
-    single, s_losses, s_images, s_blocks = _run(tmp_path, "single", 1, **drawer)
-    # checkins at 0, 10, 20 and 24, the LR drop at 11: blocks 1-8 and 12-19
-    assert blocked.args.learning_rate_drops == [11]
-    assert b_blocks == [(1, 8), (12, 8)] and s_blocks == []
-    assert blocked.tracker.num_loss_drop == single.tracker.num_loss_drop == 1
-    assert len(b_losses) == len(s_losses) == 24
-    for it, (a, b) in enumerate(zip(b_losses, s_losses)):
-        assert torch.equal(a, b), it
-    for a, b in zip(leaves(blocked.z), leaves(single.z)):
-        assert torch.equal(a, b)
-    for a, b in zip(state_tensors(blocked.opt_state), state_tensors(single.opt_state)):
-        assert torch.equal(a, b)
-    assert torch.equal(blocked.lr_scale, single.lr_scale)
-    assert sorted(b_images) == sorted(s_images) == [
-        "frame_0000.png", "frame_0010.png", "frame_0020.png", "frame_0024.png", "output.png"]
-    assert b_images == s_images
 
 
 def test_no_filter_run_draws_the_same_stream(tmp_path):

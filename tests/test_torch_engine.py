@@ -53,9 +53,12 @@ def test_settings_resolve_like_jax(settings):
 def test_settings_refuse_unported():
     with pytest.raises(NotImplementedError):
         apply_settings(dict(drawer="no_such_drawer", prompts="x"), apply_side_effects=False)
-    with pytest.raises(NotImplementedError, match="style"):
-        apply_settings(dict(drawer="pixel", prompts="x", custom_loss="saturation,style:0.5"), apply_side_effects=False)
+    with pytest.raises(KeyError, match="no_such_loss"):
+        apply_settings(dict(drawer="pixel", prompts="x", custom_loss="saturation,no_such_loss:0.5"),
+                       apply_side_effects=False)
     for ported in (dict(drawer="vqgan", prompts="x"), dict(drawer="fft", prompts="x"),
+                   dict(drawer="pixel", prompts="x", pixel_type="knit", custom_loss="saturation,style:0.5,resmem",
+                        style_file="s.png", styleloss_every=2, resmem_weight=2.0),
                    dict(drawer="fast_pixel", prompts="x", palette="black->white", filters="lookup",
                         custom_loss="palette:2,edge->a"),
                    dict(drawer="vdiff", prompts="x", vdiff_model="cc12m_1", vdiff_schedule="log", vdiff_skip=25),

@@ -198,9 +198,10 @@ def test_aesthetic(head, tmp_path, monkeypatch):
 
 
 def test_loss_registry():
-    for name in ("style", "resmem"):
-        with pytest.raises(NotImplementedError, match=name):
-            loss_class(name)
+    from pixray_tpu.registry import _LOSS_MODULES as JAX_LOSSES
+
+    for name, (_module, class_name) in JAX_LOSSES.items():  # every loss of the JAX package
+        assert loss_class(name).__name__ == class_name
     with pytest.raises(KeyError):
         loss_class("nope")
 

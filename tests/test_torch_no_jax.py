@@ -25,7 +25,8 @@ kinds, blocked: a tiny ModifiedResNet and a tiny timm (SLIP-style) trunk,
 put into the port's config tables by the subprocess, beside TinyTest.
 Then the pixel drawer's SVG export, a ``tiny_up`` vdiff run (eager,
 re-noised after every step) and a super_resolution run (a tiny RRDBNet
-from a basicsr file on disk, blocked).
+from a basicsr file on disk, blocked).  Then a hex pixel run with the
+``resmem`` and ``style`` losses (PIL allowed: the style file).
 """
 
 import os
@@ -34,6 +35,7 @@ import sys
 import textwrap
 
 import numpy as np
+import torch
 
 from torch_parity import TINY_CLIP, TINY_SLIP
 
@@ -77,7 +79,8 @@ BLOCKED = ("jax", "jaxlib", "flax", "optax", "chex", "pixray_tpu", "PIL", "yaml"
 def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False, stream=False, final_checkin=True,
                  setup=""):
     outdir = str(tmp_path / "run")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # the subprocess takes the worker's share of the cores (tests/torch_parity.py)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(torch.get_num_threads()))
     head = (f"OUTDIR = {outdir!r}\nDRAWER = {drawer!r}\nBLOCKED = {blocked!r}\nEXPECT_BLOCK = {expect_block!r}\n"
             f"STREAM = {stream!r}\nSETUP = {setup!r}\n")
     proc = subprocess.run(
@@ -228,3 +231,18 @@ def test_resnet_and_timm_towers_run_without_jax(tmp_path):
     _, stdout = _run_blocked(tmp_path, dict(drawer="pixel", clip_models="TinyRN,TinyTimm48,TinyTest", iterations=10,
                                             save_every=100), expect_block=True, setup=TINY_TOWERS)
     assert "losses: " in stdout and stdout.count("WARNING: no checkpoint found for perceptor") == 3
+
+
+def test_hex_style_resmem_run_without_jax(tmp_path):
+    """Two steps of a hex pixel run with ``resmem`` and ``style`` (PIL
+    allowed: the style file is read through ``io/images.py``); the style
+    loss's blocked path is tests/test_torch_style.py's."""
+    from PIL import Image
+
+    style = str(tmp_path / "style.png")
+    Image.fromarray(np.random.default_rng(3).integers(0, 256, (30, 40, 3), dtype=np.uint8)).save(style)
+    blocked = tuple(m for m in BLOCKED if m != "PIL")
+    _, stdout = _run_blocked(tmp_path, dict(drawer="pixel", pixel_type="hex", custom_loss="resmem,style",
+                                            styleloss_skip=0, style_file=style),
+                             blocked=blocked)
+    assert "WARNING: VGG16 weights not found" in stdout and "WARNING: ResMem weights not found" in stdout

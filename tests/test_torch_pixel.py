@@ -77,10 +77,13 @@ def test_init_params_and_params_from_image():
 
 
 def test_non_rect_geometry_is_refused():
+    """The separable two-matmul render refuses a non-rect geometry: hex
+    takes the gather-and-composite render (tests/test_torch_pixel_geometry.py)."""
     s = _settings((96, 54))
     s.pixel_type = "hex"
-    with pytest.raises(NotImplementedError):
-        PixelDrawer(s)
+    port = PixelDrawer(s)
+    port.snap_canvas((96, 54))
+    assert "sep_row_op" not in port.model_params and "coverage_indices" in port.model_params
 
 
 @pytest.mark.parametrize("w,h", [(96, 54), (300, 200)])

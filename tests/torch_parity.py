@@ -1,5 +1,5 @@
 """What the port's parity tests share: the JAX package's perceptor cache
-kept apart per test.
+kept apart per test, and torch's thread count in a pytest-xdist worker.
 
 ``pixray_tpu.models.perceptor.get_clip_perceptor`` caches a tower by its
 name alone and ignores the ``dtype`` of a later call.  A JAX-package test
@@ -12,11 +12,25 @@ marks its tests with it::
     from torch_parity import jax_perceptor_cache  # noqa: F401
 
     pytestmark = pytest.mark.usefixtures("jax_perceptor_cache")
+
+Under pytest-xdist every worker imports every test module, and with it
+this one: each worker then runs torch's CPU ops on its share of the cores
+(``WORKER_THREADS``).  With the default, six workers on eight cores ran
+48 OpenMP threads, and a heavy test took 5-20 times as long as alone (the
+threads spin at each parallel region's barrier while the one with the
+work waits for a core).  A run in one process keeps every core.
 """
 
+import os
+
 import pytest
+import torch
 
 from pixray_tpu.models import perceptor as j_perceptor
+
+WORKER_THREADS = max(1, (os.cpu_count() or 1) // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")))
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(WORKER_THREADS)
 
 
 @pytest.fixture
