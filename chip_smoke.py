@@ -167,14 +167,24 @@ Phases, each fatal on failure (exit code 1, no result line):
 30. the heavy losses: the pixel row with --custom_loss style
    --styleloss_skip 0 (VGG16 at 384x216 over three scales) and with
    --custom_loss resmem, timed as 29 (finite losses, the loss's term),
-   with the peak device memory.
+   with the peak device memory;
+31. the front ends: the port's HTTP server in this process (worker on
+   cuda, the repo's cogs/): /health, /products, /queue and a full
+   queue's 503; pixrayapi with the pixel row as its settings YAML (40
+   steps, display_every 10: at least 4 PNG parts of 384x216), text2pixel
+   (30 steps; RN50, ViT-B/32, ViT-B/16), a job cut by a 4 s deadline (its
+   TimeoutError part) and the pixel job again, captured while the cut
+   job's runner still steps; K1/K2 per served step; time to first frame,
+   ms per step, peak memory and memory after each job, job 4's within
+   SERVED_MEMORY_MARGIN of job 1's; vectorize --models ViT-B/32 --inputs
+   on the card against the CPU; a two-seed sweep shard.
 
 The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
 towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
 
 Then one JSON line with the kernels' numbers (K1/K2 also with their
-launches on the pixel, vdiff, cc12m, recipe and super_resolution rows and
-on rows 29 and 30), and
+launches on the pixel, vdiff, cc12m, recipe and super_resolution rows, on
+rows 29 and 30 and on the served pixrayapi and text2pixel requests), and
 as the last line
 {"ok": true, "device": {...}}.
 """
@@ -2911,6 +2921,267 @@ def phase_new_agreement(tmp):
                     styleloss_skip=0, style_file=write_style_image(tmp))
 
 
+# the front ends (31): requests served by the port's HTTP server on the card
+SERVED_PIXEL = dict(PIXEL_CONFIG, iterations=40, display_every=10, save_every=10)  # pixrayapi's settings YAML
+SERVED_TEXT2PIXEL_STEPS = 30
+CUT_STEPS, CUT_DISPLAY = 2000, 1000  # the cut job's runner goes on to its step-1000 frame past its deadline
+CUT_TIMEOUT_S = 4.0
+# job 4 (job 1's settings) against job 1, device memory allocated after each: one leaked ViT-B/32 tower set
+# (~300 MiB) is larger; the three 32 MiB cuBLAS workspaces of the second handle that job 4's thread takes
+# beside the cut job's runner fit under it.  With cuBLAS's workspace cache cleared, the engines alone:
+SERVED_MEMORY_MARGIN = 128 * 2**20
+SERVED_ENGINE_MARGIN = 32 * 2**20
+VECTORIZE_ATOL = 2e-2  # ViT-B/32 rows, bf16 on the card against f32 on the CPU, unit norm
+SWEEP_STEPS = 9  # step 0, then one block
+
+
+def read_parts(resp, t0, on_png=None):
+    """The parts of a pixrayframe multipart stream as they arrive:
+    [(seconds since ``t0``, content type, payload)]; ``on_png`` is called
+    when the first PNG part has arrived."""
+    parts = []
+    while True:
+        line = resp.readline()
+        if line in (b"", b"--pixrayframe--\r\n"):
+            return parts
+        if line != b"--pixrayframe\r\n":
+            fail(f"front ends: unexpected multipart line {line[:80]!r}")
+        headers = {}
+        while (h := resp.readline()) != b"\r\n":
+            key, value = h.decode().split(":", 1)
+            headers[key.strip()] = value.strip()
+        if "Content-Length" in headers:
+            data = resp.read(int(headers["Content-Length"]))
+            resp.readline()
+        else:
+            data = resp.readline().rstrip(b"\r\n")
+        parts.append((time.perf_counter() - t0, headers["Content-Type"], data))
+        if on_png is not None and headers["Content-Type"] == "image/png":
+            on_png()
+            on_png = None
+
+
+def serve_request(port, product, body, label, on_png=None):
+    """POST one request and read its stream: (parts, seconds, peak device
+    memory during it)."""
+    import http.client
+
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    t0 = time.perf_counter()
+    conn.request("POST", f"/predictions/{product}", body=json.dumps(body).encode())
+    resp = conn.getresponse()
+    if resp.status != 200 or resp.getheader("Content-Type") != "multipart/x-mixed-replace; boundary=pixrayframe":
+        fail(f"{label}: status {resp.status}, {resp.getheader('Content-Type')}")
+    parts = read_parts(resp, t0, on_png)
+    conn.close()
+    return parts, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def retained():
+    """Device memory allocated with no job running: as it stands, and with
+    cuBLAS's cache of one workspace per (handle, stream) cleared (cuBLAS
+    makes them again at its next call)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    raw = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    return raw, torch.cuda.memory_allocated()
+
+
+def png_size(data):
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail("front ends: a part is not a PNG")
+    return int.from_bytes(data[16:20], "big"), int.from_bytes(data[20:24], "big")
+
+
+def served_line(label, parts, secs, peak, after, steps, display, card):
+    """Time to the first frame, ms per step between the first and the last
+    frame (the steps after the first display; checkins and copies
+    included), peak and retained device memory."""
+    frames = [t for t, kind, _ in parts if kind == "image/png"]
+    ms = 1e3 * (frames[-1] - frames[0]) / (steps - display + 1)
+    print(f"served {label}: {len(frames)} PNG parts in {secs:.2f} s; time to first frame {frames[0]:.2f} s (engine "
+          f"init, towers and capture included); {ms:.2f} ms per step after it over {steps - display + 1} steps; peak "
+          f"device memory {peak / 2**30:.2f} GiB, {after / 2**30:.3f} GiB allocated after the job; on {card}",
+          flush=True)
+
+
+def phase_front_ends(tmp, card):
+    """The port's HTTP server in this process (worker on cuda, the repo's
+    cogs/): /health, /products, /queue and a full queue's 503; pixrayapi on
+    the bench's pixel row, text2pixel (quality better: RN50, ViT-B/32,
+    ViT-B/16), a job cut by a short deadline and the pixel job again while
+    the cut job's runner still steps (the next capture beside it); K1/K2
+    per served step; memory after job 4 within SERVED_MEMORY_MARGIN of job
+    1's, and within SERVED_ENGINE_MARGIN with cuBLAS's workspaces cleared.
+    Then vectorize --inputs (card against CPU) and a two-seed sweep.
+    Returns the served rows' (launches, steps)."""
+    import glob
+    import http.client
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import yaml
+    from PIL import Image
+
+    import pixray_tpu_torch
+    from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+    from pixray_tpu_torch.parallel import sweep
+    from pixray_tpu_torch.serve import http as H
+    from pixray_tpu_torch.tools import vectorize
+
+    class Handler(H.PredictionHandler):
+        def log_message(self, *args):  # no access log on stderr
+            pass
+
+    worker = H.get_worker("cuda")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.server_address[1]
+
+    def get(path):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        out = resp.status, dict(resp.getheaders()), resp.read()
+        conn.close()
+        return out
+
+    if get("/health")[::2] != (200, b"ok"):
+        fail("front ends: /health")
+    if json.loads(get("/products")[2]) != sorted(H.PRODUCTS) or len(H.PRODUCTS) != 10:
+        fail(f"front ends: /products {get('/products')}")
+    if json.loads(get("/queue")[2]) != {"pending": 0, "capacity": 4}:
+        fail(f"front ends: /queue {get('/queue')}")
+    full = H._Worker(max_pending=1, device="cuda")  # not started: its one job stays queued
+    full.submit(H._Job("pixrayapi", {}))
+    H._worker = full
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("POST", "/predictions/pixrayapi", body=b"{}")
+        resp = conn.getresponse()
+        refused = resp.status, resp.reason, resp.getheader("Retry-After")
+        conn.close()
+        queued = json.loads(get("/queue")[2])
+    finally:
+        H._worker = worker
+    if refused != (503, "queue full", "30") or queued != {"pending": 1, "capacity": 4}:
+        fail(f"front ends: a full queue answered {refused}, /queue {queued}")
+    print(f"front ends: /health ok, /products {len(H.PRODUCTS)} products, /queue {{'pending': 0, 'capacity': 4}}; "
+          f"a full queue: {refused[0]} {refused[1]}, Retry-After {refused[2]}", flush=True)
+
+    rows, memory = {}, {}
+    pixel_yaml = yaml.safe_dump(dict(SERVED_PIXEL, outdir=os.path.join(tmp, "api")))
+    for job, (product, body, towers, steps) in enumerate((
+            ("pixrayapi", {"settings": pixel_yaml}, 1, SERVED_PIXEL["iterations"]),
+            ("text2pixel", {"prompts": "sunrise", "iterations": SERVED_TEXT2PIXEL_STEPS,
+                            "outdir": os.path.join(tmp, "t2p")}, 3, SERVED_TEXT2PIXEL_STEPS)), start=1):
+        cuda_warp.reset_launch_counts()
+        cuda_strokes.reset_launch_counts()
+        parts, secs, peak = serve_request(port, product, body, product)
+        launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES}
+        after, engine_only = retained()  # the job's engine stays the package's current one
+        engine = pixray_tpu_torch.get_engine()
+        sizes = {png_size(data) for _, kind, data in parts if kind == "image/png"}
+        if len(parts) < 4 or any(kind != "image/png" for _, kind, _ in parts) or len(sizes) != 1:
+            fail(f"served {product}: parts {[(kind, len(d)) for _, kind, d in parts]}, sizes {sizes}")
+        if product == "pixrayapi" and sizes != {(384, 216)}:
+            fail(f"served pixrayapi: frames of {sizes}, expected 384x216")
+        if len(engine.perceptors) != towers or engine.steps_dispatched != steps:
+            fail(f"served {product}: {len(engine.perceptors)} towers, {engine.steps_dispatched} steps")
+        ran = steps_run(engine, steps)
+        check_launches(f"served {product}", launches, {"warp_fwd": towers * ran, "warp_bwd": towers * ran,
+                                                       "strokes_fwd": 0, "strokes_fwd_store": 0, "strokes_bwd": 0})
+        served_line(f"{product} ({','.join(engine.args.clip_models)}, {sizes.pop()}, {steps} steps)", parts, secs,
+                    peak, after, steps, engine.args.display_every, card)
+        print(f"served {product}: K1/K2 launches per step {launches['warp_fwd'] / ran:.2f} / "
+              f"{launches['warp_bwd'] / ran:.2f} over {ran} steps; blocks {engine.dispatched_blocks}", flush=True)
+        rows[f"served {product}"] = (launches, ran)
+        memory[job] = after, engine_only
+        del engine
+
+    cut_yaml = yaml.safe_dump(dict(SERVED_PIXEL, iterations=CUT_STEPS, display_every=CUT_DISPLAY,
+                                   save_every=CUT_DISPLAY, outdir=os.path.join(tmp, "cut")))
+    worker.job_timeout = CUT_TIMEOUT_S
+    try:
+        parts, secs, peak = serve_request(port, "pixrayapi", {"settings": cut_yaml}, "cut job")
+    finally:
+        worker.job_timeout = H.JOB_TIMEOUT_S
+    last = parts[-1] if parts else (0, "", b"")
+    if last[1] != "text/plain" or not last[2].startswith(b"TimeoutError: render exceeded the 4s job deadline"):
+        fail(f"cut job: ended with {last[1]} {last[2][:120]!r}")
+    runner = worker.abandoned[-1]
+    print(f"served cut job (pixrayapi, {CUT_STEPS} steps, deadline {CUT_TIMEOUT_S:g} s): {len(parts) - 1} PNG parts, "
+          f"then {last[2].decode()!r} at {last[0]:.2f} s; its runner still running: {runner.is_alive()}", flush=True)
+
+    beside = []
+    parts, secs, peak = serve_request(port, "pixrayapi", {"settings": pixel_yaml}, "job after the cut",
+                                      on_png=lambda: beside.append(runner.is_alive()))
+    if sum(kind == "image/png" for _, kind, _ in parts) < 4 or any(kind != "image/png" for _, kind, _ in parts):
+        fail(f"job after the cut: parts {[(kind, len(d)) for _, kind, d in parts]}")
+    if beside != [True]:
+        fail("job after the cut: the cut job's runner had stopped before this job's capture; nothing ran beside it")
+    runner.join(300)
+    if runner.is_alive():
+        fail("the cut job's runner did not stop at its next frame")
+    memory[4] = retained()
+    served_line("pixrayapi after the cut job (its capture beside the cut job's runner)", parts, secs, peak,
+                memory[4][0], SERVED_PIXEL["iterations"], SERVED_PIXEL["display_every"], card)
+    server.shutdown()
+    server.server_close()
+    grown, engines = (memory[4][i] - memory[1][i] for i in (0, 1))
+    print(f"front ends: device memory allocated after job 1 {memory[1][0] / 2**20:.1f} MiB, after job 2 "
+          f"(text2pixel) {memory[2][0] / 2**20:.1f} MiB, after job 4 (job 1's settings; the cut job's runner "
+          f"stopped) {memory[4][0] / 2**20:.1f} MiB: {grown / 2**20:+.1f} MiB against job 1 (margin "
+          f"{SERVED_MEMORY_MARGIN / 2**20:.0f} MiB); with cuBLAS's workspaces cleared {memory[1][1] / 2**20:.1f}, "
+          f"{memory[2][1] / 2**20:.1f}, {memory[4][1] / 2**20:.1f} MiB: {engines / 2**20:+.1f} MiB (margin "
+          f"{SERVED_ENGINE_MARGIN / 2**20:.0f} MiB)", flush=True)
+    if abs(grown) > SERVED_MEMORY_MARGIN or abs(engines) > SERVED_ENGINE_MARGIN:
+        fail(f"front ends: memory after job 4 differs from job 1's by {grown / 2**20:.1f} MiB "
+             f"({engines / 2**20:.1f} MiB without cuBLAS's workspaces)")
+
+    # vectorize --inputs: ViT-B/32 on the card (bf16) against the CPU (f32)
+    for i, shape in enumerate(((240, 320, 3), (300, 300, 3), (216, 384, 3), (400, 250, 3))):
+        Image.fromarray(np.random.default_rng(40 + i).integers(0, 256, shape, dtype=np.uint8)).save(
+            os.path.join(tmp, f"vec{i}.png"))
+    tables = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, f"vectors_{device}.json")
+        t0 = time.perf_counter()
+        vectorize.main(["--models", "ViT-B/32", "--inputs", os.path.join(tmp, "vec*.png"), "--outfile", out,
+                        "--device", device])
+        tables[device] = (np.array(json.load(open(out))["ViT-B/32"]), time.perf_counter() - t0)
+    card_rows, cpu_rows = tables["cuda"][0], tables["cpu"][0]
+    err = float(np.abs(card_rows - cpu_rows).max())
+    norms = np.linalg.norm(card_rows, axis=1)
+    if card_rows.shape != (4, 512) or not np.isfinite(card_rows).all() or np.abs(norms - 1).max() > 1e-3 \
+            or err > VECTORIZE_ATOL:
+        fail(f"vectorize: rows {card_rows.shape}, norms {norms}, card against CPU {err:.3g}")
+    print(f"vectorize --models ViT-B/32 --inputs (4 seeded PNGs): rows {card_rows.shape}, unit norm within "
+          f"{np.abs(norms - 1).max():.1e}; card (bf16) against CPU (f32) max |diff| {err:.2e} (tol {VECTORIZE_ATOL}); "
+          f"{tables['cuda'][1]:.1f} s on the card with the tower's build, {tables['cpu'][1]:.1f} s on the CPU", flush=True)
+
+    # a two-seed sweep shard through the run module's contract
+    settings = os.path.join(tmp, "sweep.yaml")
+    with open(settings, "w") as f:
+        yaml.safe_dump(dict(PIXEL_CONFIG, iterations=SWEEP_STEPS), f)
+    t0 = time.perf_counter()
+    sweep.main([settings, "--seeds", "4-5", "--outdir", os.path.join(tmp, "sweep", "%SEED%")])
+    outs = sorted(glob.glob(os.path.join(tmp, "sweep", "*", "output.png")))
+    if [os.path.basename(os.path.dirname(p)) for p in outs] != ["4", "5"]:
+        fail(f"sweep: outputs {outs}")
+    for path in outs:
+        check_png("sweep", path, (384, 216))
+    print(f"sweep --seeds 4-5: one 384x216 output.png per seed outdir in {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 def main():
     import torch
 
@@ -3015,6 +3286,8 @@ def main():
         rows.update(phase_geometry_rows(tmp, card))
     with tempfile.TemporaryDirectory() as tmp:
         rows.update(phase_loss_rows(tmp, card))
+    with tempfile.TemporaryDirectory() as tmp:
+        rows.update(phase_front_ends(tmp, card))
     per_row = lambda counter: {row: {"launches": got[counter], "steps": n} for row, (got, n) in rows.items()}
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"

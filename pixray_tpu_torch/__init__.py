@@ -10,12 +10,23 @@ Public API mirrors ``pixray_tpu``:
     pixray.do_run(settings)
 
 or the one-liner ``pixray_tpu_torch.run(prompts=..., drawer="pixel")``.
-The vqgan (the default), pixel, fast_pixel, fft, clipdraw and line_sketch
-drawers with OpenAI ViT perceptors, the lookup, tiler and wallpaper
-filters, and every custom loss but style and resmem are ported so far.
+Every drawer, loss, filter and perceptor of the JAX package is ported.
+The front ends, each on the card unless the caller passes the CPU:
+
+- ``python -m pixray_tpu_torch`` (flags, ``--config_file``), always CUDA;
+- ``python -m pixray_tpu_torch.run settings.yaml [outdir] [--device cpu]``;
+- ``pixray_tpu_torch.serve``: the Cog products (``PRODUCTS``, built with
+  ``device=``) and ``python -m pixray_tpu_torch.serve.http`` (``--device``);
+- ``python -m pixray_tpu_torch.tools.vectorize`` (``--device``);
+- ``python -m pixray_tpu_torch.parallel.sweep`` (``--device``; its
+  ``--dry_run`` imports no torch).
 """
 
 from __future__ import annotations
+
+import gc
+
+from pixray_tpu_torch.registry import add_custom_loss  # noqa: F401
 
 _global_settings: dict = {}
 _engine = None
@@ -41,9 +52,14 @@ def apply_settings():
 
 
 def do_init(settings, device="cuda"):
+    """Build the session's engine; the previous one (its towers, graphs and
+    their memory pools) is released first, so a server or a sweep holds
+    one engine at a time."""
     global _engine
     from pixray_tpu_torch.engine.core import Engine
 
+    _engine = None
+    gc.collect()
     _engine = Engine(settings, device=device)
     return _engine
 
@@ -67,6 +83,12 @@ def run(prompts=None, drawer="vqgan", device="cuda", **kwargs):
     settings = apply_settings()
     do_init(settings, device=device)
     return do_run(settings)
+
+
+def command_line_override():
+    """Parse settings purely from argv."""
+    reset_settings()
+    return apply_settings()
 
 
 def main():

@@ -37,6 +37,7 @@ from dataclasses import dataclass, field
 from typing import Any
 
 import gc
+import threading
 import time
 
 import torch
@@ -111,6 +112,12 @@ class StepConfig:
 
 # the kernels' launch counters, which a replay advances by what its capture recorded
 LAUNCH_COUNTERS = (cuda_warp.LAUNCHES, cuda_strokes.LAUNCHES)
+_CAPTURE_LOCK = threading.Lock()
+# one warm-up stream per device, as torch.cuda.graph keeps one capture
+# stream: cuBLAS caches a workspace (32 MiB on Hopper) for every (handle,
+# stream) pair it meets, so a new stream per capture grows a server's
+# memory with every request
+_WARMUP_STREAMS: dict = {}
 
 
 def bank_rows(cfg: StepConfig, num_cuts: int) -> list[int]:
@@ -501,7 +508,9 @@ class StepBlock:
         t0 = time.perf_counter()
         cfg, opt = self.cfg, self.optimizer
         main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = _WARMUP_STREAMS.get(self.device)
+        if side is None:
+            side = _WARMUP_STREAMS[self.device] = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
             # first use on this stream (cuBLAS workspaces, cuDNN's choice, the
@@ -511,27 +520,32 @@ class StepBlock:
         main.wait_stream(side)
         self.totals = torch.zeros((self.n,), dtype=total.dtype, device=self.device)
         self.values = torch.zeros((self.n, values.numel()), dtype=values.dtype, device=self.device)
-        before = [dict(counter) for counter in LAUNCH_COUNTERS]
         graph = torch.cuda.CUDAGraph()
         # no garbage collection inside the capture: collecting an unreachable
-        # engine destroys its graph, a call the capture may not see
-        gc.collect()
-        gc_was_enabled = gc.isenabled()
-        gc.disable()
-        try:
-            with torch.cuda.graph(graph):
-                for s in range(self.n):
-                    total, values, _ = train_step(cfg, opt, z, opt_state, lr_scale, self.inputs(s))
-                    self.totals[s].copy_(total)
-                    self.values[s].copy_(values)
-        except Exception as exc:
-            raise RuntimeError(f"capturing the {self.n}-step block into a CUDA graph failed: {exc}") from exc
-        finally:
-            if gc_was_enabled:
-                gc.enable()
-            self.launches = [{k: counter[k] - b[k] for k in counter}
-                             for counter, b in zip(LAUNCH_COUNTERS, before)]
-            for counter, b in zip(LAUNCH_COUNTERS, before):
-                counter.update(b)  # recorded into the graph, not launched
+        # engine destroys its graph, a call the capture may not see.  One
+        # capture at a time in the process (the collector's switch is global);
+        # the thread-local mode lets another thread's engine (a server's
+        # abandoned job) synchronize and allocate meanwhile, where the global
+        # mode would fail either the capture or that thread's call
+        with _CAPTURE_LOCK:
+            before = [dict(counter) for counter in LAUNCH_COUNTERS]
+            gc.collect()
+            gc_was_enabled = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    for s in range(self.n):
+                        total, values, _ = train_step(cfg, opt, z, opt_state, lr_scale, self.inputs(s))
+                        self.totals[s].copy_(total)
+                        self.values[s].copy_(values)
+            except Exception as exc:
+                raise RuntimeError(f"capturing the {self.n}-step block into a CUDA graph failed: {exc}") from exc
+            finally:
+                if gc_was_enabled:
+                    gc.enable()
+                self.launches = [{k: counter[k] - b[k] for k in counter}
+                                 for counter, b in zip(LAUNCH_COUNTERS, before)]
+                for counter, b in zip(LAUNCH_COUNTERS, before):
+                    counter.update(b)  # recorded into the graph, not launched
         self.graph = graph
         self.capture_s = time.perf_counter() - t0

@@ -1,18 +1,6 @@
-"""Filter registry of the port (``pixray_tpu/registry.py``'s filter table)."""
+"""The port's filters (``lookup``, ``tiler``, ``wallpaper``), looked up in
+``pixray_tpu_torch.registry``."""
 
-from __future__ import annotations
+from pixray_tpu_torch.registry import filter_class
 
-import importlib
-
-_FILTER_MODULES = {
-    "lookup": ("pixray_tpu_torch.filters.lookup", "ColorLookup"),
-    "tiler": ("pixray_tpu_torch.filters.tiler", "TilerFilter"),
-    "wallpaper": ("pixray_tpu_torch.filters.wallpaper", "WallpaperFilter"),
-}
-
-
-def filter_class(name: str) -> type:
-    if name not in _FILTER_MODULES:
-        raise KeyError(name)
-    module_name, class_name = _FILTER_MODULES[name]
-    return getattr(importlib.import_module(module_name), class_name)
+__all__ = ["filter_class"]

@@ -26,7 +26,12 @@ put into the port's config tables by the subprocess, beside TinyTest.
 Then the pixel drawer's SVG export, a ``tiny_up`` vdiff run (eager,
 re-noised after every step) and a super_resolution run (a tiny RRDBNet
 from a basicsr file on disk, blocked).  Then a hex pixel run with the
-``resmem`` and ``style`` losses (PIL allowed: the style file).
+``resmem`` and ``style`` losses (PIL allowed: the style file).  Last the
+front ends, with sklearn blocked too and PyYAML and PIL allowed: the
+registry loads every module with no note, ``python -m
+pixray_tpu_torch.run`` runs a TinyTest YAML, the HTTP server answers one
+``pixrayapi`` request on the CPU, ``vectorize --avg-diff`` and
+``--svm-diff`` run, and a sweep dry run prints its plan.
 """
 
 import os
@@ -246,3 +251,84 @@ def test_hex_style_resmem_run_without_jax(tmp_path):
                                             styleloss_skip=0, style_file=style),
                              blocked=blocked)
     assert "WARNING: VGG16 weights not found" in stdout and "WARNING: ResMem weights not found" in stdout
+
+
+FRONTENDS = textwrap.dedent("""
+    import http.client, io, json, os, runpy, sys, threading
+    from contextlib import redirect_stdout
+    from http.server import ThreadingHTTPServer
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    os.environ["PIXRAY_TPU_COGS"] = COGS
+    from pixray_tpu_torch import registry
+
+    note = io.StringIO()
+    with redirect_stdout(note):
+        registry.load_registries()
+    assert note.getvalue() == "", note.getvalue()
+    assert (len(registry.DRAWER_CLASSES), len(registry.LOSS_CLASSES), len(registry.FILTER_CLASSES)) == (8, 9, 3)
+
+    sys.argv = ["run", YAML, "run_out", "--device", "cpu"]
+    runpy.run_module("pixray_tpu_torch.run", run_name="__main__")
+    with open("run_out/output.png", "rb") as f:
+        assert f.read(8) == b"\\x89PNG\\r\\n\\x1a\\n"
+
+    from pixray_tpu_torch.serve import http as H
+
+    H.get_worker("cpu")
+    server = ThreadingHTTPServer(("127.0.0.1", 0), H.PredictionHandler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=240)
+    conn.request("POST", "/predictions/pixrayapi", body=json.dumps({"settings": "seed: 9"}).encode())
+    resp = conn.getresponse()
+    body = resp.read()
+    server.shutdown()
+    assert resp.status == 200 and body.count(b"Content-Type: image/png") == 2 and b"text/plain" not in body, body[-500:]
+
+    from pixray_tpu_torch.tools import vectorize
+
+    for table, rows in (("a.json", [[0.0, 1.0, 0.5], [0.2, 0.9, 0.4]]), ("b.json", [[1.0, 0.0, 0.5], [0.8, 0.1, 0.7]])):
+        with open(table, "w") as f:
+            json.dump({"TinyTest": rows}, f)
+    vectorize.main(["--avg-diff", "a.json,b.json", "--outfile", "avg.json"])
+    vectorize.main(["--svm-diff", "a.json,b.json", "--outfile", "svm.json"])
+    for out in ("avg.json", "svm.json"):
+        with open(out) as f:
+            assert len(json.load(f)["TinyTest"][0]) == 3
+
+    from pixray_tpu_torch.parallel import sweep
+
+    sweep.main([YAML, "--seeds", "0-3", "--num_hosts", "2", "--host_index", "1", "--dry_run"])
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    assert not loaded, loaded
+    print("FRONTENDS_OK")
+""")
+
+
+def test_front_ends_run_without_jax(tmp_path):
+    """The front ends with JAX, flax, optax, pixray_tpu and sklearn blocked
+    (PyYAML and PIL allowed), on the CPU."""
+    import yaml
+
+    tiny = dict(drawer="fast_pixel", prompts="sunrise", clip_models="TinyTest", size=[48, 32], num_cuts=4,
+                iterations=2, save_every=2, display_every=2, vector_prompts="none", seed=3, learning_rate_drops=[],
+                save_intermediates=False, steps_per_call=1)
+    settings = tmp_path / "s.yaml"
+    settings.write_text(yaml.dump(tiny))
+    cogs = tmp_path / "cogs"
+    cogs.mkdir()
+    (cogs / "pixrayapi.yaml").write_text(yaml.dump(dict(tiny, outdir=str(tmp_path / "api"))))
+    blocked = tuple(m for m in BLOCKED if m not in ("PIL", "yaml")) + ("sklearn",)
+    head = f"BLOCKED = {blocked!r}\nCOGS = {str(cogs)!r}\nYAML = {str(settings)!r}\n"
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(torch.get_num_threads()))
+    proc = subprocess.run([sys.executable, "-c", head + FRONTENDS], cwd=str(tmp_path), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "FRONTENDS_OK" in proc.stdout
+    assert "host 1/2: seed=2" in proc.stdout and "total 2 seeds on this host" in proc.stdout
