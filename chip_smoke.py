@@ -177,14 +177,37 @@ Phases, each fatal on failure (exit code 1, no result line):
    job's runner still steps; K1/K2 per served step; time to first frame,
    ms per step, peak memory and memory after each job, job 4's within
    SERVED_MEMORY_MARGIN of job 1's; vectorize --models ViT-B/32 --inputs
-   on the card against the CPU; a two-seed sweep shard.
+   on the card against the CPU; a two-seed sweep shard;
+32. rung kernels: K1's int8, bf16 and high variants and K2's bf16, high
+   and int8 variants (csrc/warp.cu, the JAX package's precision rungs)
+   against their plain twins on the flagship bank and the ragged tie-rich
+   bank: K1-int8's pre-jitter bank bitwise, the other banks within
+   BANK_ULPS; K2-int8 bitwise without jitter and the same bits twice, the
+   float rungs within BWD_RTOL of max|dwork|; kernel, call, CUDA-event and
+   plain times beside the bounds (an s8 canvas for K1-int8);
+33. tower rungs: ViT-B/32 on the flagship bank under PIXRAY_TPU_CLIP_PREC
+   bf16 / int8 / int8b, _CLIP_PREQ 1 / 0 and _CLIP_LN32 0 / 1: forward +
+   input gradient ms per call, and at the JAX default rung the card
+   against the CPU on two cuts (equal s8 codes, embeddings within TOWER_ATOL);
+   first torch._int_mm at the tower's product shapes with its second
+   operand row-major and column-major (exact, ms) beside the bf16 GEMM;
+34. the ladder gate: the pixel row (60 steps, blocked) at the JAX
+   package's default rungs (WARP int8, CLIP int8b, PREQ 1, LN32 0) and at
+   EXACT_ENV's (WARP highest, CLIP bf16, LN32 1), last5(default) -
+   last5(exact) <= 0.08 as bench.py's check_precision_gate; then each knob
+   of the defaults alone and the rungs no default takes (K1 bf16, K1
+   high, K2 int8), 17 steps each; per row the descent, steps/s, the
+   device busy (three replays for exact and each knob alone) and one
+   replay's K1/K2 variants, and whether each knob alone brings the busy
+   below every exact replay.
 
 The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
 towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
 
 Then one JSON line with the kernels' numbers (K1/K2 also with their
 launches on the pixel, vdiff, cc12m, recipe and super_resolution rows, on
-rows 29 and 30 and on the served pixrayapi and text2pixel requests), and
+rows 29 and 30 and on the served pixrayapi and text2pixel requests; each
+rung variant with its launches on the ladder rows), and
 as the last line
 {"ok": true, "device": {...}}.
 """
@@ -845,7 +868,7 @@ def phase_bank_no_jitter(with_jitter):
         fail(f"K1 without jitter differs from the plain composition: {res}")
     if not res["bwd_err"] <= res["bwd_tol"]:
         fail(f"K2 without jitter disagrees with the plain gradient: {res}")
-    if launched != {"warp_fwd": 1, "warp_bwd": 0}:
+    if launched != dict(dict.fromkeys(launched, 0), warp_fwd=1):
         fail(f"the forward-only bank launched {launched}, expected one K1 and no K2")
     plane, canvas, rows = s * s * 2, h * w * 3 * 4, params.numel() * 4
     timed = {
@@ -1298,7 +1321,7 @@ def phase_agreement(tmp, drawer_config, label, state_dicts=None, renoise=False, 
         fail(f"{label} card run disagrees with the CPU run: {worst}")
 
 
-def drive_path(config, tmp, steps, warmup, before=None, on_engine=None):
+def drive_path(config, tmp, steps, warmup, before=None, on_engine=None, state_dicts=None):
     """An Engine on the card, stepped ``steps`` times with a host read of the
     loss after each (as bench.py reads it), blocked unless the config says
     ``steps_per_call`` 1; every launch counter is set to 0 just before the
@@ -1309,7 +1332,7 @@ def drive_path(config, tmp, steps, warmup, before=None, on_engine=None):
     the synchronize at ``warmup`` (every one of them finished by the final
     synchronize), not the steps walked.  ``before``: a dict that receives
     a copy of the initial latent as "z"; ``on_engine``: called with the
-    engine before its first step."""
+    engine before its first step; ``state_dicts``: the engine's weights."""
     import torch
 
     from pixray_tpu_torch.config import apply_settings
@@ -1318,7 +1341,7 @@ def drive_path(config, tmp, steps, warmup, before=None, on_engine=None):
 
     settings = apply_settings(dict(config, outdir=tmp), apply_side_effects=False)
     t0 = time.perf_counter()
-    engine = Engine(settings, device="cuda")
+    engine = Engine(settings, device="cuda", state_dicts=state_dicts)
     init_s = time.perf_counter() - t0
     if before is not None:
         before["z"] = engine.z.clone()
@@ -3182,6 +3205,399 @@ def phase_front_ends(tmp, card):
     return rows
 
 
+# the precision rungs (32-34): the JAX package's default rungs and bench.py's exact-arithmetic ones
+# (tools/smoke_tpu.py EXACT_ENV; the port has no CLIP_W16 knob: its weights are bf16 under
+# --precision bf16 either way), as config/precision.py reads them
+JAX_DEFAULT_RUNGS = {"PIXRAY_TPU_WARP_PREC": "int8", "PIXRAY_TPU_WARP_BWD_PREC": "bf16",
+                     "PIXRAY_TPU_CLIP_PREC": "int8b", "PIXRAY_TPU_CLIP_PREQ": "1", "PIXRAY_TPU_CLIP_LN32": "0"}
+EXACT_RUNGS = {"PIXRAY_TPU_WARP_PREC": "highest", "PIXRAY_TPU_WARP_BWD_PREC": "bf16",
+               "PIXRAY_TPU_CLIP_PREC": "bf16", "PIXRAY_TPU_CLIP_PREQ": "1", "PIXRAY_TPU_CLIP_LN32": "1"}
+LADDER_STEPS = 60  # bench.py's PIXRAY_TPU_SMOKE_STEPS
+LADDER_BAND = 0.08  # bench.py's band: last5(default) - last5(exact) <= 0.08
+BUSY_WINDOWS = 3  # replays profiled per ladder row of VERDICT_ROWS
+VERDICT_ROWS = ("exact", "warp int8 alone", "tower int8b alone", "LayerNorm bf16 alone")
+RUNG_STEPS = 17  # the single-knob rows: step 0, then two blocks
+# (label, rungs over EXACT_RUNGS, steps): the ladder's two settings, each knob of the JAX
+# defaults alone, and the rungs no default takes (K1 bf16 / high, K2 int8)
+RUNG_ROWS = (
+    ("exact", {}, LADDER_STEPS),
+    ("JAX defaults", JAX_DEFAULT_RUNGS, LADDER_STEPS),
+    ("warp int8 alone", {"PIXRAY_TPU_WARP_PREC": "int8"}, RUNG_STEPS),
+    ("tower int8b alone", {"PIXRAY_TPU_CLIP_PREC": "int8b"}, RUNG_STEPS),
+    ("LayerNorm bf16 alone", {"PIXRAY_TPU_CLIP_LN32": "0"}, RUNG_STEPS),
+    ("warp bf16", {"PIXRAY_TPU_WARP_PREC": "bf16"}, RUNG_STEPS),
+    ("warp high", {"PIXRAY_TPU_WARP_PREC": "high"}, RUNG_STEPS),
+    ("warp int8, K2 int8", {"PIXRAY_TPU_WARP_PREC": "int8", "PIXRAY_TPU_WARP_BWD_PREC": "int8"}, RUNG_STEPS),
+)
+# the tower rungs on the card (33): (CLIP_PREC, PREQ, LN32), the card against the CPU for the marked ones
+# (the bf16 rung's card-vs-CPU agreement is phase 5's and 20's)
+TOWER_RUNGS = (("bf16", "1", "1", False), ("bf16", "1", "0", False), ("int8", "1", "0", False),
+               ("int8b", "1", "0", True), ("int8b", "0", "0", False))
+TOWER_CPU_CUTS = 2
+TOWER_ATOL = 5e-2  # ViT-B/32 embeddings, card against CPU, both bf16: equal s8 codes, bf16 sums in other orders
+RUNG_BWD_RTOL = {"bf16": BWD_RTOL, "high": BWD_RTOL}  # K2's float rungs: atomics' order, of max|dwork|
+
+
+_VIT_B32 = {}
+
+
+def vit_b32_weights():
+    """One seeded random draw of ViT-B/32's weights (a state dict on the host), for phases 33 and 34."""
+    import torch
+
+    from pixray_tpu_torch.models.clip.configs import CLIP_CONFIGS
+    from pixray_tpu_torch.models.clip.model import CLIP, init_random_
+
+    if not _VIT_B32:
+        model = init_random_(CLIP(CLIP_CONFIGS["ViT-B/32"]), torch.Generator().manual_seed(14))
+        _VIT_B32.update({k: v.contiguous() for k, v in model.state_dict().items()})
+    return _VIT_B32
+
+
+class rung_env:
+    """The process environment with ``rungs`` over EXACT_RUNGS for the
+    ``with`` block (an engine or a perceptor reads it when it is built)."""
+
+    def __init__(self, rungs):
+        self.rungs = dict(EXACT_RUNGS, **rungs)
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.rungs}
+        os.environ.update(self.rungs)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it):
+    """K1's and K2's rung variants against their plain twins on the card,
+    on one bank (bf16, jitter, noise): per K1 rung the pre-jitter bank of
+    the jittered cuts (bitwise for int8, within BANK_ULPS otherwise) and
+    the bank (within BANK_ULPS); per K2 rung the gradient from the explicit
+    jitter adjoint's cotangent (int8 bitwise, the float rungs within
+    RUNG_BWD_RTOL of max|dwork|), and K2-int8 once more on the bank
+    without jitter, where K2's cotangent is g itself.  Times as phase 3b,
+    bounds with an s8 canvas for K1-int8; grid_sample computes none of
+    these functions."""
+    import torch
+
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.ops.color import jitter_planes_adjoint
+    from pixray_tpu_torch.ops.warp import inv3x3
+    from pixray_tpu_torch.ops.warp_batch import warp_adjoint_rung, warp_modes_prec
+
+    dev, bf16 = work.device, torch.bfloat16
+    inv = inv3x3(ms.float())
+    inv_d, modes_d = inv.to(dev), modes.to(dev, torch.int32)
+    params = cuda_warp.pack_params(inv, modes, jitter, facs, fill=fill)
+    params_dev = params.to(dev)
+    n, (h, w, _) = ms.shape[0], work.shape
+    applied = jitter[2].to(dev)
+    jittered = int(jitter[2].sum())
+    g = torch.randn((n, 3, s, s), device=dev, generator=torch.Generator(device=dev).manual_seed(9)).to(bf16)
+    res = {"name": name, "n": n, "s": s, "canvas": [h, w], "jittered": jittered, "fwd": {}, "bwd": {}}
+    plane, rows = s * s * 2, params.numel() * 4
+    pres = {}
+    for prec in ("int8", "bf16", "high"):
+        out_k, pre_k = cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16, save_pre=True, prec=prec)
+        with torch.no_grad():
+            pre_p = warp_modes_prec(work, inv_d, modes_d, fill, s, prec).to(bf16)
+            out_p = cuda_warp.cutout_bank_plain(work, params, s, planes, bf16, prec)
+        torch.cuda.synchronize()
+        pre_ulps, ulps = bf16_ulps(pre_k[applied], pre_p[applied]), bf16_ulps(out_k, out_p)
+        r = {"pre_bitwise": torch.equal(pre_k[applied], pre_p[applied]), "pre_max_ulps": int(pre_ulps.max()),
+             "max_ulps": int(ulps.max()), "ulp_diffs": int((ulps > 0).sum()),
+             "max_abs_err": float((out_k.float() - out_p.float()).abs().max())}
+        if prec == "int8" and not r["pre_bitwise"]:
+            fail(f"K1-int8's pre-jitter bank differs from its plain twin on {name}: {r}")
+        if not (r["pre_max_ulps"] <= BANK_ULPS and r["max_ulps"] <= BANK_ULPS):
+            fail(f"K1-{prec}'s bank differs from its plain twin beyond {BANK_ULPS} ulps on {name}: {r}")
+        pres[prec] = pre_k
+        if time_it:
+            canvas = h * w * 3 * (1 if prec == "int8" else 4)
+            r["bound"] = bound(canvas + rows + 3 * n * plane * 2 + 3 * jittered * plane,
+                               (WARP_FWD_FLOPS_PER_PIXEL * n + JITTER_FWD_FLOPS_PER_PIXEL * jittered) * s * s)
+
+            def fwd(prec=prec):
+                cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16, save_pre=True, prec=prec)
+
+            def plain(prec=prec):
+                with torch.no_grad():
+                    cuda_warp.cutout_bank_plain(work, params, s, planes, bf16, prec)
+
+            times = kernel_times(fwd)
+            kernel = cuda_warp.KERNEL_NAMES[cuda_warp.FWD_COUNTERS[prec]]
+            r["ms"] = sum(v for k, v in times.items() if kernel in k)
+            r["call_ms"], r["event_ms"] = sum(times.values()), median_ms(fwd)  # int8: the canvas quantize too
+            r["plain_ms"], r["plain_event_ms"] = device_ms(plain), median_ms(plain)
+        res["fwd"][prec] = r
+    # K2's cotangent: the explicit jitter adjoint (K2's formulas) rounded to bf16, as phase 3b
+    u = cuda_warp.unpack_params(params)
+    pre_x = pres["int8"]
+    d_exp = torch.stack(jitter_planes_adjoint(*pre_x.unbind(1), u["hue"].to(dev)[:, None, None],
+                                              u["sat"].to(dev)[:, None, None], *g.float().unbind(1)), 1)
+    d_exp = torch.where(applied[:, None, None, None], d_exp.to(bf16), g)
+    params_flat = cuda_warp.pack_params(inv, modes, None, facs, fill=fill).to(dev)  # the same bank, no jitter
+    for prec in ("bf16", "high", "int8"):
+        dwork_k = cuda_warp.launch_bank_bwd(g, pre_x, params_dev, tuple(work.shape), s, prec=prec)
+        dwork_p = warp_adjoint_rung(d_exp, inv_d, modes_d, tuple(work.shape), s, prec)
+        torch.cuda.synchronize()
+        scale = max(float(dwork_p.abs().max()), 1e-6)
+        r = {"bitwise": torch.equal(dwork_k, dwork_p), "max_abs_err": float((dwork_k - dwork_p).abs().max()),
+             "scale": scale, "diffs": int((dwork_k != dwork_p).sum())}
+        if prec == "int8":
+            flat_k = cuda_warp.launch_bank_bwd(g, None, params_flat, tuple(work.shape), s, prec="int8")
+            flat_p = warp_adjoint_rung(g, inv_d, modes_d, tuple(work.shape), s, "int8")
+            r["bitwise_without_jitter"] = torch.equal(flat_k, flat_p)
+            again = cuda_warp.launch_bank_bwd(g, pre_x, params_dev, tuple(work.shape), s, prec="int8")
+            r["deterministic"] = torch.equal(again, dwork_k)
+            if not (r["bitwise_without_jitter"] and r["deterministic"]):
+                fail(f"K2-int8 differs from its plain twin (or from itself) on {name}: {r}")
+            r["tol"] = RUNG_BWD_RTOL["bf16"] * scale  # with jitter: the two adjoints' cotangents may part by a bf16 ulp
+        else:
+            r["tol"] = RUNG_BWD_RTOL[prec] * scale
+        if not r["max_abs_err"] <= r["tol"]:
+            fail(f"K2-{prec} disagrees with its plain twin on {name}: {r}")
+        if time_it:
+            r["bound"] = bound(3 * n * plane + 3 * jittered * plane + rows + h * w * 3 * 4,
+                               (WARP_BWD_FLOPS_PER_PIXEL * n + JITTER_BWD_FLOPS_PER_PIXEL * jittered) * s * s)
+
+            def bwd(prec=prec):
+                cuda_warp.launch_bank_bwd(g, pre_x, params_dev, tuple(work.shape), s, prec=prec)
+
+            def plain_bwd(prec=prec):
+                warp_adjoint_rung(d_exp, inv_d, modes_d, tuple(work.shape), s, prec)
+
+            r["ms"], r["event_ms"] = device_ms(bwd), median_ms(bwd)  # int8: its three kernels
+            r["plain_ms"], r["plain_event_ms"] = device_ms(plain_bwd), median_ms(plain_bwd)
+        res["bwd"][prec] = r
+    return res
+
+
+def phase_rung_kernels():
+    """32: the rung variants of K1/K2 against their plain twins on the
+    flagship bank (64 cuts of 224 on 224x224x3, bf16, 47 jittered, noise;
+    timed) and the ragged tie-rich bank of phase 3b."""
+    import torch
+
+    from pixray_tpu_torch.engine.cutouts import draw_noise
+    from pixray_tpu_torch.ops import warp as W
+
+    gen, gen_dev, (work, ms, modes, jitter, facs, planes) = flagship_bank_inputs()
+    flagship = rung_bank_case("flagship", work, ms, modes, 0.37, 224, jitter, facs, planes, time_it=True)
+    h, w, s = 90, 100, 40
+    t = lambda *a: torch.tensor(a, dtype=torch.float32)
+    boxes = W.crop_box_transform(t(0.0, 10.0, -120.0, 5.0, 0.0, -140.0), t(0.0, 2.0, -100.0, 20.0, 0.0, -90.0),
+                                 t(100.0, 30.0, 350.0, 60.0, 100.0, 380.0), t(90.0, 28.0, 300.0, 50.0, 90.0, 270.0),
+                                 s, s)
+    persp = W.mm3(W.crop_box_transform(t(5.0, -10.0, 20.0), t(0.0, 10.0, -5.0), t(90.0, 80.0, 60.0),
+                                       t(85.0, 70.0, 95.0), s, s),
+                  W.random_perspective(h, w, 0.5, torch.rand((3, 4, 2), generator=gen)))
+    jitter_r = (t(0.0, 0.5, 0.1, -0.1, 0.05, 0.0, 1 / 6, -0.05, 0.02), t(1.0, 1.0, 0.9, 1.1, 1.0, 1.05, 1.0, 0.95, 1.0),
+                torch.tensor([True, True, True, False, True, True, True, True, False]))
+    facs_r, planes_r = draw_noise(gen, gen_dev, 9, s, torch.bfloat16, torch.device("cuda"))
+    ragged = rung_bank_case("ragged ties", _tie_canvas(h, w, gen).to("cuda"), torch.cat([boxes, persp]),
+                            torch.tensor([1, 0, 0, 3, 3, 3, 3, 2, 0], dtype=torch.int32), 0.5, s, jitter_r, facs_r,
+                            planes_r, time_it=False)
+    for r in (flagship, ragged):
+        f, b = r["fwd"], r["bwd"]
+        print(f"rung kernels {r['name']} (N={r['n']}, S={r['s']}, {r['canvas'][0]}x{r['canvas'][1]}x3, bf16, "
+              f"{r['jittered']} jittered, noise) against their plain twins: K1 pre-jitter bank bitwise "
+              f"int8 {f['int8']['pre_bitwise']}, bf16 {f['bf16']['pre_bitwise']}, high {f['high']['pre_bitwise']}; "
+              f"bank max ulps int8/bf16/high {f['int8']['max_ulps']}/{f['bf16']['max_ulps']}/{f['high']['max_ulps']} "
+              f"(tol {BANK_ULPS}); K2-int8 bitwise {b['int8']['bitwise']} ({b['int8']['diffs']} elements apart, "
+              f"max_abs_err {b['int8']['max_abs_err']:.3g}), without jitter bitwise "
+              f"{b['int8']['bitwise_without_jitter']}, twice the same bits {b['int8']['deterministic']}; K2-bf16 "
+              f"max_abs_err {b['bf16']['max_abs_err']:.3g}, K2-high {b['high']['max_abs_err']:.3g} against max|dwork| "
+              f"{b['bf16']['scale']:.3g} (tol {b['bf16']['tol']:.3g})", flush=True)
+    f, b = flagship["fwd"], flagship["bwd"]
+    tm = lambda r: f"{r['ms']:.4f} / {r['event_ms']:.4f} (bound {r['bound'][0]:.4f}, {r['bound'][1]}; plain " \
+                   f"{r['plain_ms']:.4f} / {r['plain_event_ms']:.4f})"
+    print(f"rung kernels flagship times (ms, summed kernel time / CUDA events of one call; grid_sample computes "
+          f"none of these functions): K1-int8 {tm(f['int8'])}, K1-bf16 {tm(f['bf16'])}, K1-high {tm(f['high'])}; "
+          f"K2-bf16 {tm(b['bf16'])}, K2-high {tm(b['high'])}, K2-int8 (max, scatter, finish) {tm(b['int8'])}",
+          flush=True)
+    return flagship, ragged
+
+
+# torch._int_mm at the ViT-B/32 bank's products (64 cuts x 50 tokens: in_proj, out_proj, mlp_fc,
+# mlp_proj) and a small shape, with its second operand row-major and column-major
+INT_MM_SHAPES = ((3200, 768, 2304), (3200, 768, 768), (3200, 768, 3072), (3200, 3072, 768), (17, 64, 192))
+
+
+def int_mm_layouts():
+    """{shape: {layout: (exact, ms) or the refusal}, "bf16": ms, "bf16_f32": ms} on the card: the s8
+    product in both layouts of its second operand against the exact float64 product, beside cuBLAS's
+    bf16 GEMM and the bf16 x bf16 -> f32 product ops/quant.py takes (CUDA events, 20 calls)."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for m, k, n in INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device=dev, generator=gen)
+        b = torch.randint(-127, 128, (k, n), dtype=torch.int8, device=dev, generator=gen)
+        ref = a.double() @ b.double()
+        row = {}
+        for layout, mat2 in (("row-major", b.contiguous()), ("column-major", b.t().contiguous().t())):
+            try:
+                exact = bool(torch.equal(torch._int_mm(a, mat2).double(), ref))
+                row[layout] = (exact, median_ms(lambda mat2=mat2: torch._int_mm(a, mat2)))
+            except RuntimeError as exc:
+                row[layout] = f"refused ({str(exc).splitlines()[0][:60]})"
+        ab, bb = a.bfloat16(), b.bfloat16()
+        row["bf16"] = median_ms(lambda: ab @ bb)
+        row["bf16_f32"] = median_ms(lambda: torch.mm(ab, bb, out_dtype=torch.float32))
+        if not (isinstance(row["column-major"], tuple) and row["column-major"][0]):
+            fail(f"torch._int_mm with a column-major operand at {(m, k, n)}: {row}")
+        out[(m, k, n)] = row
+    return out
+
+
+def phase_tower_rungs(card):
+    """33: ViT-B/32 (seeded random weights) on the flagship bank at each
+    tower rung: embeddings of 64 cuts forward + input gradient, summed
+    kernel ms and CUDA-event ms of an eager call (the quantize passes are
+    many small launches, which a captured step does not pay on the host),
+    and for the marked rungs the card against the CPU on TOWER_CPU_CUTS
+    cuts (equal s8 codes, max |diff| of the embeddings, TOWER_ATOL)."""
+    import torch
+
+    from pixray_tpu_torch.config.precision import Rungs
+    from pixray_tpu_torch.models.perceptor import Perceptor
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.ops.warp import inv3x3
+
+    layouts = int_mm_layouts()
+    fmt = lambda v: f"{v[1]:.4f}" + ("" if v[0] else " (inexact)") if isinstance(v, tuple) else v
+    print("torch._int_mm (ms per call, CUDA events; the second operand row-major / column-major) against the "
+          "bf16 GEMM and the bf16 x bf16 -> f32 product: " + "; ".join(
+              f"{m}x{k}x{n}: {fmt(r['row-major'])} / {fmt(r['column-major'])}, bf16 {r['bf16']:.4f}, "
+              f"bf16->f32 {r['bf16_f32']:.4f}" for (m, k, n), r in layouts.items()) + f"; on {card}", flush=True)
+    sd = vit_b32_weights()
+    _, _, (work, ms, modes, jitter, facs, planes) = flagship_bank_inputs()
+    params = cuda_warp.pack_params(inv3x3(ms.float()), modes, jitter, facs, fill=0.37)
+    bank = cuda_warp.cutout_bank(work, params, 224, planes, torch.bfloat16).detach()
+    out = []
+    for prec, preq, ln32, on_cpu in TOWER_RUNGS:
+        rungs = Rungs(clip=prec, clip_preq=preq == "1", clip_ln32=ln32 != "0")
+        p = Perceptor("ViT-B/32", "cuda", torch.bfloat16, sd, rungs=rungs)
+        x = bank.clone().requires_grad_(True)
+
+        def step():
+            e = p.image_fn(x)
+            torch.autograd.grad(e.float().sum(), x)
+
+        r = {"rung": f"{prec} PREQ {preq} LN32 {ln32}", "ms": device_ms(step), "event_ms": median_ms(step, reps=5),
+             "quant": p.quant, "prequantized": p.quant_weights is not None}
+        if on_cpu:
+            q = Perceptor("ViT-B/32", "cpu", torch.bfloat16, sd, rungs=rungs)
+            with torch.no_grad():
+                card_e = p.image_fn(bank[:TOWER_CPU_CUTS]).float().cpu()
+                cpu_e = q.image_fn(bank[:TOWER_CPU_CUTS].cpu()).float()
+            if p.quant_weights is not None:
+                r["codes_equal"] = all(torch.equal(p.quant_weights[k].q.cpu(), q.quant_weights[k].q)
+                                       for k in p.quant_weights)
+            r["card_vs_cpu"] = float((card_e - cpu_e).abs().max())
+            if not (r["card_vs_cpu"] <= TOWER_ATOL and r.get("codes_equal", True)):
+                fail(f"tower rung {r['rung']}: the card disagrees with the CPU: {r}")
+            del q
+        del p
+        out.append(r)
+    torch.cuda.empty_cache()
+    base = out[0]["ms"]
+    print(f"tower rungs ViT-B/32 (random weights) on the flagship bank (64 cuts, bf16), forward + input gradient "
+          f"per call: summed kernel ms (against the first rung) / CUDA events of an eager call, card against CPU on "
+          f"{TOWER_CPU_CUTS} cuts (tol {TOWER_ATOL}): "
+          + "; ".join(f"{r['rung']}: {r['ms']:.3f} ({r['ms'] / base:.2f}x) / {r['event_ms']:.3f} ms"
+                      + (f", card vs CPU {r['card_vs_cpu']:.2e}" if "card_vs_cpu" in r else "")
+                      + (f", s8 codes equal {r['codes_equal']}" if "codes_equal" in r else "") for r in out)
+          + f"; on {card}", flush=True)
+    return out
+
+
+def ladder_launches(rows, counter):
+    """A rung variant's launches over the ladder rows; fatal if no row launched it."""
+    total = sum(r["launches"][counter] for r in rows.values())
+    if total < 1:
+        fail(f"no ladder row launched {counter}")
+    return total
+
+
+def phase_ladder(tmp, card):
+    """34: bench.py's precision-ladder gate on the pixel row (60 steps, one
+    seed, blocked) at the JAX package's default rungs against EXACT_RUNGS:
+    last5(default) - last5(exact) <= LADDER_BAND, and each knob of the
+    defaults alone, and the rungs no default takes, 17 steps each; per row
+    the descent, steps/s, and one replay's device busy and K1/K2 variants
+    (torch.profiler).  Returns {label: (launches, steps run, row)}."""
+    import torch
+
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.ops.warp_batch import bwd_prec
+
+    sd = vit_b32_weights()
+    rows = {}
+    for label, rungs, steps in RUNG_ROWS:
+        sub = os.path.join(tmp, label.replace(" ", "_").replace(",", ""))
+        os.makedirs(sub)
+        with rung_env(rungs):
+            engine, losses, launches, init_s, elapsed, timed = drive_path(
+                dict(PIXEL_CONFIG, iterations=steps), sub, steps, WARMUP_STEPS, state_dicts={"ViT-B/32": sd})
+        rg = engine.rungs
+        fwd = cuda_warp.FWD_COUNTERS[rg.warp]
+        bwd = cuda_warp.BWD_COUNTERS[bwd_prec(rg.warp, rg.warp_bwd, 224)]
+        blk = engine.step_block
+        ran = steps_run(engine, steps)
+        want = {cuda_warp.KERNEL_NAMES[fwd]: blk.n, cuda_warp.KERNEL_NAMES[bwd]: blk.n}
+        events, seen, _ = replay_events(blk.graph, want, f"ladder {label}")
+        # device busy per step; for the rows a default is decided on, from BUSY_WINDOWS replays,
+        # to set a knob's change against the spread
+        windows = BUSY_WINDOWS if label in VERDICT_ROWS else 1
+        busy = [busy_ms(events) / blk.n] + [busy_ms(profiled_events(blk.graph.replay, 1)) / blk.n
+                                            for _ in range(windows - 1)]
+        if launches[fwd] != ran or launches[bwd] != ran or sum(launches[k] for k in cuda_warp.LAUNCHES) != 2 * ran:
+            fail(f"ladder {label}: launches {launches}, expected {ran} of {fwd} and of {bwd}")
+        first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        if label in ("exact", "JAX defaults"):
+            check_descent(f"ladder {label}", losses)
+        rows[label] = {"first5": first5, "last5": last5, "steps": steps, "rate": timed / elapsed if timed else None,
+                       "busy_ms": statistics.median(busy), "busy": busy, "events": len(events) / blk.n, "replay": seen,
+                       "launches": launches, "ran": ran, "quant": engine.perceptors[0].quant, "rungs": rg}
+        del engine
+        torch.cuda.empty_cache()
+    gap = rows["JAX defaults"]["last5"] - rows["exact"]["last5"]
+    for label, r in rows.items():
+        rate = "" if r["rate"] is None else f"{r['rate']:.3f} steps/s over the steps after {WARMUP_STEPS}; "
+        launched = {k: v for k, v in r["launches"].items() if v}
+        print(f"ladder {label} (pixel 384x216, ViT-B/32, 64 cuts, {r['steps']} steps, blocked; {r['rungs']}): "
+              f"first5 {r['first5']:.4f} -> last5 {r['last5']:.4f}; {rate}device busy per step "
+              f"{r['busy_ms']:.3f} ms (median of the replays {[round(b, 3) for b in r['busy']]}), "
+              f"{r['events']:.1f} device events per step; one replay {r['replay']}; launches {launched} over "
+              f"{r['ran']} steps; on {card}", flush=True)
+    ex = rows["exact"]["busy"]
+    verdict = {}
+    for knob, label in (("PIXRAY_TPU_WARP_PREC=int8", "warp int8 alone"),
+                        ("PIXRAY_TPU_CLIP_PREC=int8b", "tower int8b alone"),
+                        ("PIXRAY_TPU_CLIP_LN32=0", "LayerNorm bf16 alone")):
+        b = rows[label]["busy"]
+        verdict[knob] = (f"{statistics.median(b) - statistics.median(ex):+.3f} ms, "
+                         + ("falls" if max(b) < min(ex) else "does not fall") + " below every exact replay")
+    print(f"ladder gate (bench.py check_precision_gate): last5(JAX defaults) - last5(exact) = {gap:+.4f} "
+          f"(band {LADDER_BAND}); device busy per step: JAX defaults "
+          f"{rows['JAX defaults']['busy_ms']:.3f} ms, exact {rows['exact']['busy_ms']:.3f} ms; each knob alone "
+          f"against exact (medians of {BUSY_WINDOWS} replays): {verdict}", flush=True)
+    if not gap <= LADDER_BAND:
+        fail(f"ladder gate: the JAX default rungs converge {gap:+.4f} worse than exact arithmetic "
+             f"(band {LADDER_BAND})")
+    return rows
+
+
 def main():
     import torch
 
@@ -3288,6 +3704,10 @@ def main():
         rows.update(phase_loss_rows(tmp, card))
     with tempfile.TemporaryDirectory() as tmp:
         rows.update(phase_front_ends(tmp, card))
+    rung_flagship, rung_ragged = phase_rung_kernels()
+    phase_tower_rungs(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        ladder = phase_ladder(tmp, card)
     per_row = lambda counter: {row: {"launches": got[counter], "steps": n} for row, (got, n) in rows.items()}
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
@@ -3305,6 +3725,25 @@ def main():
          "ms": bf["bwd_ms"], "plain_ms": bf["bwd_plain_ms"], "bound_ms": bf["bwd_bound_ms"],
          "bound_by": bf["bwd_bound_by"], "library_ms": bf["bwd_lib_ms"]},
     ]
+    # the rung variants: launches from the ladder rows (each driven with the counts at 0 just before it)
+    from pixray_tpu_torch.ops import cuda_warp
+
+    for prec, line in (("int8", 571), ("bf16", 587), ("high", 587)):
+        counter, r = cuda_warp.FWD_COUNTERS[prec], rung_flagship["fwd"][prec]
+        kernels.append({"name": f"bank_fwd_{prec} (K1-{prec})", "route": "cuda", "source": warp_src,
+                        "replaces": replaces.format(line), "launches": ladder_launches(ladder, counter),
+                        "launches_by_row": {k: v["launches"][counter] for k, v in ladder.items()},
+                        "max_abs_err": max(x["fwd"][prec]["max_abs_err"] for x in (rung_flagship, rung_ragged)),
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                        "library_ms": None})
+    for prec, line in (("bf16", 754), ("high", 754), ("int8", 718)):
+        counter, r = cuda_warp.BWD_COUNTERS[prec], rung_flagship["bwd"][prec]
+        kernels.append({"name": f"bank_bwd_{prec} (K2-{prec})", "route": "cuda", "source": warp_src,
+                        "replaces": replaces.format(line), "launches": ladder_launches(ladder, counter),
+                        "launches_by_row": {k: v["launches"][counter] for k, v in ladder.items()},
+                        "max_abs_err": max(x["bwd"][prec]["max_abs_err"] for x in (rung_flagship, rung_ragged)),
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                        "library_ms": None})
     stroke_src = "pixray_tpu_torch/csrc/strokes.cu"
     replaces = "pixray_tpu/ops/pallas_strokes.py:{}"
     sf = strokes[0]

@@ -53,6 +53,35 @@
 // tie rules), then rounds to the compute dtype where the .float() of the
 // jitter does.
 //
+// Precision rungs (the JAX package's PIXRAY_TPU_WARP_PREC / _WARP_BWD_PREC):
+// besides the exact warp above (bank_fwd_kernel, bank_bwd_kernel), each
+// kernel has one variant per rung of pallas_warp.py, with a name of its own
+// so that a profiler tells them apart.  They compute the Pallas branches'
+// functions in tap form, with the JAX hats max(0, 1 - |t - u|) of the two
+// taps per axis (not the exact warp's 1 - frac), and none of the TPU
+// kernels' hat-matrix blocking:
+//   bank_fwd_bf16_kernel / _high_kernel <- _fwd_kernel_multi_T through _mm:
+//     per x tap, sum over the y taps of bf16(work) bf16(hat_y) in f32 (high:
+//     hi.hi + lo.hi + hi.lo of the bf16 split, in that order), then
+//     sum over the x taps of that times hat_x, plus the fill;
+//   bank_fwd_int8_kernel <- the int8 branch (:571-579 with :821-826, :650):
+//     the canvas arrives quantized (round(work / s_w * 127) as s8, s_w =
+//     max(max|work|, 1e-6) on the device, ops/warp_batch.py quantize_canvas),
+//     y hats round(hat * 127), an int32 sum per x tap, then f32 times hat_x,
+//     plus the fill over the dequant scale, times s_w / 127^2;
+//   bank_bwd_bf16_kernel / _high_kernel <- _bwd_kernel_multi_TB through
+//     _mm_nt: per tap bf16(hat_y) bf16(hat_x g) (or its hi/lo form) into
+//     the canvas, float atomics as the exact backward;
+//   bank_bwd_int8_kernel <- the int8 branch (:718-743, :777-782): after
+//     bank_bwd_max_kernel has taken s_g = max|g| over the whole bank's
+//     post-epilogue cotangent (recomputed, nothing bank-sized written), per
+//     tap round(hat_y g / s_g 127) round(hat_x 127) summed in int64 (exact,
+//     so the sum is order-free and deterministic), and
+//     bank_bwd_int8_finish_kernel writes float(sum) s_g / 127^2.
+// The epilogue and its adjoint are the exact kernels' in every rung, and
+// each backward is the adjoint of the exact warp (straight-through), as the
+// JAX package's custom VJP has it.
+//
 // Per-cut parameters come in one f32 row of kParamStride per cut:
 // inverse matrix (9), mode, hue shift, saturation factor, apply, noise
 // factor, fill, at the offsets bank_layout() exports.  The fill travels in
@@ -68,6 +97,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kParamStride = 16;
@@ -77,6 +108,9 @@ constexpr int kTile = 16;            // backward output tile, kTile x kTile = kT
 constexpr int kSmemFloats = 2048;    // backward footprint budget: 8 KB, a 26 x 26 canvas patch
 static_assert(kTile * kTile == kThreads, "one backward pixel per thread");
 constexpr float kInv6 = 1.0f / 6.0f;
+constexpr float kQ = 127.f;
+constexpr float kDequant = 127.f * 127.f;
+enum Prec { kHighest = 0, kBf16 = 1, kHigh = 2, kInt8 = 3 };  // as ops/cuda_warp.py _PREC_CODES
 
 using bf16 = __nv_bfloat16;
 
@@ -137,6 +171,7 @@ __device__ __forceinline__ float reflect_coord(float x, int size) {
 struct Taps {
   int x0, y0;           // top-left tap, clamped to [-2, size + 1] like the plain gather
   float ax, wx, ay, wy; // (1 - wx), wx, (1 - wy), wy
+  float tx, ty;         // the padded source coordinates
   float fill_add;
   unsigned valid;       // bit k: tap k (00, 01, 10, 11) lies on the canvas
 };
@@ -157,6 +192,8 @@ __device__ __forceinline__ Taps compute_taps(const Cut& c, int i, int j, int h, 
     ty = fminf(fmaxf(sy, 0.f), (float)(h - 1));
   }
   Taps tp;
+  tp.tx = tx;
+  tp.ty = ty;
   const float fx0 = floorf(tx), fy0 = floorf(ty);
   tp.wx = __fsub_rn(tx, fx0);
   tp.wy = __fsub_rn(ty, fy0);
@@ -191,6 +228,67 @@ __device__ __forceinline__ float bilinear(const float* __restrict__ work, const 
   acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v10, tp.ax), tp.wy));
   acc = __fadd_rn(acc, __fmul_rn(__fmul_rn(v11, tp.wx), tp.wy));
   return __fadd_rn(acc, tp.fill_add);
+}
+
+// The rungs' hats, as the JAX kernels build them: max(0, 1 - |t - u|) at
+// u = floor(t) and floor(t) + 1 (ops/warp_batch.py _rung_taps).
+struct Hats {
+  float x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ float hat(float t, float u) { return fmaxf(0.f, __fsub_rn(1.f, fabsf(__fsub_rn(t, u)))); }
+
+__device__ __forceinline__ Hats jax_hats(const Taps& tp) {
+  const float fx0 = floorf(tp.tx), fy0 = floorf(tp.ty);
+  return {hat(tp.tx, fx0), hat(tp.tx, __fadd_rn(fx0, 1.f)), hat(tp.ty, fy0), hat(tp.ty, __fadd_rn(fy0, 1.f))};
+}
+
+__device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
+__device__ __forceinline__ float lo_part(float x) { return bfr(__fsub_rn(x, bfr(x))); }
+
+// the four taps of one channel (0 off the canvas): v00, v01, v10, v11
+template <typename S>
+__device__ __forceinline__ void tap_values(const S* __restrict__ src, const Taps& tp, int w, int ci, S (&v)[4]) {
+  const long r0 = ((long)tp.y0 * w + tp.x0) * 3 + ci;
+  const long r1 = r0 + (long)w * 3;
+  v[0] = (tp.valid & 1u) ? __ldg(src + r0) : S(0);
+  v[1] = (tp.valid & 2u) ? __ldg(src + r0 + 3) : S(0);
+  v[2] = (tp.valid & 4u) ? __ldg(src + r1) : S(0);
+  v[3] = (tp.valid & 8u) ? __ldg(src + r1 + 3) : S(0);
+}
+
+// one x tap's column of a float rung: the sum over its two y taps
+template <int P>
+__device__ __forceinline__ float rung_column(float top, float bot, const Hats& ht) {
+  const float by0 = bfr(ht.y0), by1 = bfr(ht.y1);
+  const float d1 = __fadd_rn(__fmul_rn(bfr(top), by0), __fmul_rn(bfr(bot), by1));
+  if (P == kBf16) return d1;
+  const float d2 = __fadd_rn(__fmul_rn(lo_part(top), by0), __fmul_rn(lo_part(bot), by1));
+  const float d3 = __fadd_rn(__fmul_rn(bfr(top), lo_part(ht.y0)), __fmul_rn(bfr(bot), lo_part(ht.y1)));
+  return __fadd_rn(__fadd_rn(d1, d2), d3);
+}
+
+// The f32 bank value of one channel at rung P (work: f32, or the s8 canvas
+// for kInt8, whose fill_add is already over the dequant scale `scale`).
+template <int P>
+__device__ __forceinline__ float bank_value(const void* __restrict__ work, const Taps& tp, int w, int ci, float scale) {
+  if (P == kHighest) return bilinear((const float*)work, tp, w, ci);
+  const Hats ht = jax_hats(tp);
+  float t0, t1;
+  if (P == kInt8) {
+    int8_t q[4];
+    tap_values((const int8_t*)work, tp, w, ci, q);
+    const int a0 = (int)rintf(__fmul_rn(ht.y0, kQ)), a1 = (int)rintf(__fmul_rn(ht.y1, kQ));
+    t0 = (float)(a0 * q[0] + a1 * q[2]);
+    t1 = (float)(a0 * q[1] + a1 * q[3]);
+  } else {
+    float v[4];
+    tap_values((const float*)work, tp, w, ci, v);
+    t0 = rung_column<P>(v[0], v[2], ht);
+    t1 = rung_column<P>(v[1], v[3], ht);
+  }
+  const float acc = __fadd_rn(__fadd_rn(__fmul_rn(t0, ht.x0), __fmul_rn(t1, ht.x1)), tp.fill_add);
+  return P == kInt8 ? __fmul_rn(acc, scale) : acc;
 }
 
 // The jitter's forward state (ops/color.py jitter_planes, op by op in f32).
@@ -339,22 +437,26 @@ __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[Ve
   }
 }
 
-// work (H, W, 3) f32; params (N, kParamStride) f32; z0..z2 (N, S, S) noise
-// planes or null; out (N, 3, S, S); pre (N, 3, S, S) the rounded pre-jitter
-// bank, written for the jittered cuts only (the backward reads no other),
-// or null.  Each thread makes kN consecutive pixels of one cut.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params,
-                const T* __restrict__ z0, const T* __restrict__ z1, const T* __restrict__ z2,
-                T* __restrict__ out, T* __restrict__ pre, int h, int w, int s, bool vec) {
+// work (H, W, 3) f32, or s8 for kInt8 with `scale_src` the device scalar
+// s_w; params (N, kParamStride) f32; z0..z2 (N, S, S) noise planes or null;
+// out (N, 3, S, S); pre (N, 3, S, S) the rounded pre-jitter bank, written
+// for the jittered cuts only (the backward reads no other), or null.  Each
+// thread makes kN consecutive pixels of one cut.
+template <typename T, int P>
+__device__ __forceinline__ void bank_fwd_body(const void* __restrict__ work, const float* __restrict__ scale_src,
+                                              const float* __restrict__ params, const T* __restrict__ z0,
+                                              const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out,
+                                              T* __restrict__ pre, int h, int w, int s, bool vec) {
   constexpr int kN = Vec<T>::kN;
   const int k = s * s;
   const int n = blockIdx.y;
   const int t0 = (blockIdx.x * blockDim.x + threadIdx.x) * kN;
   if (t0 >= k) return;
   const int count = min(kN, k - t0);
-  const Cut c = load_cut(params, n);
+  Cut c = load_cut(params, n);
+  // int8: the dequant scale s_w / 127^2, and the fill pre-divided by it (:824-826)
+  const float scale = P == kInt8 ? __fdiv_rn(__ldg(scale_src), kDequant) : 1.f;
+  if (P == kInt8) c.fill = __fdiv_rn(c.fill, scale);
   const bool noise = z0 != nullptr;
   const long plane = (long)n * k + t0;
   alignas(8) T zr[kN], zg[kN], zb[kN];
@@ -372,7 +474,7 @@ bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params
     float v[3];
 #pragma unroll
     for (int ci = 0; ci < 3; ++ci) {
-      v[ci] = round_to<T>(bilinear(work, tp, w, ci));
+      v[ci] = round_to<T>(bank_value<P>(work, tp, w, ci, scale));
       p[ci][e] = from_float<T>(v[ci]);
     }
     if (c.apply) {
@@ -403,6 +505,21 @@ bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params
   }
 }
 
+// one __global__ per rung, so that each has a name of its own
+#define BANK_FWD_KERNEL(NAME, P)                                                                              \
+  template <typename T>                                                                                       \
+  __global__ void __launch_bounds__(kThreads)                                                                 \
+  NAME(const void* __restrict__ work, const float* __restrict__ scale_src, const float* __restrict__ params,  \
+       const T* __restrict__ z0, const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out,     \
+       T* __restrict__ pre, int h, int w, int s, bool vec) {                                                  \
+    bank_fwd_body<T, P>(work, scale_src, params, z0, z1, z2, out, pre, h, w, s, vec);                         \
+  }
+BANK_FWD_KERNEL(bank_fwd_kernel, kHighest)
+BANK_FWD_KERNEL(bank_fwd_bf16_kernel, kBf16)
+BANK_FWD_KERNEL(bank_fwd_high_kernel, kHigh)
+BANK_FWD_KERNEL(bank_fwd_int8_kernel, kInt8)
+#undef BANK_FWD_KERNEL
+
 __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -415,17 +532,56 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
-// g (N, 3, S, S) cotangent; pre (N, 3, S, S) saved pre-jitter bank (read
-// only for jittered cuts); dwork (H, W, 3) f32, zeroed by the caller;
-// branches (2,) int or null: blocks that summed in shared memory, blocks that
-// added to device memory, counted when given (a check, not the main path).
-// One block: one cut x one kTile x kTile output tile, one pixel per thread.
-// Eight blocks per SM (32 registers a thread) hide the atomics' latency best.
+// The post-epilogue cotangent of output pixel (i, j) of cut n: g, or for
+// a jittered cut the jitter's adjoint (from the saved pre-jitter bank),
+// then the inputs' clip and the rounding of the forward's .float().
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 8)
-bank_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
-                float* __restrict__ dwork, int* __restrict__ branches, int h, int w, int s) {
-  extern __shared__ float acc[];
+__device__ __forceinline__ void cotangent(const T* __restrict__ g, const T* __restrict__ pre, const Cut& c, long at,
+                                          int k, float (&gv)[3]) {
+#pragma unroll
+  for (int ci = 0; ci < 3; ++ci) gv[ci] = to_float(g[at + (long)ci * k]);
+  if (c.apply) {
+    const float r = to_float(pre[at]), gr = to_float(pre[at + k]), b = to_float(pre[at + 2 * k]);
+    float dr, dg, db;
+    jitter_adjoint(hsv_state(r, gr, b, c.hue, c.sat), c.sat, gv[0], gv[1], gv[2], dr, dg, db);
+    gv[0] = round_to<T>(clip01_adjoint(r, dr));
+    gv[1] = round_to<T>(clip01_adjoint(gr, dg));
+    gv[2] = round_to<T>(clip01_adjoint(b, db));
+  }
+}
+
+// The float contribution of one tap at rung P (kHighest, kBf16, kHigh):
+// a = the y weight, b = the x weight, gc the channel's cotangent.
+template <int P>
+__device__ __forceinline__ float tap_contrib(float a, float b, float gc) {
+  if (P == kHighest) return __fmul_rn(__fmul_rn(gc, a), b);  // autograd's order for ((v b) a): (g a) b
+  const float gb = __fmul_rn(b, gc);
+  const float c = __fmul_rn(bfr(a), bfr(gb));
+  if (P == kBf16) return c;
+  return __fadd_rn(__fadd_rn(c, __fmul_rn(lo_part(a), bfr(gb))), __fmul_rn(bfr(a), lo_part(gb)));
+}
+
+__device__ __forceinline__ void add_to(float* p, float v) { atomicAdd(p, v); }
+__device__ __forceinline__ void add_to(int* p, int v) { atomicAdd(p, v); }
+__device__ __forceinline__ void add_to(unsigned long long* p, long long v) {
+  atomicAdd(p, (unsigned long long)v);  // two's complement: the signed sum
+}
+
+// g (N, 3, S, S) cotangent; pre (N, 3, S, S) saved pre-jitter bank (read
+// only for jittered cuts); dwork (H, W, 3) f32, zeroed by the caller (kInt8:
+// acc (H, W, 3) int64, zeroed, and gmax the bank's max|g| from
+// bank_bwd_max_kernel); branches (2,) int or null: blocks that summed in
+// shared memory, blocks that added to device memory, counted when given (a
+// check, not the main path).  One block: one cut x one kTile x kTile output
+// tile, one pixel per thread.  Eight blocks per SM (32 registers a thread)
+// hide the atomics' latency best.
+template <typename T, int P>
+__device__ __forceinline__ void bank_bwd_body(const T* __restrict__ g, const T* __restrict__ pre,
+                                              const float* __restrict__ params, float* __restrict__ dwork,
+                                              unsigned long long* __restrict__ acc_q, const float* __restrict__ gmax,
+                                              int* __restrict__ branches, int h, int w, int s, void* smem) {
+  using Acc = typename std::conditional<P == kInt8, int, float>::type;
+  Acc* acc = (Acc*)smem;
   __shared__ int red[4][kThreads / 32];
   const int tiles_x = (s + kTile - 1) / kTile;
   const int i = (blockIdx.x / tiles_x) * kTile + threadIdx.x / kTile;
@@ -440,18 +596,7 @@ bank_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float*
   int xmin = INT_MAX, ymin = INT_MAX, xmax = INT_MIN, ymax = INT_MIN;
   if (i < s && j < s) {
     tp = compute_taps(c, i, j, h, w, 0.f);
-    const long at = (long)n * 3 * k + (long)i * s + j;
-#pragma unroll
-    for (int ci = 0; ci < 3; ++ci) gv[ci] = to_float(g[at + (long)ci * k]);
-    if (c.apply) {
-      const float r = to_float(pre[at]), gr = to_float(pre[at + k]), b = to_float(pre[at + 2 * k]);
-      float dr, dg, db;
-      jitter_adjoint(hsv_state(r, gr, b, c.hue, c.sat), c.sat, gv[0], gv[1], gv[2], dr, dg, db);
-      // the inputs' clip, then the rounding of the forward's .float()
-      gv[0] = round_to<T>(clip01_adjoint(r, dr));
-      gv[1] = round_to<T>(clip01_adjoint(gr, dg));
-      gv[2] = round_to<T>(clip01_adjoint(b, db));
-    }
+    cotangent(g, pre, c, (long)n * 3 * k + (long)i * s + j, k, gv);
     if (tp.valid) {
       xmin = (tp.valid & 0b0101u) ? tp.x0 : tp.x0 + 1;
       xmax = (tp.valid & 0b1010u) ? tp.x0 + 1 : tp.x0;
@@ -489,82 +634,212 @@ bank_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float*
   const bool local = (long)fw * fh * 3 <= kSmemFloats;
   if (branches != nullptr && threadIdx.x == 0) atomicAdd(branches + (local ? 0 : 1), 1);
   if (local) {
-    for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) acc[q] = 0.f;
+    for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) acc[q] = Acc(0);
     __syncthreads();
   }
 
   if (tp.valid) {
-    // autograd's order for ((v a) b): the tap's gradient is (g b) a
-    const float wa[4] = {tp.ax, tp.wx, tp.ax, tp.wx};
-    const float wb[4] = {tp.ay, tp.ay, tp.wy, tp.wy};
+    float wa[4], wb[4];  // per tap: the y weight, the x weight
+    if (P == kHighest) {
+      wa[0] = wa[1] = tp.ay;
+      wa[2] = wa[3] = tp.wy;
+      wb[0] = wb[2] = tp.ax;
+      wb[1] = wb[3] = tp.wx;
+    } else {
+      const Hats ht = jax_hats(tp);
+      wa[0] = wa[1] = ht.y0;
+      wa[2] = wa[3] = ht.y1;
+      wb[0] = wb[2] = ht.x0;
+      wb[1] = wb[3] = ht.x1;
+    }
+    float sg = 1.f;
+    if (P == kInt8) {
+      sg = fmaxf(__ldg(gmax), 1e-20f);
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci) gv[ci] = __fdiv_rn(gv[ci], sg);
+    }
 #pragma unroll
     for (int tap = 0; tap < 4; ++tap) {
       if (!(tp.valid & (1u << tap))) continue;
       const int x = tp.x0 + (tap & 1), y = tp.y0 + (tap >> 1);
+      const int bq = P == kInt8 ? (int)rintf(__fmul_rn(wb[tap], kQ)) : 0;
 #pragma unroll
       for (int ci = 0; ci < 3; ++ci) {
         if (gv[ci] == 0.f) continue;
-        const float contrib = (gv[ci] * wb[tap]) * wa[tap];
-        if (local)
-          atomicAdd(acc + ((y - ymin) * fw + (x - xmin)) * 3 + ci, contrib);
-        else
-          atomicAdd(dwork + ((long)y * w + x) * 3 + ci, contrib);
+        const long cell = ((long)y * w + x) * 3 + ci;
+        if (P == kInt8) {
+          const int contrib = (int)rintf(__fmul_rn(__fmul_rn(wa[tap], gv[ci]), kQ)) * bq;
+          if (local)
+            add_to((int*)acc + ((y - ymin) * fw + (x - xmin)) * 3 + ci, contrib);
+          else
+            add_to(acc_q + cell, (long long)contrib);
+        } else {
+          const float contrib = tap_contrib<P>(wa[tap], wb[tap], gv[ci]);
+          if (local)
+            add_to((float*)acc + ((y - ymin) * fw + (x - xmin)) * 3 + ci, contrib);
+          else
+            add_to(dwork + cell, contrib);
+        }
       }
     }
   }
   if (local) {
     __syncthreads();
     for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) {
-      const float a = acc[q];
-      if (a != 0.f) {
+      const Acc a = acc[q];
+      if (a != Acc(0)) {
         const int cell = q / 3, ci = q - cell * 3;
-        const int y = ymin + cell / fw, x = xmin + cell % fw;
-        atomicAdd(dwork + ((long)y * w + x) * 3 + ci, a);
+        const long at = ((long)(ymin + cell / fw) * w + (xmin + cell % fw)) * 3 + ci;
+        if (P == kInt8)
+          add_to(acc_q + at, (long long)a);
+        else
+          add_to(dwork + at, (float)a);
       }
     }
   }
 }
 
+#define BANK_BWD_KERNEL(NAME, P)                                                                              \
+  template <typename T>                                                                                       \
+  __global__ void __launch_bounds__(kThreads, 8)                                                              \
+  NAME(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,                  \
+       float* __restrict__ dwork, unsigned long long* __restrict__ acc_q, const float* __restrict__ gmax,     \
+       int* __restrict__ branches, int h, int w, int s) {                                                     \
+    extern __shared__ __align__(8) unsigned char smem[];                                                      \
+    bank_bwd_body<T, P>(g, pre, params, dwork, acc_q, gmax, branches, h, w, s, smem);                         \
+  }
+BANK_BWD_KERNEL(bank_bwd_kernel, kHighest)
+BANK_BWD_KERNEL(bank_bwd_bf16_kernel, kBf16)
+BANK_BWD_KERNEL(bank_bwd_high_kernel, kHigh)
+BANK_BWD_KERNEL(bank_bwd_int8_kernel, kInt8)
+#undef BANK_BWD_KERNEL
+
+// K2-int8's first pass: gmax = max |g| over the whole bank's post-epilogue
+// cotangent (every pixel, on the canvas or not), a float's bits through an
+// integer atomicMax (non-negative floats order as their bits do); gmax
+// zeroed by the caller.  Same grid as the backward.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bank_bwd_max_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
+                    float* __restrict__ gmax, int s) {
+  __shared__ float red[kThreads / 32];
+  const int tiles_x = (s + kTile - 1) / kTile;
+  const int i = (blockIdx.x / tiles_x) * kTile + threadIdx.x / kTile;
+  const int j = (blockIdx.x % tiles_x) * kTile + threadIdx.x % kTile;
+  const int n = blockIdx.y;
+  const int k = s * s;
+  float m = 0.f;
+  if (i < s && j < s) {
+    float gv[3];
+    cotangent(g, pre, load_cut(params, n), (long)n * 3 * k + (long)i * s + j, k, gv);
+    m = fmaxf(fmaxf(fabsf(gv[0]), fabsf(gv[1])), fabsf(gv[2]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int q = 1; q < kThreads / 32; ++q) m = fmaxf(m, red[q]);
+    atomicMax((int*)gmax, __float_as_int(m));
+  }
+}
+
+// K2-int8's last pass: dwork = float(acc) * (max(gmax, 1e-20) / 127^2).
+__global__ void __launch_bounds__(kThreads)
+bank_bwd_int8_finish_kernel(const long long* __restrict__ acc_q, const float* __restrict__ gmax,
+                            float* __restrict__ dwork, long count) {
+  const long q = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= count) return;
+  const float scale = __fdiv_rn(fmaxf(__ldg(gmax), 1e-20f), kDequant);
+  dwork[q] = __fmul_rn(__ll2float_rn(acc_q[q]), scale);
+}
+
 bool aligned8(const void* p) { return p == nullptr || ((uintptr_t)p & 7u) == 0; }
 
 template <typename T>
-int launch_fwd(const float* work, const float* params, const void* z0, const void* z1,
-               const void* z2, void* out, void* pre, int n, int h, int w, int s, cudaStream_t stream) {
+int launch_fwd(const void* work, const float* scale, const float* params, const void* z0, const void* z1,
+               const void* z2, void* out, void* pre, int prec, int n, int h, int w, int s, cudaStream_t stream) {
   constexpr int kN = Vec<T>::kN;
   const int k = s * s;
   const bool vec = k % kN == 0 && aligned8(z0) && aligned8(z1) && aligned8(z2) && aligned8(out) && aligned8(pre);
   const int groups = (k + kN - 1) / kN;
   dim3 grid((groups + kThreads - 1) / kThreads, n);
-  bank_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(
-      work, params, (const T*)z0, (const T*)z1, (const T*)z2, (T*)out, (T*)pre, h, w, s, vec);
+  const T *zr = (const T*)z0, *zg = (const T*)z1, *zb = (const T*)z2;
+  switch (prec) {
+    case kHighest:
+      bank_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w, s, vec);
+      break;
+    case kBf16:
+      bank_fwd_bf16_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w,
+                                                             s, vec);
+      break;
+    case kHigh:
+      bank_fwd_high_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w,
+                                                             s, vec);
+      break;
+    case kInt8:
+      bank_fwd_int8_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w,
+                                                             s, vec);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, int* branches, int n, int h,
-               int w, int s, cudaStream_t stream) {
+int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc_q, float* gmax,
+               int* branches, int prec, int n, int h, int w, int s, cudaStream_t stream) {
   const int smem = kSmemFloats * (int)sizeof(float);
   const int tiles = ((s + kTile - 1) / kTile) * ((s + kTile - 1) / kTile);
   dim3 grid(tiles, n);
-  bank_bwd_kernel<T><<<grid, kThreads, smem, stream>>>((const T*)g, (const T*)pre, params, dwork, branches, h, w, s);
+  const T *gt = (const T*)g, *pt = (const T*)pre;
+  unsigned long long* acc = (unsigned long long*)acc_q;
+  switch (prec) {
+    case kHighest:
+      bank_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
+      break;
+    case kBf16:
+      bank_bwd_bf16_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
+      break;
+    case kHigh:
+      bank_bwd_high_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
+      break;
+    case kInt8: {
+      if (acc == nullptr || gmax == nullptr) return (int)cudaErrorInvalidValue;
+      bank_bwd_max_kernel<T><<<grid, kThreads, 0, stream>>>(gt, pt, params, gmax, s);
+      bank_bwd_int8_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
+      const long count = (long)h * w * 3;
+      bank_bwd_int8_finish_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+          (const long long*)acc, gmax, dwork, count);
+      break;
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (out, pre and the noise planes share it).
-extern "C" int bank_fwd(const float* work, const float* params, const void* z0,
-                        const void* z1, const void* z2, void* out, void* pre, int dtype, int n, int h,
+// prec: 0 highest, 1 bf16, 2 high, 3 int8.  work: (H, W, 3) f32, or s8 for
+// int8 with scale the device scalar s_w (null otherwise).
+extern "C" int bank_fwd(const void* work, const float* scale, const float* params, const void* z0,
+                        const void* z1, const void* z2, void* out, void* pre, int dtype, int prec, int n, int h,
                         int w, int s, void* stream) {
   if (dtype == 1)
-    return launch_fwd<bf16>(work, params, z0, z1, z2, out, pre, n, h, w, s, (cudaStream_t)stream);
-  return launch_fwd<float>(work, params, z0, z1, z2, out, pre, n, h, w, s, (cudaStream_t)stream);
+    return launch_fwd<bf16>(work, scale, params, z0, z1, z2, out, pre, prec, n, h, w, s, (cudaStream_t)stream);
+  return launch_fwd<float>(work, scale, params, z0, z1, z2, out, pre, prec, n, h, w, s, (cudaStream_t)stream);
 }
 
-extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, int* branches,
-                        int dtype, int n, int h, int w, int s, void* stream) {
-  if (dtype == 1) return launch_bwd<bf16>(g, pre, params, dwork, branches, n, h, w, s, (cudaStream_t)stream);
-  return launch_bwd<float>(g, pre, params, dwork, branches, n, h, w, s, (cudaStream_t)stream);
+// int8 (prec 3): acc (H, W, 3) int64 and gmax (1,) f32, both zeroed by the
+// caller; three launches (max, scatter, finish).  Null for the other rungs.
+extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc, float* gmax,
+                        int* branches, int dtype, int prec, int n, int h, int w, int s, void* stream) {
+  if (dtype == 1)
+    return launch_bwd<bf16>(g, pre, params, dwork, acc, gmax, branches, prec, n, h, w, s, (cudaStream_t)stream);
+  return launch_bwd<float>(g, pre, params, dwork, acc, gmax, branches, prec, n, h, w, s, (cudaStream_t)stream);
 }
 
 // the per-cut row's layout: stride, then the offsets of mode, hue, saturation, apply, noise factor, fill

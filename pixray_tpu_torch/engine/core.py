@@ -19,9 +19,13 @@ draws is always one eager step.  On the card ``--steps_per_call 1`` is the
 only way to the eager step.
 
 ``device`` is explicit and defaults to ``"cuda"``; asking for CUDA where
-there is none raises (there is no CPU fallback).  The towers and the VQGAN
-compute in bfloat16 on CUDA when ``--precision bf16`` (the default), the
-post-warp epilogue in bfloat16 on CUDA; all in float32 on the CPU.
+there is none raises (there is no CPU fallback).  The towers compute in
+bfloat16 when ``--precision bf16`` (the default), on the CPU too, as the
+JAX engine's do; the VQGAN and the losses' networks in bfloat16 on CUDA
+under it, and the post-warp epilogue in bfloat16 on CUDA; the rest in
+float32.  The precision rungs (``config/precision.py``: K1's and K2's,
+the towers' int8 and LayerNorm rungs) are read from the environment when
+the engine is built.
 
 The latent is a tensor (pixel, vqgan, vdiff, super_resolution, ...) or a
 dict of tensors (clipdraw, line_sketch); a drawer with ``load_model`` gets
@@ -95,6 +99,7 @@ import random
 import numpy as np
 import torch
 
+from pixray_tpu_torch.config.precision import read_rungs
 from pixray_tpu_torch.drawers import drawer_class
 from pixray_tpu_torch.engine import cutouts as C
 from pixray_tpu_torch.engine.latent import leaves, ravel, tree_map
@@ -156,11 +161,15 @@ class Engine:
         self.gen = torch.Generator().manual_seed(int_seed)
         self.gen_device = torch.Generator(device=self.device).manual_seed(int_seed)
 
-        # ---- precision: the towers and a drawer's model compute in bf16 on
-        # CUDA under --precision bf16; the epilogue in bf16 on CUDA
+        # ---- precision: the towers compute in bf16 under --precision bf16
+        # (as the JAX engine's, on any device), a drawer's model and the
+        # losses' networks in bf16 on CUDA under it; the epilogue in bf16 on
+        # CUDA; the rungs (config/precision.py) read here, once per engine
         on_cuda = self.device.type == "cuda"
         model_dtype = torch.bfloat16 if (args.precision == "bf16" and on_cuda) else torch.float32
+        tower_dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
         self.compute_dtype = torch.bfloat16 if on_cuda else None
+        self.rungs = read_rungs()
 
         # ---- drawer (a drawer with weights loads them before snapping)
         state_dicts = state_dicts or {}
@@ -170,7 +179,7 @@ class Engine:
             load_model(args, self.device, model_dtype, state_dicts.get(args.drawer))
         self.side_x, self.side_y = self.drawer.snap_canvas(args.size)
 
-        self.perceptors = [Perceptor(name, self.device, model_dtype, state_dicts.get(name))
+        self.perceptors = [Perceptor(name, self.device, tower_dtype, state_dicts.get(name), self.rungs)
                            for name in args.clip_models]
 
         # ---- filters and custom losses ("name:weight", "loss->arg->arg")
@@ -278,6 +287,8 @@ class Engine:
             init_image=self.init_image_tensor,
             z_labels=self.z_labels,
             compute_dtype=self.compute_dtype,
+            warp_prec=self.rungs.warp,
+            warp_bwd=self.rungs.warp_bwd,
             filters=self.filters,
             custom_losses=self.custom_losses,
             loss_globals=self.loss_globals,

@@ -189,7 +189,8 @@ def pack_cutouts(transforms, *, reflect_padding: bool, fill_color: float, jitter
 
 
 def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
-                   fill_color: float, jitter=None, noise=None, compute_dtype=None):
+                   fill_color: float, jitter=None, noise=None, compute_dtype=None,
+                   prec: str = "highest", bwd: str | None = None):
     """The (N, 3, S, S) cutout bank from the working canvas.
 
     transforms: (zoom, wide) matrices from ``cut_transforms``.
@@ -198,6 +199,8 @@ def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
     jitter: (hue_shift, sat_factor, apply) per bank row, or None for no jitter.
     noise: (facs (N, 1, 1), [3 planes (N, S, S)]) per bank row, or None.
     compute_dtype: dtype of the bank and its epilogue (None = float32).
+    prec, bwd: K1's and K2's precision rungs (``config/precision.py``;
+    ``bwd`` None: ``norm_prec(prec)``).
 
     Every cut, perspective or axis-aligned, goes through one bank warp
     (``cuda_warp.cutout_bank``, which the step calls on the rows of
@@ -206,7 +209,7 @@ def render_cutouts(work, transforms, cut_size: int, *, reflect_padding: bool,
     facs, planes = (None, None) if noise is None else noise
     params = pack_cutouts(transforms, reflect_padding=reflect_padding, fill_color=fill_color,
                           jitter=jitter, facs=facs)
-    return cutout_bank(work, params, cut_size, planes, compute_dtype)
+    return cutout_bank(work, params, cut_size, planes, compute_dtype, prec, bwd)
 
 
 def draw_step_cutouts(gen_host, gen_device, cutn: int, cut_size: int, aspect: float, dtype, device,

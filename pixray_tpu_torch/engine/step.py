@@ -49,6 +49,7 @@ from pixray_tpu_torch.engine.prompts import PromptTable, prompt_losses, single_p
 from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
 from pixray_tpu_torch.ops.cuda_warp import PARAM_STRIDE, unpack_params
 from pixray_tpu_torch.ops.grad import spherical_dist_loss
+from pixray_tpu_torch.ops.warp_batch import bwd_prec
 
 
 @dataclass
@@ -102,6 +103,8 @@ class StepConfig:
     init_image: Any = None  # (H, W, 3) float32, the last init image, for init_weight_pix
     z_labels: list = field(default_factory=list)  # the image labels' normalized mean latent
     compute_dtype: Any = None  # post-warp epilogue dtype (None = float32)
+    warp_prec: str = "highest"  # K1's rung (config/precision.py)
+    warp_bwd: str = "bf16"  # PIXRAY_TPU_WARP_BWD_PREC's value; K2's rung is bwd_prec of both
     filters: list = field(default_factory=list)  # [(filter, weight)]
     custom_losses: list = field(default_factory=list)  # [(loss, weight)]
     loss_globals: dict = field(default_factory=dict)  # the losses' add_globals
@@ -289,7 +292,8 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
             k = next(banks)
             planes = None if pd["planes"] is None else [p[k * n:(k + 1) * n] for p in pd["planes"]]
             return cuda_warp.cutout_bank(src, pd["params"][k * n:(k + 1) * n], spec.cut_size, planes,
-                                         cfg.compute_dtype)
+                                         cfg.compute_dtype, cfg.warp_prec,
+                                         bwd_prec(cfg.warp_prec, cfg.warp_bwd, spec.cut_size))
 
         work = C.pool_to_work(img, spec.cut_size)
         cutouts = bank(work)

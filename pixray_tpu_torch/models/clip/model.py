@@ -10,9 +10,16 @@ converter.  A SLIP (timm) tower uses the same names, plus the patch conv's
 bias ``visual.conv1.bias`` and no ``ln_pre`` (see ``perceptor.py`` for the
 renaming of a SLIP file).
 
-Numerics follow the JAX tower's "bf16" rung: every matmul and convolution
-runs in the module's parameter dtype (bf16 on the card, float32 in the CPU
-tests), and attention is plain matmul + softmax with float32 scores.  The
+Numerics follow the JAX tower's rungs.  By default every matmul and
+convolution runs in the module's parameter dtype (bf16 on the card under
+``--precision bf16``, float32 in most CPU tests), and attention is plain
+matmul + softmax with float32 scores.  A ViT vision tower in bf16 can run
+its four dense kernels per block and its patch embedding on the int8 rungs
+of ``ops/quant.py`` (:meth:`VisionTransformer.set_quant`, the JAX
+``QuantDense``): ``int8`` (int8 forward, bf16 dx) or ``int8b`` (int8 dx
+too), from weights pre-quantized at load or quantized per call; the
+score and probability matmuls stay in bf16.  :class:`LayerNorm` takes the
+JAX ``PIXRAY_TPU_CLIP_LN32`` rung per module (``ln32``).  The
 ViT patch embedding is one matmul on channel-major patches (the conv1
 weight's own (c, py, px) row order), with the perceptor's preprocessing
 affine folded into the kernel rows as the JAX tower does.  The ResNet
@@ -30,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixray_tpu_torch.ops.quant import int8_matmul, int8_matmul_pre
+
 from .configs import CLIPConfig
 
 
@@ -37,8 +46,43 @@ def quick_gelu(x):
     return x * torch.sigmoid(1.702 * x)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (eps 1e-5) with the JAX tower's two rungs for a bf16
+    input.  ``ln32`` (``PIXRAY_TPU_CLIP_LN32=1``): statistics and the affine
+    in float32, one rounding at the end (``F.layer_norm``).  Otherwise the
+    JAX ``LayerNorm`` as written for a bf16 input: the mean and variance
+    as ``jnp.mean``/``jnp.var`` give them (float32 sums, rounded to bf16),
+    ``(x - mean) * rsqrt(var + eps)`` in bf16, the affine in float32 and
+    the result rounded to bf16.  A float32 input takes ``F.layer_norm``."""
+
+    ln32 = True
+
+    def forward(self, x):
+        if self.ln32 or x.dtype == torch.float32:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = (xf - mean).square().mean(dim=-1, keepdim=True)
+        y = (x - mean.to(x.dtype)) * torch.rsqrt(var.to(x.dtype) + self.eps)
+        return (y.float() * self.weight.float() + self.bias.float()).to(x.dtype)
+
+
+def dense(x, weight, bias, quant=None, pre=None):
+    """``F.linear(x, weight, bias)``, or under ``quant`` ("int8" / "int8b")
+    the JAX ``QuantDense``: the int8 product (from ``pre``, the weight
+    pre-quantized at load, else quantized per call) in float32, cast to the
+    weight's dtype, then the bias added in that dtype."""
+    if quant is None:
+        return F.linear(x, weight, bias)
+    bwd = "int8" if quant == "int8b" else "bf16"
+    y = int8_matmul_pre(x, pre, bwd) if pre is not None else int8_matmul(x, weight.t(), bwd)
+    return y.to(weight.dtype) + bias.to(weight.dtype)
+
+
 class MultiHeadAttention(nn.Module):
-    """Packed-qkv attention with ``nn.MultiheadAttention``'s parameter names."""
+    """Packed-qkv attention with ``nn.MultiheadAttention``'s parameter names.
+    ``quant``/``pre``: the rung of its two dense kernels (see :func:`dense`;
+    ``pre`` maps their parameter names to pre-quantized weights)."""
 
     def __init__(self, width: int, heads: int):
         super().__init__()
@@ -46,11 +90,12 @@ class MultiHeadAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
         self.out_proj = nn.Linear(width, width)
+        self.quant, self.pre = None, {}
 
     def forward(self, x, causal: bool = False):
         b, t, d = x.shape
         hd = d // self.heads
-        qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias)
+        qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.quant, self.pre.get("in_proj_weight"))
         q, k, v = (z.reshape(b, t, self.heads, hd).transpose(1, 2) for z in qkv.chunk(3, dim=-1))
         scores = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
         if causal:
@@ -58,29 +103,32 @@ class MultiHeadAttention(nn.Module):
             scores = scores.masked_fill(~mask, float("-inf"))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         out = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, d)
-        return self.out_proj(out)
+        return dense(out, self.out_proj.weight, self.out_proj.bias, self.quant, self.pre.get("out_proj.weight"))
 
 
 class _MLP(nn.Module):
     """``act``: QuickGELU (OpenAI towers, every text tower) or exact erf GELU
-    (the timm vision trunks of the SLIP family)."""
+    (the timm vision trunks of the SLIP family).  ``quant``/``pre`` as in
+    :class:`MultiHeadAttention`."""
 
     def __init__(self, width: int, act: str = "quick_gelu"):
         super().__init__()
         self.c_fc = nn.Linear(width, 4 * width)
         self.c_proj = nn.Linear(4 * width, width)
         self.act = quick_gelu if act == "quick_gelu" else F.gelu
+        self.quant, self.pre = None, {}
 
     def forward(self, x):
-        return self.c_proj(self.act(self.c_fc(x)))
+        h = self.act(dense(x, self.c_fc.weight, self.c_fc.bias, self.quant, self.pre.get("c_fc.weight")))
+        return dense(h, self.c_proj.weight, self.c_proj.bias, self.quant, self.pre.get("c_proj.weight"))
 
 
 class ResidualAttentionBlock(nn.Module):
     def __init__(self, width: int, heads: int, act: str = "quick_gelu"):
         super().__init__()
-        self.ln_1 = nn.LayerNorm(width)
+        self.ln_1 = LayerNorm(width)
         self.attn = MultiHeadAttention(width, heads)
-        self.ln_2 = nn.LayerNorm(width)
+        self.ln_2 = LayerNorm(width)
         self.mlp = _MLP(width, act)
 
     def forward(self, x, causal: bool = False):
@@ -131,11 +179,25 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(torch.empty(width))
         n_tok = (cfg.image_resolution // p) ** 2 + 1
         self.positional_embedding = nn.Parameter(torch.empty(n_tok, width))
-        self.ln_pre = None if self.timm else nn.LayerNorm(width)
+        self.ln_pre = None if self.timm else LayerNorm(width)
         self.transformer = Transformer(width, cfg.vision_layers, cfg.vision_heads,
                                        "gelu" if self.timm else "quick_gelu")
-        self.ln_post = nn.LayerNorm(width)
+        self.ln_post = LayerNorm(width)
         self.proj = nn.Parameter(torch.empty(width, cfg.embed_dim))
+        self.quant, self.patch_pre = None, None
+
+    def set_quant(self, quant=None, pre=None):
+        """The int8 rung of the dense kernels and the patch embedding:
+        ``quant`` None, "int8" or "int8b"; ``pre``: None (weights quantized
+        per call) or :func:`~pixray_tpu_torch.models.perceptor.build_quant_collection`'s
+        dict, keyed by parameter name."""
+        pre = (pre or {}) if quant else {}
+        self.quant, self.patch_pre = quant, pre.get("visual.conv1.weight")
+        for i, blk in enumerate(self.transformer.resblocks):
+            for mod, prefix in ((blk.attn, f"visual.transformer.resblocks.{i}.attn."),
+                                (blk.mlp, f"visual.transformer.resblocks.{i}.mlp.")):
+                mod.quant = quant
+                mod.pre = {k[len(prefix):]: v for k, v in pre.items() if k.startswith(prefix)}
 
     def forward(self, images, in_affine=None):
         """images: (B, 3, H, W).  ``in_affine`` = per-channel (scale, shift)
@@ -145,14 +207,24 @@ class VisionTransformer(nn.Module):
         dtype = self.proj.dtype
         x = patchify_cm(images.to(dtype), p)
         kernel = self.conv1.weight.reshape(self.conv1.weight.shape[0], -1)  # (width, 3pp)
-        aff_bias = None
+        aff_bias = scale_rows = None
         if in_affine is not None:
             scale, shift = in_affine
             scale_rows = scale.float().repeat_interleave(p * p)
-            kernel = (kernel.float() * scale_rows[None, :]).to(dtype)
             aff_bias = torch.einsum(
                 "wc,c->w", self.conv1.weight.float().sum(dim=(2, 3)), shift.float())
-        x = torch.matmul(x, kernel.t()).float()
+        if self.patch_pre is not None:
+            # pre-quantized rows: the affine's scale moves to the activations
+            if scale_rows is not None:
+                x = x.float() * scale_rows
+            x = int8_matmul_pre(x, self.patch_pre, "int8" if self.quant == "int8b" else "bf16")
+        else:
+            if scale_rows is not None:
+                kernel = (kernel.float() * scale_rows[None, :]).to(dtype)
+            if self.quant is not None:
+                x = int8_matmul(x, kernel.t(), "int8" if self.quant == "int8b" else "bf16")
+            else:
+                x = torch.matmul(x, kernel.t()).float()
         if aff_bias is not None:
             x = x + aff_bias
         x = x.to(dtype)
@@ -307,7 +379,7 @@ class CLIP(nn.Module):
         self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.text_width)
         self.positional_embedding = nn.Parameter(torch.empty(cfg.context_length, cfg.text_width))
         self.transformer = Transformer(cfg.text_width, cfg.text_layers, cfg.text_heads)
-        self.ln_final = nn.LayerNorm(cfg.text_width)
+        self.ln_final = LayerNorm(cfg.text_width)
         self.text_projection = nn.Parameter(torch.empty(cfg.text_width, cfg.embed_dim))
 
     def encode_image(self, images, in_affine=None):

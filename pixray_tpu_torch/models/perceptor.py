@@ -12,6 +12,14 @@ package's names in ``$PIXRAY_TPU_MODELS``, ``models/`` or
 ``clip/checkpoint.py``; nothing is downloaded), else from a seeded
 ``torch.Generator`` with the flax initializers' distributions and a loud
 warning.
+
+The precision rungs (``config/precision.py``, read when the perceptor is
+built unless given): a bf16 ViT tower under ``PIXRAY_TPU_CLIP_PREC`` int8
+or int8b runs its dense kernels and patch embedding on ``ops/quant.py``,
+from s8 weights quantized once here from the float32 weights, before the
+cast to bf16 (:func:`build_quant_collection`; ``PIXRAY_TPU_CLIP_PREQ=0``
+quantizes the bf16 weights per call instead); every LayerNorm of a bf16
+tower takes ``PIXRAY_TPU_CLIP_LN32``.
 """
 
 from __future__ import annotations
@@ -21,12 +29,14 @@ import os
 
 import torch
 
+from pixray_tpu_torch.config.precision import Rungs, read_rungs
 from pixray_tpu_torch.ops.grad import l2_normalize
+from pixray_tpu_torch.ops.quant import prequantize_kernel
 from pixray_tpu_torch.utils.files import find_model_file
 
 from .clip.checkpoint import port_state_dict, read_state_dict
 from .clip.configs import CLIP_CONFIGS, CLIP_MEAN, CLIP_STD, IMAGENET_MEAN, IMAGENET_STD, SLIP_CONFIGS
-from .clip.model import CLIP, FrozenBatchNorm2d, init_random_
+from .clip.model import CLIP, FrozenBatchNorm2d, LayerNorm, init_random_
 from .clip.tokenizer import get_tokenizer, tokenize
 
 # checkpoint file names, as the JAX package looks for them
@@ -76,6 +86,31 @@ def _cast_towers_(model, dtype):
             t.data = t.data.to(dtype)
 
 
+# the dense kernels of a ViT block that run the int8 rung (the JAX QuantDense names
+# in_proj, out_proj, mlp_fc, mlp_proj)
+QUANT_DENSE = ("attn.in_proj_weight", "attn.out_proj.weight", "mlp.c_fc.weight", "mlp.c_proj.weight")
+PATCH_NHWC = "visual.conv1.weight:nhwc"  # the patch kernel in the JAX NHWC row order (py, px, c)
+
+
+def build_quant_collection(model) -> dict:
+    """The JAX ``build_quant_collection`` for a ViT ``model``'s vision tower,
+    keyed by parameter name: every block's four dense kernels as (D, F)
+    kernels (the weight transposed), and the patch kernel in both row orders
+    (``"visual.conv1.weight"``: channel-major rows (c, py, px), which the
+    tower reads; ``PATCH_NHWC``), each :func:`prequantize_kernel` of the
+    model's weights as they are (float32 before the cast)."""
+    visual = model.visual
+    out = {}
+    for i in range(len(visual.transformer.resblocks)):
+        for name in QUANT_DENSE:
+            key = f"visual.transformer.resblocks.{i}.{name}"
+            out[key] = prequantize_kernel(model.get_parameter(key).detach().t())
+    w = visual.conv1.weight.detach()  # (width, 3, p, p)
+    out["visual.conv1.weight"] = prequantize_kernel(w.reshape(w.shape[0], -1).t())
+    out[PATCH_NHWC] = prequantize_kernel(w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).t())
+    return out
+
+
 def adjust_range_affine(img, out_lo=0.0, out_hi=1.0):
     """Coefficients ``(a, b)`` with ``img * a + b`` stretching the batch to
     [out_lo, out_hi] by its global min/max.  The gradient flows through the
@@ -91,9 +126,12 @@ def adjust_range_affine(img, out_lo=0.0, out_hi=1.0):
 
 
 class Perceptor:
-    """A frozen scoring model.  ``dtype`` is the tower's compute dtype."""
+    """A frozen scoring model.  ``dtype`` is the tower's compute dtype;
+    ``rungs`` the precision rungs (None: read from the environment now).
+    ``quant`` is the vision tower's int8 rung or None, ``quant_weights``
+    its pre-quantized weights (:func:`build_quant_collection`) or None."""
 
-    def __init__(self, name: str, device="cpu", dtype=torch.float32, state_dict=None):
+    def __init__(self, name: str, device="cpu", dtype=torch.float32, state_dict=None, rungs: Rungs | None = None):
         if name in CLIP_CONFIGS:
             self.config, mean, std = CLIP_CONFIGS[name], CLIP_MEAN, CLIP_STD
         elif name in SLIP_CONFIGS:
@@ -125,7 +163,16 @@ class Perceptor:
             print(f"Loaded perceptor {name} from {ckpt}: {self.input_resolution}px, {n_params / 1e6:.2f}M params")
             _require_checkpoint_tokenizer(name)
         model = model.to(device=self.device).eval().requires_grad_(False)
+        rungs = read_rungs() if rungs is None else rungs
+        self.rungs = rungs
+        self.quant = rungs.clip_quant(dtype == torch.bfloat16) if self.config.vision_kind == "vit" else None
+        self.quant_weights = build_quant_collection(model) if self.quant and rungs.clip_preq else None
         _cast_towers_(model, dtype)
+        if self.config.vision_kind == "vit":
+            model.visual.set_quant(self.quant, self.quant_weights)
+        for m in model.modules():
+            if isinstance(m, LayerNorm):
+                m.ln32 = rungs.clip_ln32
         if self.config.vision_kind == "resnet":
             model.visual.to(memory_format=torch.channels_last)
         self.model = model

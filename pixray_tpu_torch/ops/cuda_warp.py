@@ -32,8 +32,18 @@ no fallback: a CUDA tensor either launches the kernel or raises.  With no
 jitter, no noise and float32 output the kernels are the bare warp
 (:func:`warp_modes`, :func:`warp_batch_modes`).
 
+Precision rungs (``prec`` of K1, ``bwd`` of K2; ``config/precision.py``):
+"highest" is the exact warp, "bf16", "high" and "int8" the variants of
+``csrc/warp.cu`` with the JAX package's rung functions, whose plain
+versions are ``ops/warp_batch.py``'s ``warp_modes_prec``.  K1-int8 takes
+the canvas quantized on the device (``quantize_canvas``: its scale is a
+device scalar, never read on the host); K2-int8 takes the bank's max|g|
+in a first pass and sums in int64.
+
 ``LAUNCHES`` counts kernel launches (incremented only where a kernel is
-launched), so a run can show that its path went through the kernels.
+launched), one counter per rung of each kernel ("warp_fwd" and
+"warp_bwd" the exact rung), so a run can show that its path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -46,8 +56,9 @@ import torch
 from pixray_tpu_torch.ops.color import random_color_jitter_planes
 from pixray_tpu_torch.ops.nvcc import build_library, library_path, source_path
 from pixray_tpu_torch.ops.warp import inv3x3
-from pixray_tpu_torch.ops.warp_batch import (MODE_BORDER, MODE_FILL, MODE_REFLECT, MODE_ZEROS,
-                                              modes_with_fill, warp_modes_plain)
+from pixray_tpu_torch.ops.warp_batch import (MODE_BORDER, MODE_FILL, MODE_REFLECT, MODE_ZEROS, WARP_PRECS,
+                                              modes_with_fill, norm_prec, quantize_canvas,
+                                              warp_modes_prec)
 
 SOURCE = source_path("warp.cu")
 LIBRARY = library_path("libpixray_warp.so")
@@ -57,7 +68,16 @@ _MODE, _HUE, _SAT, _APPLY, _FAC, _FILL = 9, 10, 11, 12, 13, 14
 _LAYOUT = (PARAM_STRIDE, _MODE, _HUE, _SAT, _APPLY, _FAC, _FILL)  # as csrc/warp.cu's bank_layout() reports it
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-LAUNCHES = {"warp_fwd": 0, "warp_bwd": 0}
+_PREC_CODES = {"highest": 0, "bf16": 1, "high": 2, "int8": 3}  # as csrc/warp.cu's Prec
+FWD_COUNTERS = {"highest": "warp_fwd", "bf16": "warp_fwd_bf16", "high": "warp_fwd_high", "int8": "warp_fwd_int8"}
+BWD_COUNTERS = {"highest": "warp_bwd", "bf16": "warp_bwd_bf16", "high": "warp_bwd_high", "int8": "warp_bwd_int8"}
+# the kernels' names (the profiler's), by counter
+KERNEL_NAMES = {"warp_fwd": "bank_fwd_kernel", "warp_fwd_bf16": "bank_fwd_bf16_kernel",
+                "warp_fwd_high": "bank_fwd_high_kernel", "warp_fwd_int8": "bank_fwd_int8_kernel",
+                "warp_bwd": "bank_bwd_kernel", "warp_bwd_bf16": "bank_bwd_bf16_kernel",
+                "warp_bwd_high": "bank_bwd_high_kernel", "warp_bwd_int8": "bank_bwd_int8_kernel"}
+
+LAUNCHES = {name: 0 for name in (*FWD_COUNTERS.values(), *BWD_COUNTERS.values())}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -79,9 +99,9 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.bank_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.bank_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
             lib.bank_fwd.restype = i32
-            lib.bank_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+            lib.bank_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
             lib.bank_bwd.restype = i32
             lib.bank_layout.argtypes = [ptr]
             lib.bank_layout.restype = None
@@ -146,13 +166,14 @@ def bank_epilogue_plain(batch, params, planes=None):
     return torch.stack([r, g, b], dim=1)
 
 
-def cutout_bank_plain(work, params, out_size: int, planes=None, compute_dtype=None):
-    """The bank as a composition of plain ops: every cut through the gather
-    (``warp_modes_plain``, each cut's fill from its row), the cast to
+def cutout_bank_plain(work, params, out_size: int, planes=None, compute_dtype=None, prec="highest", bwd=None):
+    """The bank as a composition of plain ops: every cut through the warp at
+    K1's rung ``prec`` with K2's rung ``bwd`` for its gradient
+    (``warp_modes_prec``, each cut's fill from its row), the cast to
     ``compute_dtype``, then :func:`bank_epilogue_plain`."""
     p = unpack_params(params)
-    batch = warp_modes_plain(work, p["inv"].to(work.device), p["modes"].to(work.device),
-                             p["fill"].to(work.device), out_size)
+    batch = warp_modes_prec(work, p["inv"].to(work.device), p["modes"].to(work.device),
+                            p["fill"].to(work.device), out_size, prec, bwd)
     if compute_dtype is not None:
         batch = batch.to(compute_dtype)
     return bank_epilogue_plain(batch, params, planes)
@@ -170,12 +191,19 @@ def _check(name, t, dev, dtype, shape):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
+def _check_prec(prec):
+    if prec not in WARP_PRECS:
+        raise ValueError(f"warp rung must be one of {WARP_PRECS}; got {prec!r}")
+
+
 def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.float32,
-                    save_pre: bool = False):
-    """K1: (H, W, 3) f32 canvas and (N, PARAM_STRIDE) parameters on the card →
-    ((N, 3, S, S) bank in ``out_dtype``, the rounded pre-jitter bank or None).
-    The pre-jitter bank holds the jittered cuts' rows only; the others are
-    left unwritten, since K2 reads no other."""
+                    save_pre: bool = False, prec: str = "highest"):
+    """K1 at rung ``prec``: (H, W, 3) f32 canvas and (N, PARAM_STRIDE)
+    parameters on the card → ((N, 3, S, S) bank in ``out_dtype``, the
+    rounded pre-jitter bank or None).  The pre-jitter bank holds the
+    jittered cuts' rows only; the others are left unwritten, since K2 reads
+    no other.  int8 quantizes the canvas on the device first."""
+    _check_prec(prec)
     dev = work.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
@@ -197,20 +225,23 @@ def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.fl
     if n == 0:
         return out, pre
     ptr = lambda t: None if t is None else t.data_ptr()
+    src, scale = (work, None) if prec != "int8" else quantize_canvas(work)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = _library().bank_fwd(work.data_ptr(), params.data_ptr(), *map(ptr, zs),
-                               out.data_ptr(), ptr(pre), _DTYPES[out_dtype], n, h, w, out_size, stream)
-    _raise_on(code, "bank_fwd")
-    LAUNCHES["warp_fwd"] += 1
+    code = _library().bank_fwd(src.data_ptr(), ptr(scale), params.data_ptr(), *map(ptr, zs), out.data_ptr(),
+                               ptr(pre), _DTYPES[out_dtype], _PREC_CODES[prec], n, h, w, out_size, stream)
+    _raise_on(code, f"bank_fwd ({prec})")
+    LAUNCHES[FWD_COUNTERS[prec]] += 1
     return out, pre
 
 
-def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None):
-    """K2: (N, 3, S, S) cotangent (the bank's dtype), the saved pre-jitter
-    bank (None when no cut is jittered) and the parameters → (H, W, 3) f32.
-    ``branches``, a (2,) int32 tensor on the card, if given, gains the count
-    of blocks that summed in shared memory and of those that added straight
-    to device memory."""
+def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None, prec: str = "highest"):
+    """K2 at rung ``prec``: (N, 3, S, S) cotangent (the bank's dtype), the
+    saved pre-jitter bank (None when no cut is jittered) and the parameters
+    → (H, W, 3) f32.  ``branches``, a (2,) int32 tensor on the card, if
+    given, gains the count of blocks that summed in shared memory and of
+    those that added straight to device memory.  int8 sums in an int64
+    canvas after a pass that takes the bank's max|g|."""
+    _check_prec(prec)
     dev = g.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
@@ -227,12 +258,16 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None):
     dwork = torch.zeros((h, w, c), dtype=torch.float32, device=dev)
     if n == 0:
         return dwork
+    acc = gmax = None
+    if prec == "int8":
+        acc = torch.zeros((h, w, c), dtype=torch.int64, device=dev)
+        gmax = torch.zeros((1,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
-    code = _library().bank_bwd(g.data_ptr(), ptr(pre), params.data_ptr(), dwork.data_ptr(), ptr(branches),
-                               _DTYPES[g.dtype], n, h, w, out_size, stream)
-    _raise_on(code, "bank_bwd")
-    LAUNCHES["warp_bwd"] += 1
+    code = _library().bank_bwd(g.data_ptr(), ptr(pre), params.data_ptr(), dwork.data_ptr(), ptr(acc), ptr(gmax),
+                               ptr(branches), _DTYPES[g.dtype], _PREC_CODES[prec], n, h, w, out_size, stream)
+    _raise_on(code, f"bank_bwd ({prec})")
+    LAUNCHES[BWD_COUNTERS[prec]] += 1
     return dwork
 
 
@@ -254,83 +289,91 @@ def launch_bwd(g, inv, modes, work_shape, out_size: int):
 
 
 class CutoutBankFunction(torch.autograd.Function):
-    """K1 forward, K2 backward.  The gradient flows to ``work`` only."""
+    """K1 forward, K2 backward (each at its rung).  The gradient flows to ``work`` only."""
 
     @staticmethod
-    def forward(ctx, work, params, out_size, out_dtype, save_pre, z0, z1, z2):
+    def forward(ctx, work, params, out_size, out_dtype, save_pre, prec, bwd, z0, z1, z2):
         planes = None if z0 is None else (z0, z1, z2)
-        out, pre = launch_bank_fwd(work, params, out_size, planes, out_dtype, save_pre=save_pre)
+        out, pre = launch_bank_fwd(work, params, out_size, planes, out_dtype, save_pre=save_pre, prec=prec)
         ctx.save_for_backward(params, pre)
         ctx.work_shape = tuple(work.shape)
         ctx.out_size = out_size
         ctx.out_dtype = out_dtype
+        ctx.bwd = bwd
         return out
 
     @staticmethod
     def backward(ctx, g):
         params, pre = ctx.saved_tensors
         g = g.to(ctx.out_dtype).contiguous()
-        dwork = launch_bank_bwd(g, pre, params, ctx.work_shape, ctx.out_size)
-        return dwork, None, None, None, None, None, None, None
+        dwork = launch_bank_bwd(g, pre, params, ctx.work_shape, ctx.out_size, prec=ctx.bwd)
+        return dwork, None, None, None, None, None, None, None, None, None
 
 
-def cutout_bank(work, params, out_size: int, planes=None, compute_dtype=None):
+def cutout_bank(work, params, out_size: int, planes=None, compute_dtype=None, prec="highest", bwd=None):
     """(H, W, 3) canvas, per-cut parameters from :func:`pack_params` and
     optional noise planes (three (N, S, S) in the compute dtype) → (N, 3,
-    S, S) bank in ``compute_dtype`` (None = float32).
+    S, S) bank in ``compute_dtype`` (None = float32).  ``prec``: K1's rung;
+    ``bwd``: K2's (None: ``norm_prec(prec)``).
 
     CUDA tensors go through K1/K2 (``params`` on the card already, or
     copied there); CPU tensors through the plain version.  K1 saves the
     pre-jitter bank only for rows whose ``apply`` is set, and K2 reads it
     only for those.  A canvas that needs no gradient (a constant image, or
     under ``no_grad``) takes one K1 launch that saves nothing, and no K2."""
+    bwd = norm_prec(prec) if bwd is None else bwd
     if work.device.type == "cuda":
         out_dtype = compute_dtype or torch.float32
         params_dev = params.to(work.device, non_blocking=True)
         zs = (None, None, None) if planes is None else tuple(z.contiguous() for z in planes)
         if not (torch.is_grad_enabled() and work.requires_grad):
             planes = None if planes is None else zs
-            return launch_bank_fwd(work.contiguous(), params_dev, out_size, planes, out_dtype)[0]
-        return CutoutBankFunction.apply(work.contiguous(), params_dev, out_size, out_dtype, True, *zs)
+            return launch_bank_fwd(work.contiguous(), params_dev, out_size, planes, out_dtype, prec=prec)[0]
+        return CutoutBankFunction.apply(work.contiguous(), params_dev, out_size, out_dtype, True, prec, bwd, *zs)
     if work.device.type == "cpu":
-        return cutout_bank_plain(work, params, out_size, planes, compute_dtype)
+        return cutout_bank_plain(work, params, out_size, planes, compute_dtype, prec, bwd)
     raise ValueError(f"unsupported device for the cutout bank: {work.device}")
 
 
-def warp_modes(work, inv, modes, fill: float, out_size: int):
-    """(H, W, 3) canvas, (N, 3, 3) inverse matrices, (N,) int32 modes → (N, 3, S, S) f32.
+def warp_modes(work, inv, modes, fill: float, out_size: int, prec="highest", bwd=None):
+    """(H, W, 3) canvas, (N, 3, 3) inverse matrices, (N,) int32 modes → (N, 3, S, S) f32,
+    K1 at rung ``prec``, K2 at ``bwd`` (None: ``norm_prec(prec)``).
 
     CUDA tensors go through the kernels; CPU tensors through the plain version."""
+    bwd = norm_prec(prec) if bwd is None else bwd
     if work.device.type == "cuda":
         return CutoutBankFunction.apply(work.contiguous(), _warp_params(inv, modes, fill, work.device),
-                                        out_size, torch.float32, False, None, None, None)
+                                        out_size, torch.float32, False, prec, bwd, None, None, None)
     if work.device.type == "cpu":
-        return warp_modes_plain(work, inv, modes, float(fill), out_size)
+        return warp_modes_prec(work, inv, modes, float(fill), out_size, prec, bwd)
     raise ValueError(f"unsupported device for the cutout warp: {work.device}")
 
 
 def warp_batch_modes(work, matrices, modes, out_size: int, fill_value=0.0,
-                     fill_mask=None):
+                     fill_mask=None, precision="highest", bwd=None):
     """Mixed-mode bank warp (the JAX ``pallas_warp_batch_modes`` contract, nchw).
 
     matrices: (N, 3, 3) src→dst; modes: (N,) 0 reflection / 1 border /
     2 zeros; fill_mask: optional (N,) bool of cuts composited over
-    ``fill_value``.  The inverse matrices are computed where ``matrices``
-    lie (the engine keeps them on the host) and copied to the canvas."""
+    ``fill_value``; ``precision``/``bwd``: K1's and K2's rungs.  The inverse
+    matrices are computed where ``matrices`` lie (the engine keeps them on
+    the host) and copied to the canvas."""
     inv = inv3x3(matrices.float()).to(work.device, non_blocking=True).contiguous()
     modes = modes_with_fill(modes, fill_mask).to(work.device, non_blocking=True).contiguous()
-    return warp_modes(work, inv, modes, float(fill_value), out_size)
+    return warp_modes(work, inv, modes, float(fill_value), out_size, precision, bwd)
 
 
 PADDING_MODES = {"reflection": MODE_REFLECT, "border": MODE_BORDER, "zeros": MODE_ZEROS, "fill": MODE_FILL}
 
 
-def warp_batch(work, matrices, out_size: int, padding_mode="zeros", fill_value=0.0):
+def warp_batch(work, matrices, out_size: int, padding_mode="zeros", fill_value=0.0, precision="highest"):
     """Single-mode bank warp (the JAX ``pallas_warp_batch`` contract, nchw):
     every cut pads by ``padding_mode`` (reflection, border, zeros, or fill:
     zeros composited over ``fill_value``).  :func:`warp_batch_modes` with a
-    constant mode column: on the card K1/K2 as the bare warp."""
+    constant mode column: on the card K1/K2 as the bare warp, both at
+    ``norm_prec(precision)`` (the JAX single-mode kernels have no int8)."""
     if padding_mode not in PADDING_MODES:
         raise ValueError(f"padding_mode must be one of {sorted(PADDING_MODES)}; got {padding_mode!r}")
     modes = torch.full((matrices.shape[0],), PADDING_MODES[padding_mode], dtype=torch.int32)
-    return warp_batch_modes(work, matrices, modes, out_size, fill_value)
+    prec = norm_prec(precision)
+    return warp_batch_modes(work, matrices, modes, out_size, fill_value, precision=prec, bwd=prec)

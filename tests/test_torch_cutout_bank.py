@@ -178,7 +178,7 @@ def test_cpu_bank_launches_no_kernel_and_is_the_plain_version(dtype):
     work = torch.tensor(_work(), requires_grad=True)
     out = cuda_warp.cutout_bank(work, params, S, planes, dtype)
     (grad,) = torch.autograd.grad(out.float().sum(), work)
-    assert cuda_warp.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0}
+    assert {"warp_fwd", "warp_bwd"} <= set(cuda_warp.LAUNCHES) and set(cuda_warp.LAUNCHES.values()) == {0}
     work_p = torch.tensor(_work(), requires_grad=True)
     plain = cuda_warp.cutout_bank_plain(work_p, params, S, planes, dtype)
     (grad_p,) = torch.autograd.grad(plain.float().sum(), work_p)

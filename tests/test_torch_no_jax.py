@@ -23,6 +23,8 @@ True), and a second run resumed from its checkpoint; ``--make_video``
 prompt and target image globs (PIL allowed).  Then the two other tower
 kinds, blocked: a tiny ModifiedResNet and a tiny timm (SLIP-style) trunk,
 put into the port's config tables by the subprocess, beside TinyTest.
+A blocked pixel run at the JAX package's default precision rungs (K1
+int8, the int8b tower from pre-quantized weights, bf16 LayerNorms).
 Then the pixel drawer's SVG export, a ``tiny_up`` vdiff run (eager,
 re-noised after every step) and a super_resolution run (a tiny RRDBNet
 from a basicsr file on disk, blocked).  Then a hex pixel run with the
@@ -104,6 +106,25 @@ def _run_blocked(tmp_path, drawer: dict, blocked=BLOCKED, expect_block=False, st
 
 def test_port_runs_without_jax(tmp_path):
     _run_blocked(tmp_path, dict(drawer="pixel"))
+
+
+# the JAX package's default rungs, read by the engine from the environment
+JAX_RUNGS = (
+    "import atexit, os\n"
+    "os.environ.update(PIXRAY_TPU_WARP_PREC='int8', PIXRAY_TPU_WARP_BWD_PREC='int8', PIXRAY_TPU_CLIP_PREC='int8b',"
+    " PIXRAY_TPU_CLIP_PREQ='1', PIXRAY_TPU_CLIP_LN32='0')\n"
+    "atexit.register(lambda: print('RUNGS', pixray.get_engine().rungs, pixray.get_engine().perceptors[0].quant,"
+    " len(pixray.get_engine().perceptors[0].quant_weights)))\n")
+
+
+def test_jax_default_rungs_run_without_jax(tmp_path):
+    """A blocked pixel run (--precision bf16, the default) at the JAX
+    package's default rungs: K1 int8, K2 int8 where the canvas allows it,
+    the int8b tower from pre-quantized weights, bf16 LayerNorms."""
+    _, stdout = _run_blocked(tmp_path, dict(drawer="pixel", iterations=10, save_every=100), expect_block=True,
+                             setup=JAX_RUNGS)
+    assert ("RUNGS Rungs(warp='int8', warp_bwd='int8', clip='int8b', clip_preq=True, clip_ln32=False) int8b 10"
+            in stdout), stdout[-2000:]
 
 
 def test_pixel_svg_without_jax(tmp_path):

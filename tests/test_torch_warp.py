@@ -109,7 +109,7 @@ def test_cpu_tensors_launch_no_kernel():
     cuda_warp.reset_launch_counts()
     work, out = _port("mixed")
     torch.autograd.grad(out.sum(), work)
-    assert cuda_warp.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0}
+    assert {"warp_fwd", "warp_bwd"} <= set(cuda_warp.LAUNCHES) and set(cuda_warp.LAUNCHES.values()) == {0}
 
 
 def test_cuda_wrapper_refuses_other_devices():

@@ -75,7 +75,8 @@ def test_warp_batch_modes_and_dispatch():
     work, ms, _ = _case()
     cuda_warp.reset_launch_counts()
     out = cuda_warp.warp_batch(torch.tensor(work), torch.tensor(ms), S, "border")
-    assert cuda_warp.LAUNCHES == {"warp_fwd": 0, "warp_bwd": 0}  # CPU tensors: the plain version
+    # CPU tensors: the plain version, no counter of any rung moved
+    assert {"warp_fwd", "warp_bwd"} <= set(cuda_warp.LAUNCHES) and set(cuda_warp.LAUNCHES.values()) == {0}
     same = cuda_warp.warp_batch_modes(torch.tensor(work), torch.tensor(ms), torch.ones(N, dtype=torch.int32), S)
     assert torch.equal(out, same)
     with pytest.raises(ValueError):
