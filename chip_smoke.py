@@ -199,14 +199,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    high, K2 int8), 17 steps each; per row the descent, steps/s, the
    device busy (three replays for exact and each knob alone) and one
    replay's K1/K2 variants, and whether each knob alone brings the busy
-   below every exact replay.
+   below every exact replay;
+35. the parallel layer (pixray_tpu_torch/parallel), every rank spawned by
+   this script on the one card, gloo between them: the pixel row on mesh
+   (2, 1) and MIXED_CONFIG on (1, 2) (RN50 and SLIP_VITB16 on model index
+   0, ViT-B/16 on 1), 3 eager steps each against the unsharded engine in
+   this process (per-step loss within 2e-3, the final latent within 2e-3
+   in the L2 norm, each beside two unsharded runs' gaps), the ranks'
+   latents bitwise equal after every step, K1/K2 per rank and step (1/1
+   and 1/1; 3/2 and 3/1); the dry run's sweep (run_parity on (4, 1), (2, 2)
+   with 3 tiny towers placed, FSDP on (2, 2)) on four ranks; and a 1-rank
+   NCCL group joined through init_distributed summing a latent gradient;
+   ms per step and peak memory per rank (for the record: ranks on one
+   card say nothing of scaling).
 
 The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
 towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
 
 Then one JSON line with the kernels' numbers (K1/K2 also with their
 launches on the pixel, vdiff, cc12m, recipe and super_resolution rows, on
-rows 29 and 30 and on the served pixrayapi and text2pixel requests; each
+rows 29 and 30, on the served pixrayapi and text2pixel requests and per
+rank on the rows of 35; each
 rung variant with its launches on the ladder rows), and
 as the last line
 {"ok": true, "device": {...}}.
@@ -3598,6 +3611,111 @@ def phase_ladder(tmp, card):
     return rows
 
 
+PARALLEL_STEPS = 3  # run_parity's n_steps
+PARALLEL_TOL = 2e-3  # run_parity's tolerances: per-step |loss delta| and the final latent's, relative
+# The final latent is held in the L2 norm, ||dz|| / ||z||: run_parity's max |dz| / max |z| fails
+# correct code at full width.  Adam moves each element by ~lr * sign(g) in its first steps, and an
+# element whose gradient is near 0 flips with any regrouping of a sum: two unsharded bf16 runs
+# part by 1.4e-2 there (K2's float atomics), and at f32 (runs bitwise-near) sharding's regrouped
+# sums moved 20 of 14,400 elements by more than 1e-3.  In the L2 norm sound runs read at most
+# 5.6e-4 and planted faults 8.4e-3 (each chunk stretched by its own range) and 5.7e-2 (both
+# ranks on chunk 0); the loss gate reads those faults at only 2.5e-3 and 2.1e-3 (PERF.md §6).
+# Both forms are printed.
+PARALLEL_DEADLINE = 240.0  # per launch: each rank reaches the card (~8 s), builds its towers, steps
+PARALLEL_THREADS = 2  # host threads per rank (4 ranks on the machine's 8 cores)
+# (label, config, mesh, per rank: K1 and K2 launches per step); MIXED_CONFIG's
+# towers RN50, ViT-B/16, SLIP_VITB16 on two groups: members 0 and 2 on group 0
+PARALLEL_ROWS = (
+    ("pixel (2, 1)", PIXEL_CONFIG, "2,1", [(1, 1), (1, 1)]),
+    ("mixed better (1, 2)", MIXED_CONFIG, "1,2", [(3, 2), (3, 1)]),
+)
+
+
+def phase_parallel(card):
+    """35: the parallel layer on the card.  Every rank is spawned from here
+    (``pixray_tpu_torch.parallel.dryrun.launch``), shares cuda:0 with the
+    others and joins a gloo group (NCCL refuses two ranks on one device):
+    (a) the pixel row on mesh (2, 1) and (b) MIXED_CONFIG on (1, 2) (3
+    members on 2 groups), PARALLEL_STEPS eager steps each against the same
+    steps unsharded in this process, per-step loss and the final latent (in
+    the L2 norm) within PARALLEL_TOL, beside the gaps of two unsharded runs;
+    every rank's latent bitwise rank 0's after every step, K1 and K2 per
+    rank and step as the design gives; (c) ``python -m
+    pixray_tpu_torch.parallel.dryrun 4 --device cuda``'s sweep (run_parity
+    on (4, 1), (2, 2) and FSDP on (2, 2), whose gathered weights are the
+    unsharded ones bitwise); (d) a 1-rank NCCL group joined through
+    ``init_distributed`` sums a latent-gradient-sized buffer.  A rank that
+    raises, hangs past PARALLEL_DEADLINE or exits non-zero fails the phase.
+    ms per step and peak memory per rank are printed for the record: ranks
+    that share one card say nothing of scaling.  Returns {row: (launches
+    summed over the steps, steps)} per rank."""
+    import numpy as np
+    import torch
+
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.parallel import dryrun
+
+    torch.cuda.empty_cache()
+    fwd, bwd = cuda_warp.FWD_COUNTERS["highest"], cuda_warp.BWD_COUNTERS["highest"]
+    rows, numel = {}, None
+    for label, config, shape, want in PARALLEL_ROWS:
+        d, m = (int(x) for x in shape.split(","))
+        t0 = time.perf_counter()
+        try:
+            ranks = dryrun.launch(dryrun.run_config, d * m, config, PARALLEL_STEPS, "cuda", shape,
+                                  deadline=PARALLEL_DEADLINE, threads=PARALLEL_THREADS)
+        except Exception as exc:  # a rank's failure fails the phase
+            fail(f"parallel {label}: {exc}")
+        launch_s = time.perf_counter() - t0
+        base = dryrun.run_config(config, PARALLEL_STEPS, "cuda")
+        pair = dryrun.agreement(dryrun.run_config(config, PARALLEL_STEPS, "cuda"), base)  # the eager spread
+        numel = numel or base["z"].size
+        parts = []
+        for r, out in enumerate(ranks):
+            gap = dryrun.agreement(out, base)
+            if out["mesh"] != {"data": d, "model": m} or out["names"] != base["names"]:
+                fail(f"parallel {label} rank {r}: mesh {out['mesh']}, terms {out['names']} (unsharded {base['names']})")
+            if not (np.all(np.isfinite(out["losses"])) and gap["loss"] <= PARALLEL_TOL and gap["z_l2"] <= PARALLEL_TOL):
+                fail(f"parallel {label} rank {r}: losses {out['losses']} against unsharded {base['losses']}: "
+                     f"{gap} (tolerance {PARALLEL_TOL} on loss and z_l2)")
+            if not out["bitwise"] or out["z"].tobytes() != ranks[0]["z"].tobytes():
+                fail(f"parallel {label} rank {r}: its latent is not rank 0's bit for bit")
+            per_step = [(s.get(fwd, 0), s.get(bwd, 0)) for s in out["launches"]]
+            if any(k != want[r] for k in per_step) or any(sum(s.values()) != sum(want[r]) for s in out["launches"]):
+                fail(f"parallel {label} rank {r}: launches per step {out['launches']}, expected K1/K2 {want[r]}")
+            rows[f"parallel {label} rank {r}"] = ({fwd: sum(k[0] for k in per_step), bwd: sum(k[1] for k in per_step)},
+                                                  PARALLEL_STEPS)
+            parts.append(f"rank {r}: K1/K2 per step {want[r]}, loss delta {gap['loss']:.3e}, latent delta "
+                         f"{gap['z_l2']:.3e} (L2; max element {gap['z']:.3e}), ms per step "
+                         f"{[round(x, 2) for x in out['ms']]}, peak {out['peak_mib']:.1f} MiB")
+        print(f"parallel {label} ({config['clip_models'] if 'clip_models' in config else 'quality better, mixed'}, "
+              f"{PARALLEL_STEPS} eager steps, gloo on one card): losses {[round(x, 6) for x in ranks[0]['losses']]} "
+              f"against unsharded {[round(x, 6) for x in base['losses']]}; {'; '.join(parts)}; unsharded ms per step "
+              f"{[round(x, 2) for x in base['ms']]}, peak {base['peak_mib']:.1f} MiB; two unsharded runs part by loss "
+              f"{pair['loss']:.3e}, latent {pair['z_l2']:.3e} (L2; max element {pair['z']:.3e}); ranks' latents bitwise equal "
+              f"after every step; launch {launch_s:.1f} s; on {card}", flush=True)
+    t0 = time.perf_counter()
+    try:
+        reports = dryrun.main(["4", "--device", "cuda", "--deadline", str(PARALLEL_DEADLINE)])
+    except Exception as exc:
+        fail(f"parallel dryrun 4 --device cuda: {exc}")
+    kinds = [(r["shape"]["data"], r["shape"]["model"], r["ensemble"], r["fsdp"]) for r in reports]
+    if kinds != [(4, 1, False, 0), (2, 2, True, 0), (2, 2, False, 1)]:
+        fail(f"parallel dryrun: meshes {kinds}")
+    print(f"parallel dryrun 4 --device cuda: {len(reports)} meshes in {time.perf_counter() - t0:.1f} s "
+          f"(FSDP's gathered weights bitwise the unsharded ones)", flush=True)
+    try:
+        (nccl,) = dryrun.launch(dryrun.all_reduce_check, 1, numel, deadline=PARALLEL_DEADLINE)
+    except Exception as exc:
+        fail(f"parallel NCCL check: {exc}")
+    if nccl["backend"] != "nccl" or not nccl["exact"]:
+        fail(f"parallel NCCL check: {nccl}")
+    print(f"parallel NCCL: a 1-rank {nccl['backend']} group joined through init_distributed summed "
+          f"{nccl['numel']} float32 (the pixel row's latent gradient) in {nccl['ms']:.3f} ms, bits kept; on {card}",
+          flush=True)
+    return rows
+
+
 def main():
     import torch
 
@@ -3708,6 +3826,7 @@ def main():
     phase_tower_rungs(card)
     with tempfile.TemporaryDirectory() as tmp:
         ladder = phase_ladder(tmp, card)
+    rows.update(phase_parallel(card))
     per_row = lambda counter: {row: {"launches": got[counter], "steps": n} for row, (got, n) in rows.items()}
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"

@@ -126,10 +126,9 @@ def setup_parser(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     a("--alpha_gamma", type=float, help="width-relative sigma for the alpha gaussian", default=4.0, dest="alpha_gamma")
     a("--output", type=str, help="Output filename", default="output.png", dest="output")
     a("--outdir", type=str, help="Output file directory", default="outputs/%DATE%_%SEQ%", dest="outdir")
-    # accepted for recipe compatibility with the JAX package; the engine
-    # refuses non-default values of the ones it does not implement yet
-    a("--mesh_shape", type=str, help="device mesh (JAX package only)", default="auto", dest="mesh_shape")
-    a("--shard_cutouts", type=str2bool, help="shard the cutout batch (JAX package only)", default=True, dest="shard_cutouts")
+    # the mesh over the ranks of a process group (parallel/mesh.py); one rank runs unsharded
+    a("--mesh_shape", type=str, help="device mesh over the process group's ranks: auto (every rank on the data axis), D, D,M or hosts", default="auto", dest="mesh_shape")
+    a("--shard_cutouts", type=str2bool, help="join the configured process group and split each step's cutouts (and, on a model axis, the perceptors) over its ranks", default=True, dest="shard_cutouts")
     a("--precision", type=str, help="perceptor compute precision: bf16 or fp32", default="bf16", dest="precision")
     a("--checkpoint_every", type=str, help="save a resumable session checkpoint every N iterations (0=off)", default=0, dest="checkpoint_every")
     a("--resume_from", type=str, help="resume a session from a checkpoint file", default=None, dest="resume_from")

@@ -88,6 +88,14 @@ checkin writes ``anim.gif``.
 Session checkpoints (``engine/checkpoint.py``): ``--checkpoint_every N``
 writes ``outdir/session.ckpt`` after every N-th step, ``--resume_from``
 restores one (the port's, or the JAX engine's) into the new engine.
+
+The mesh (``parallel/mesh.py``): under ``--shard_cutouts`` the engine
+joins the process group the environment configures and lays
+``--mesh_shape`` over all of its ranks, one device each (plain ``"cuda"``
+is the rank's card), padding ``num_cuts`` to the data axis.  Every rank
+seeds and draws the whole step as one process would; the step
+(``engine/step.py``) splits the work and sums it.  Steps are eager under
+a mesh (``--steps_per_call`` becomes 1), and only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -113,6 +121,8 @@ from pixray_tpu_torch.io import images as IM
 from pixray_tpu_torch.io import output as OUT
 from pixray_tpu_torch.losses import loss_class
 from pixray_tpu_torch.models.perceptor import Perceptor
+from pixray_tpu_torch.parallel import ensemble as PE
+from pixray_tpu_torch.parallel import mesh as PM
 from pixray_tpu_torch.prompt import parse_prompt
 from pixray_tpu_torch.utils import get_file_path, real_glob
 
@@ -132,9 +142,13 @@ def resolve_seed(seed_setting):
 
 
 def resolve_device(device) -> torch.device:
+    """``device`` as a torch device; in a process group, plain ``"cuda"``
+    is the rank's card, ``cuda:{local rank % cards}``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' was asked for but CUDA is not available")
+    if device.type == "cuda" and device.index is None and PM.world()[1] > 1:
+        device = torch.device("cuda", PM.local_rank() % torch.cuda.device_count())
     return device
 
 
@@ -142,11 +156,26 @@ class Engine:
     """``state_dicts`` optionally maps perceptor names to OpenAI-layout
     weights (see ``models/clip/bridge.py``) and the drawer's name to its
     weights (``"vqgan"``: taming names, see ``models/vqgan.py``); the rest
-    load from their checkpoint files or get seeded random weights."""
+    load from their checkpoint files or get seeded random weights.
+    ``mesh``: a prebuilt ``parallel.mesh.Mesh`` (the dry run's), else the
+    settings' (:meth:`_build_mesh`)."""
 
-    def __init__(self, args, device="cuda", state_dicts=None):
+    def __init__(self, args, device="cuda", state_dicts=None, mesh=None):
         self.args = args
+        self.mesh = self._build_mesh(args) if mesh is None else mesh
+        if self.mesh is not None:
+            padded = PM.pad_cuts_for_mesh(args.num_cuts, self.mesh)
+            if padded != args.num_cuts:
+                print(f"padding num_cuts {args.num_cuts} -> {padded} for the {self.mesh.shape} mesh")
+                args.num_cuts = padded
+            # eager steps: a gloo collective cannot sit in a CUDA graph
+            args.steps_per_call = 1
+            print(f"Using device mesh {self.mesh.shape} for cutout data-parallelism; --steps_per_call 1 "
+                  "(a gloo collective cannot sit in a CUDA graph)")
+        self.writer = self.mesh is None or self.mesh.rank == 0  # under a mesh, rank 0 writes the files
         self.device = resolve_device(device)
+        if self.mesh is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
         if args.init_weight_pix and not args.init_image:
             raise ValueError("init_weight_pix needs an init_image")
 
@@ -181,6 +210,10 @@ class Engine:
 
         self.perceptors = [Perceptor(name, self.device, tower_dtype, state_dicts.get(name), self.rungs)
                            for name in args.clip_models]
+        ensemble = PE.ensemble_active(self.mesh, len(self.perceptors))
+        if ensemble:
+            print(f"Placing {len(self.perceptors)} perceptors on {self.mesh.shape[PM.MODEL_AXIS]} model-axis "
+                  "device groups (one member per group)")
 
         # ---- filters and custom losses ("name:weight", "loss->arg->arg")
         self.filters = []
@@ -263,6 +296,10 @@ class Engine:
             pil = pil.resize((self.side_x, self.side_y), Image.LANCZOS)
             self.image_prompt_images.append(torch.from_numpy(IM.to_tensor(pil)).to(self.device))
 
+        # FSDP (one tower, a model axis > 1): each rank keeps its shard of
+        # the vision tower's weights from here on (the tables are encoded)
+        fsdp = [] if ensemble else [w for w in (PM.shard_perceptor_params(p.model.visual, self.mesh)
+                                                for p in self.perceptors) if w is not None]
         self.step_cfg = StepConfig(
             drawer=self.drawer,
             drawer_params=self.drawer_params,
@@ -270,7 +307,7 @@ class Engine:
                 PerceptorSpec(p.name, p.input_resolution, p.image_fn, tables[p.name],
                               spot_table=spot_tables[p.name], spot_off_table=spot_off_tables[p.name],
                               image_prompt_weight=args.image_prompt_weight, target_table=target_tables[p.name],
-                              image_prompt_frame=bool(args.animation_dir),
+                              image_prompt_frame=bool(args.animation_dir), affine_fn=p.preprocess_affine,
                               **self._image_prompt_inputs(args, p))
                 for p in self.perceptors
             ],
@@ -295,6 +332,9 @@ class Engine:
             loss_layouts=[getattr(loss_obj, "draw_layout", lambda h, w: [])(*self._loss_canvas())
                           for loss_obj, _w in self.custom_losses],
             args=args,
+            mesh=self.mesh,
+            ensemble=ensemble,
+            fsdp=fsdp,
         )
         self.loss_names = self.step_cfg.names
 
@@ -329,6 +369,24 @@ class Engine:
             print("Using image prompts:", args.image_prompts)
         if args.init_image:
             print(f"Using initial image {args.init_image} ({len(self.init_image_rgba_list)})")
+
+    @staticmethod
+    def _build_mesh(args):
+        """Under ``--shard_cutouts``: join the process group the environment
+        configures (``parallel.mesh.init_distributed``) and build
+        ``--mesh_shape``'s mesh over every rank of it; None for one rank.
+        A shape that cannot be built, or one that leaves ranks out, raises
+        (the JAX engine prints "mesh setup skipped" and runs unsharded)."""
+        if not args.shard_cutouts:
+            return None
+        if PM.init_distributed():
+            rank, n = PM.world()
+            print(f"Joined process group: rank {rank}/{n} ({torch.distributed.get_backend()})")
+        mesh = PM.build_mesh(args.mesh_shape)
+        n = PM.world()[1]
+        if (1 if mesh is None else mesh.size) != n:
+            raise ValueError(f"mesh_shape {args.mesh_shape!r} does not span the {n} ranks of the process group")
+        return mesh
 
     def _init_tensor(self, args):
         """The drawer's init image in [-1, 1] on the host, or None: the last
@@ -627,7 +685,7 @@ class Engine:
             if cur_it % args.save_every == 0:
                 self.checkin(cur_it, values)
 
-            if args.make_video:  # single steps: every step is eager
+            if args.make_video and self.writer:  # single steps: every step is eager
                 video_folder = os.path.join(args.outdir, "video")
                 os.makedirs(video_folder, exist_ok=True)
                 OUT.save_png(img[..., :3].float().cpu().numpy(), os.path.join(video_folder, f"frame_{cur_it:04d}.png"))
@@ -653,7 +711,7 @@ class Engine:
             self.optimizer.reset(self.opt_state)
             self.lr_scale.fill_(1.0 / self.tracker.drop_divisor)
         ck = args.checkpoint_every
-        if ck and cur_it and cur_it % ck == 0:
+        if ck and cur_it and cur_it % ck == 0 and self.writer:
             from pixray_tpu_torch.engine.checkpoint import save_session
 
             # after the step and its LR drop: the file resumes at the next step
@@ -715,14 +773,15 @@ class Engine:
             stale = it - self.tracker.best_iter
             writestr = f"{writestr} (-{stale}=>{self.tracker.best_loss:2.4g})"
             outfile = get_file_path(args.outdir, args.output, ".png")
-        arr = self.synth_array(it)
-        OUT.save_png(arr, outfile, OUT.png_text(args.given_args, self.seed_used))
-        if args.save_intermediates:
-            step_path = os.path.join(args.outdir, "steps")
-            os.makedirs(step_path, exist_ok=True)
-            OUT.save_png(arr, get_file_path(step_path, f"frame_{it:04d}", ".png"))
-        if self.cur_anim_index is not None and self.cur_anim_index == len(self.anim_output_files) - 1:
-            OUT.make_gif(args.animation_dir)
+        if self.writer:
+            arr = self.synth_array(it)
+            OUT.save_png(arr, outfile, OUT.png_text(args.given_args, self.seed_used))
+            if args.save_intermediates:
+                step_path = os.path.join(args.outdir, "steps")
+                os.makedirs(step_path, exist_ok=True)
+                OUT.save_png(arr, get_file_path(step_path, f"frame_{it:04d}", ".png"))
+            if self.cur_anim_index is not None and self.cur_anim_index == len(self.anim_output_files) - 1:
+                OUT.make_gif(args.animation_dir)
         print(writestr)
 
     def run(self, return_display: bool = False) -> bool:
@@ -751,6 +810,8 @@ class Engine:
                         return False
         except KeyboardInterrupt:
             pass
+        if not self.writer:
+            return True
         if args.make_video:
             OUT.do_video(args, self.cur_iteration)
         if args.save_intermediates:

@@ -29,6 +29,16 @@ JAX package's ``lax.scan`` block).  The latent
 ``z`` is a tensor or a dict of tensors (``engine/latent.py``); gradients,
 the optimizer and ``batches`` accumulation go leaf by leaf, and the step
 writes the new latent and optimizer state into the old ones.
+
+Under a mesh (``StepConfig.mesh``, ``parallel/mesh.py``) every rank
+renders every bank in full and encodes its data chunk of it, stretched
+by the whole bank's range; the per-cut terms are the chunk's shares
+(``parallel/ensemble.py``; under ensemble placement ``ensemble_scores``
+scores only the rank's own towers), and the other terms come from rank 0
+alone.  One sum over
+the mesh of the gradient and the values ends the step, so every rank
+takes the same optimizer step on the same bits.  FSDP gathers the
+towers' weights around each batch's forward and backward.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any
 
+import contextlib
 import gc
 import threading
 import time
@@ -50,6 +61,8 @@ from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
 from pixray_tpu_torch.ops.cuda_warp import PARAM_STRIDE, unpack_params
 from pixray_tpu_torch.ops.grad import spherical_dist_loss
 from pixray_tpu_torch.ops.warp_batch import bwd_prec
+from pixray_tpu_torch.parallel import ensemble as E
+from pixray_tpu_torch.parallel import mesh as M
 
 
 @dataclass
@@ -66,6 +79,7 @@ class PerceptorSpec:
     image_prompt_weight: float | None = None
     target_table: PromptTable | None = None  # the animation's target images, one row per frame
     image_prompt_frame: bool = False  # animation: one image-prompt bank, of the frame's image
+    affine_fn: Any = None  # a bank → its range stretch (``Perceptor.preprocess_affine``), for a mesh's chunks
 
     @property
     def spot_banks(self) -> tuple[bool, bool]:
@@ -111,6 +125,10 @@ class StepConfig:
     loss_layouts: list = field(default_factory=list)  # per custom loss: its draws' [(name, shape, dtype)]
     args: Any = None  # the settings, which the custom losses read
     names: list = field(default_factory=list)
+    mesh: Any = None  # parallel.mesh.Mesh, or None
+    ensemble: bool = False  # perceptor-ensemble placement on the mesh's model axis
+    fsdp: list = field(default_factory=list)  # parallel.mesh.ShardedWeights of the towers (FSDP)
+    loss_outputs: dict = field(default_factory=dict)  # custom loss → its term count, learnt off the lead rank
 
 
 # the kernels' launch counters, which a replay advances by what its capture recorded
@@ -259,10 +277,17 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
     """→ (total, (values (L,), img)) of one batch.  Loss-term names land in
     ``cfg.names``.  inputs: one batch's entry of :func:`step_inputs`."""
     names, values = [], []
+    mesh = cfg.mesh
+    # under a mesh each rank adds its chunk's share of the per-cut terms;
+    # the other terms come once, from the mesh's first rank
+    lead = mesh is None or mesh.rank == 0
 
     def add(name, value):
         names.append(name)
         values.append(value)
+
+    def zeros(n=()):
+        return torch.zeros(n, dtype=torch.float32, device=img.device)
 
     # the iteration as a () device tensor (the vdiff drawer picks its
     # schedule entry by it; the other drawers ignore it)
@@ -270,7 +295,7 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
 
     for i, (filt, weight) in enumerate(cfg.filters):
         img, f_loss = filt(img, inputs["filters"][i])
-        add(f"filter:{type(filt).__name__}", weight * f_loss)
+        add(f"filter:{type(filt).__name__}", weight * f_loss if lead else zeros())
 
     alpha = None
     if img.shape[-1] == 4:
@@ -283,66 +308,54 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
 
     # the losses see each cut size's last main bank channels-last in float32
     # (two towers of one size: the second replaces the first, as in JAX)
-    cur_cutouts, embeds = {}, None
+    cur_cutouts, rendered = {}, []
     for spec, pd in zip(cfg.perceptors, inputs["perceptors"]):
-        n = pd["params"].shape[0] // spec.banks
-        banks = iter(range(spec.banks))
-
-        def bank(src):
-            k = next(banks)
-            planes = None if pd["planes"] is None else [p[k * n:(k + 1) * n] for p in pd["planes"]]
-            return cuda_warp.cutout_bank(src, pd["params"][k * n:(k + 1) * n], spec.cut_size, planes,
-                                         cfg.compute_dtype, cfg.warp_prec,
-                                         bwd_prec(cfg.warp_prec, cfg.warp_bwd, spec.cut_size))
-
-        work = C.pool_to_work(img, spec.cut_size)
-        cutouts = bank(work)
+        banks = _render(cfg, spec, pd, img, inputs)
         if cfg.custom_losses:
-            cur_cutouts[spec.cut_size] = cutouts.permute(0, 2, 3, 1).float()
-        iii = embeds = spec.image_fn(cutouts)
-        pl = prompt_losses(iii, spec.table)
-        for i in range(spec.table.size):
-            add(f"{spec.name}:prompt{i}", pl[i])
-        if spec.target_table is not None and spec.target_table.size:
-            # the frame's row, picked on the device (index_select: indexing by
-            # a () tensor syncs, which a captured block may not do)
-            frame = torch.remainder(inputs["anim_index"], spec.target_table.size).long().view(1)
-            add(f"{spec.name}:target_frame", prompt_losses(iii, spec.target_table).index_select(0, frame)[0])
-        for kind, on, keep, table in (("spot", spec.spot_banks[0], spec.spot_keep_on, spec.spot_table),
-                                      ("spot_off", spec.spot_banks[1], spec.spot_keep_off, spec.spot_off_table)):
-            if on:
-                sl = prompt_losses(spec.image_fn(bank(work * keep[..., None])), table)
-                for i in range(table.size):
-                    add(f"{spec.name}:{kind}{i}", sl[i])
-        weight = 1.0 if spec.image_prompt_weight is None else spec.image_prompt_weight
-        if spec.image_prompt_frame and spec.n_image_prompts:
-            frame = torch.remainder(inputs["anim_index"], spec.image_prompts.shape[0]).long().view(1)
-            prompt_images = [(spec.image_prompts.index_select(0, frame)[0], "image_prompt_frame")]
-        else:
-            prompt_images = [(spec.image_prompts[k], f"image_prompt{k}") for k in range(spec.n_image_prompts)]
-        for prompt_image, name in prompt_images:
-            with torch.no_grad():  # a constant image: one forward-only K1 launch
-                embed = spec.image_fn(bank(prompt_image))
-            add(f"{spec.name}:{name}", single_prompt_loss(iii, embed, weight))
+            cur_cutouts[spec.cut_size] = banks.main.permute(0, 2, 3, 1).float()
+        rendered.append(banks)
+
+    tie = None  # ties the gathered embeddings into every rank's loss (see below)
+    if cfg.ensemble:
+        # the embeds global costs one replicated encode: only where a loss reads it
+        want = bool(cfg.custom_losses) and (lead or len(cfg.loss_outputs) < len(cfg.custom_losses))
+        terms, embeds = _placed_terms(cfg, rendered, inputs, want)
+    else:
+        terms, iii = [], None
+        for spec, banks in zip(cfg.perceptors, rendered):
+            spec_terms, iii = _scored_terms(cfg, spec, banks, inputs)
+            terms += spec_terms
+        embeds = iii
+        if mesh is not None and cfg.custom_losses:
+            # the losses read the last tower's whole batch: its chunks gathered
+            # with their gradient; every rank of the data group then runs the
+            # gather's backward collective, so each ties it in with weight 0
+            embeds = M.GatherRows.apply(iii, mesh.data_index, mesh.shape[M.DATA_AXIS], mesh.data_group)
+            tie = embeds.sum() * 0.0
+    for name, value in terms:
+        add(name, value)
 
     if cfg.z_labels or cfg.init_weight or cfg.init_weight_dist or cfg.init_weight_cos:
         z_flat, z0 = ravel(z), cfg.z_orig_flat
     for i, z_label in enumerate(cfg.z_labels):
         add(f"image_label{i}",
-            torch.mean(spherical_dist_loss(z_flat[None], z_label.reshape(1, -1))) * cfg.image_label_weight)
+            torch.mean(spherical_dist_loss(z_flat[None], z_label.reshape(1, -1))) * cfg.image_label_weight
+            if lead else zeros())
     if cfg.init_weight:
-        add("init_weight", torch.mean(spherical_dist_loss(z_flat[None], z0[None])) * cfg.init_weight)
+        add("init_weight", torch.mean(spherical_dist_loss(z_flat[None], z0[None])) * cfg.init_weight
+            if lead else zeros())
     if cfg.init_weight_dist:
-        add("init_weight_dist", torch.mean((z_flat - z0) ** 2) * cfg.init_weight_dist / 2)
+        add("init_weight_dist", torch.mean((z_flat - z0) ** 2) * cfg.init_weight_dist / 2 if lead else zeros())
     if cfg.init_weight_pix:
         d = img - cfg.init_image
         # |d| with the gradient +1 at 0, as JAX's abs takes it
-        add("init_weight_pix", torch.mean(torch.where(d >= 0, d, -d)) * cfg.init_weight_pix / 2)
+        add("init_weight_pix", torch.mean(torch.where(d >= 0, d, -d)) * cfg.init_weight_pix / 2
+            if lead else zeros())
     if cfg.init_weight_cos:
         cos = torch.nn.functional.cosine_similarity(z_flat[None], z0[None], dim=-1, eps=1e-8)
-        add("init_weight_cos", torch.mean(1.0 - cos) * cfg.init_weight_cos)
+        add("init_weight_cos", torch.mean(1.0 - cos) * cfg.init_weight_cos if lead else zeros())
     if alpha is not None and cfg.transparent_weight != 0:
-        add("transparent", cfg.transparent_weight * torch.mean(alpha))
+        add("transparent", cfg.transparent_weight * torch.mean(alpha) if lead else zeros())
 
     loss_globals = {"cur_iteration": inputs["iteration"], "embeds": embeds, "fill_color": inputs["fill"]}
     for i, (loss_obj, weight) in enumerate(cfg.custom_losses):
@@ -351,7 +364,16 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
             add(f"loss:{name}", weight * img.new_zeros(()))
             continue
         globals_i = dict(loss_globals, draws=inputs["losses"][i])
-        out = loss_obj.get_loss(cur_cutouts, img, cfg.args, globals=globals_i, lossGlobals=cfg.loss_globals)
+        if lead:
+            out = loss_obj.get_loss(cur_cutouts, img, cfg.args, globals=globals_i, lossGlobals=cfg.loss_globals)
+        else:  # zeros in the lead's place; how many, learnt from one forward
+            if i not in cfg.loss_outputs:
+                with torch.no_grad():
+                    out = loss_obj.get_loss(cur_cutouts, img, cfg.args, globals=globals_i,
+                                            lossGlobals=cfg.loss_globals)
+                cfg.loss_outputs[i] = len(out) if isinstance(out, (list, tuple)) else None
+            count = cfg.loss_outputs[i]
+            out = zeros() if count is None else [zeros()] * count
         if isinstance(out, (list, tuple)):
             for j, value in enumerate(out):
                 add(f"loss:{name}:{j}", weight * value)
@@ -360,7 +382,141 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
 
     cfg.names[:] = names
     vals = torch.stack(values) if values else torch.zeros((0,), device=img.device)
-    return vals.sum(), (vals, img)
+    total = vals.sum()
+    return (total if tie is None else total + tie), (vals, img)
+
+
+@dataclass
+class _Banks:
+    """One perceptor's banks of a batch: the main one, spot and spot_off
+    (None when off), and the image prompts' [(term name, bank)], rendered
+    without a gradient; ``n`` rows each."""
+
+    main: Any
+    spot: Any
+    spot_off: Any
+    prompts: list
+    n: int
+
+
+def _render(cfg: StepConfig, spec: PerceptorSpec, pd: dict, img, inputs: dict) -> _Banks:
+    """Every bank of ``spec`` in the packed order, through K1 (every rank
+    renders every bank in full)."""
+    n = pd["params"].shape[0] // spec.banks
+    banks = iter(range(spec.banks))
+
+    def bank(src):
+        k = next(banks)
+        planes = None if pd["planes"] is None else [p[k * n:(k + 1) * n] for p in pd["planes"]]
+        return cuda_warp.cutout_bank(src, pd["params"][k * n:(k + 1) * n], spec.cut_size, planes,
+                                     cfg.compute_dtype, cfg.warp_prec,
+                                     bwd_prec(cfg.warp_prec, cfg.warp_bwd, spec.cut_size))
+
+    work = C.pool_to_work(img, spec.cut_size)
+    main = bank(work)
+    spot = bank(work * spec.spot_keep_on[..., None]) if spec.spot_banks[0] else None
+    spot_off = bank(work * spec.spot_keep_off[..., None]) if spec.spot_banks[1] else None
+    if spec.image_prompt_frame and spec.n_image_prompts:
+        frame = torch.remainder(inputs["anim_index"], spec.image_prompts.shape[0]).long().view(1)
+        prompt_images = [(spec.image_prompts.index_select(0, frame)[0], "image_prompt_frame")]
+    else:
+        prompt_images = [(spec.image_prompts[k], f"image_prompt{k}") for k in range(spec.n_image_prompts)]
+    with torch.no_grad():  # constant images: forward-only K1 launches
+        prompts = [(name, bank(image)) for image, name in prompt_images]
+    return _Banks(main, spot, spot_off, prompts, n)
+
+
+def _target_frame(table: PromptTable, inputs: dict):
+    """The animation frame's row index of a target table, picked on the
+    device (index_select: indexing by a () tensor syncs, which a captured
+    block may not do)."""
+    return torch.remainder(inputs["anim_index"], table.size).long().view(1)
+
+
+def _scored_terms(cfg: StepConfig, spec: PerceptorSpec, banks: _Banks, inputs: dict):
+    """One tower's terms, its main embeddings: the whole banks, or under a
+    mesh (data parallel, FSDP) the rank's chunk's shares of them."""
+    mesh = cfg.mesh
+
+    def table_losses(emb, table):
+        if mesh is None or table.size == 0:
+            return prompt_losses(emb, table)
+        return E._partial_prompt_losses(emb, table.embeds, table.weights, table.stops, banks.n)
+
+    iii = _encode(cfg, spec, banks.main)
+    pl = table_losses(iii, spec.table)
+    terms = [(f"{spec.name}:prompt{i}", pl[i]) for i in range(spec.table.size)]
+    if spec.target_table is not None and spec.target_table.size:
+        frame = _target_frame(spec.target_table, inputs)
+        terms.append((f"{spec.name}:target_frame", table_losses(iii, spec.target_table).index_select(0, frame)[0]))
+    for kind, bank, table in (("spot", banks.spot, spec.spot_table), ("spot_off", banks.spot_off, spec.spot_off_table)):
+        if bank is not None:
+            sl = table_losses(_encode(cfg, spec, bank), table)
+            terms += [(f"{spec.name}:{kind}{i}", sl[i]) for i in range(table.size)]
+    weight = 1.0 if spec.image_prompt_weight is None else spec.image_prompt_weight
+    for name, bank in banks.prompts:
+        with torch.no_grad():
+            embed = _encode(cfg, spec, bank)
+        if mesh is None:
+            terms.append((f"{spec.name}:{name}", single_prompt_loss(iii, embed, weight)))
+        else:  # the chunk's pairs with every prompt-image cut
+            embed = M.gather_along(embed, 0, mesh.data_index, mesh.shape[M.DATA_AXIS], mesh.data_group)
+            terms.append((f"{spec.name}:{name}", E._partial_pair_loss(iii, embed, weight, banks.n)))
+    return terms, iii
+
+
+def _placed_terms(cfg: StepConfig, rendered: list[_Banks], inputs: dict, want_embeds: bool):
+    """Every tower's terms under ensemble placement, through
+    ``ensemble.ensemble_scores``: member ``p`` scored on model group
+    ``p % M``, each rank's part left unsummed (the step sums it with the
+    gradient), in the sequential path's term order.  The image prompts are
+    pair jobs; ``want_embeds``: the last tower's whole main batch encoded
+    once, for the custom losses.  → (terms, embeds or None)."""
+    specs = cfg.perceptors
+    empty = lambda spec: PromptTable(spec.table.embeds[:0], spec.table.weights[:0], spec.table.stops[:0])
+    table_or_empty = lambda table, spec: empty(spec) if table is None else table
+    mains = [b.main for b in rendered]
+    job_batches = {"main": mains, "target": mains,  # the target rows score the main embeddings
+                   "spot": [b.main if b.spot is None else b.spot for b in rendered],
+                   "spot_off": [b.main if b.spot_off is None else b.spot_off for b in rendered]}
+    job_tables = {"main": [s.table for s in specs],
+                  "target": [table_or_empty(s.target_table, s) for s in specs],
+                  "spot": [table_or_empty(s.spot_table, s) for s in specs],
+                  "spot_off": [table_or_empty(s.spot_off_table, s) for s in specs]}
+    pair_jobs = {}
+    for name in dict.fromkeys(name for b in rendered for name, _bank in b.prompts):
+        batches, weights = [], []
+        for spec, b in zip(specs, rendered):
+            bank = dict(b.prompts).get(name)
+            batches.append(b.main if bank is None else bank)  # weight 0: not scored
+            weights.append(0.0 if bank is None else 1.0 if spec.image_prompt_weight is None
+                           else spec.image_prompt_weight)
+        pair_jobs[name] = (batches, weights)
+    members = [E.EnsembleMember(s.name, lambda _v, rows, affine=None, f=s.image_fn: f(rows, affine=affine),
+                                int(s.table.embeds.shape[1]), s.affine_fn) for s in specs]
+    vals, embeds = E.ensemble_scores(cfg.mesh, members, job_batches, job_tables, [None] * len(specs),
+                                     want_iii_of=len(specs) - 1 if want_embeds else None, pair_jobs=pair_jobs,
+                                     reduce=False)
+    terms = []
+    for p, (spec, b) in enumerate(zip(specs, rendered)):
+        terms += [(f"{spec.name}:prompt{i}", vals["main"][p, i]) for i in range(spec.table.size)]
+        if spec.target_table is not None and spec.target_table.size:
+            terms.append((f"{spec.name}:target_frame",
+                          vals["target"][p].index_select(0, _target_frame(spec.target_table, inputs))[0]))
+        for kind, table in (("spot", spec.spot_table), ("spot_off", spec.spot_off_table)):
+            terms += [(f"{spec.name}:{kind}{i}", vals[kind][p, i]) for i in range(0 if table is None else table.size)]
+        for name, _bank in b.prompts:  # a weight of 0 everywhere leaves the kind out: its term is 0
+            terms.append((f"{spec.name}:{name}", vals[name][p, 0] if name in vals else b.main.new_zeros(())))
+    return terms, embeds
+
+
+def _encode(cfg: StepConfig, spec: PerceptorSpec, bank):
+    """A bank's embeddings: all its rows, or under a mesh the rank's data
+    chunk, stretched by the whole bank's range (``adjust_range`` takes the
+    bank's min and max)."""
+    if cfg.mesh is None:
+        return spec.image_fn(bank)
+    return spec.image_fn(M.shard_cutout_batch(bank, cfg.mesh), affine=spec.affine_fn(bank))
 
 
 def inputs_loss_and_grads(cfg: StepConfig, z, inputs: list[dict]):
@@ -372,13 +528,40 @@ def inputs_loss_and_grads(cfg: StepConfig, z, inputs: list[dict]):
     grads = None
     first = None
     for batch in inputs:
-        total, (vals, img) = loss_fn(cfg, zp, batch)
-        gs = torch.autograd.grad(total, params, allow_unused=True)
+        with contextlib.ExitStack() as gathered:  # FSDP: the towers' weights whole for this batch
+            for weights in cfg.fsdp:
+                gathered.enter_context(weights.gathered())
+            total, (vals, img) = loss_fn(cfg, zp, batch)
+            # a rank whose loss reaches no leaf (a model group without a member) has zero gradients
+            gs = (torch.autograd.grad(total, params, allow_unused=True) if total.requires_grad
+                  else [None] * len(params))
         gs = [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
         grads = gs if grads is None else [a + b for a, b in zip(grads, gs)]
         if first is None:
             first = (total.detach(), vals.detach(), img.detach())
+    if cfg.mesh is not None:
+        grads, first = _reduce_over_mesh(cfg, grads, first)
     return unflatten(z, grads), first
+
+
+def _reduce_over_mesh(cfg: StepConfig, grads, first):
+    """One sum of the gradients and the first batch's values over the mesh,
+    so every rank steps on the same bits.  Under FSDP the model groups
+    compute the same chunks: only the ranks of model index 0 add theirs
+    (the others add zeros), as the copies differ in their last bits where
+    K2 sums with float atomics."""
+    mesh = cfg.mesh
+    _total, vals, img = first
+    flat = torch.cat([g.reshape(-1).float() for g in grads] + [vals.float()])
+    if cfg.fsdp and mesh.model_index != 0:
+        flat.zero_()
+    M.all_reduce_(flat, mesh.group)
+    out, off = [], 0
+    for g in grads:
+        out.append(flat[off:off + g.numel()].view_as(g).to(g.dtype))
+        off += g.numel()
+    vals = flat[off:].to(vals.dtype)
+    return out, (vals.sum(), vals, img)
 
 
 def loss_and_grads(cfg: StepConfig, z, iteration: int, batch_draws: list[dict]):

@@ -183,12 +183,14 @@ class Perceptor:
         a, b = adjust_range_affine(imgs)
         return a / self.std, (b - self.mean) / self.std
 
-    def image_fn(self, imgs):
-        """(N, 3, S, S) cutouts in [0, 1] → (N, output_dim) L2-normalized embeddings."""
+    def image_fn(self, imgs, affine=None):
+        """(N, 3, S, S) cutouts in [0, 1] → (N, output_dim) L2-normalized
+        embeddings; ``affine``: the :meth:`preprocess_affine` to apply (a
+        mesh rank's chunk takes the whole bank's), by default ``imgs``'s own."""
         r = self.input_resolution
         if imgs.shape[2] != r or imgs.shape[3] != r:
             raise ValueError(f"cutouts must be {r}x{r} for {self.name}; got {tuple(imgs.shape)}")
-        embeds = self.model.encode_image(imgs, self.preprocess_affine(imgs))
+        embeds = self.model.encode_image(imgs, self.preprocess_affine(imgs) if affine is None else affine)
         return l2_normalize(embeds.float(), dim=-1)
 
     @torch.no_grad()

@@ -33,7 +33,10 @@ front ends, with sklearn blocked too and PyYAML and PIL allowed: the
 registry loads every module with no note, ``python -m
 pixray_tpu_torch.run`` runs a TinyTest YAML, the HTTP server answers one
 ``pixrayapi`` request on the CPU, ``vectorize --avg-diff`` and
-``--svm-diff`` run, and a sweep dry run prints its plan.
+``--svm-diff`` run, and a sweep dry run prints its plan.  Last the
+parallel layer: ``pixray_tpu_torch.parallel`` imports no torch, and a
+2-rank gloo ``run_sharded_step`` runs with the same modules blocked in
+the ranks.
 """
 
 import os
@@ -353,3 +356,53 @@ def test_front_ends_run_without_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     assert "FRONTENDS_OK" in proc.stdout
     assert "host 1/2: seed=2" in proc.stdout and "total 2 seeds on this host" in proc.stdout
+
+
+PARALLEL = textwrap.dedent("""
+    import sys
+
+    class Block:
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, Block())  # also in each spawned rank, which imports this file first
+
+
+    def loaded():
+        return sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+
+
+    def rank():
+        from pixray_tpu_torch.parallel import dryrun, mesh
+
+        loss = dryrun.run_sharded_step(mesh.build_mesh("2,1"), device="cpu")
+        assert not loaded(), loaded()
+        return loss
+
+
+    if __name__ == "__main__":
+        import pixray_tpu_torch.parallel as parallel
+
+        assert "torch" not in sys.modules and parallel.__all__
+        from pixray_tpu_torch.parallel import dryrun, ensemble, mesh  # noqa: F401
+
+        losses = dryrun.launch(rank, 2, deadline=120.0)
+        assert losses[0] == losses[1], losses
+        assert not loaded(), loaded()
+        print("PARALLEL_NO_JAX_OK", losses[0])
+""")
+
+
+def test_parallel_layer_runs_without_jax(tmp_path):
+    """``pixray_tpu_torch.parallel`` imports no torch; its mesh, ensemble
+    and dryrun modules import with JAX, flax, optax and pixray_tpu blocked,
+    and a 2-rank gloo ``run_sharded_step`` runs with them blocked in the ranks."""
+    script = tmp_path / "parallel_ranks.py"
+    script.write_text(f"BLOCKED = {BLOCKED!r}\n" + PARALLEL)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, str(script)], cwd=str(tmp_path), env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    assert "PARALLEL_NO_JAX_OK" in proc.stdout
