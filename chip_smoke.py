@@ -2960,7 +2960,8 @@ def phase_new_agreement(tmp):
 # the front ends (31): requests served by the port's HTTP server on the card
 SERVED_PIXEL = dict(PIXEL_CONFIG, iterations=40, display_every=10, save_every=10)  # pixrayapi's settings YAML
 SERVED_TEXT2PIXEL_STEPS = 30
-CUT_STEPS, CUT_DISPLAY = 2000, 1000  # the cut job's runner goes on to its step-1000 frame past its deadline
+CUT_STEPS, CUT_DISPLAY = 6000, 3000  # the cut job's runner goes on to its step-3000 frame past its deadline,
+# long enough to outlive the next job's first frame (at step 1000 it once ended first)
 CUT_TIMEOUT_S = 4.0
 # job 4 (job 1's settings) against job 1, device memory allocated after each: one leaked ViT-B/32 tower set
 # (~300 MiB) is larger; the three 32 MiB cuBLAS workspaces of the second handle that job 4's thread takes
@@ -3294,15 +3295,22 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
     the bank (within BANK_ULPS); per K2 rung the gradient from the explicit
     jitter adjoint's cotangent (int8 bitwise, the float rungs within
     RUNG_BWD_RTOL of max|dwork|), and K2-int8 once more on the bank
-    without jitter, where K2's cotangent is g itself.  Times as phase 3b,
-    bounds with an s8 canvas for K1-int8; grid_sample computes none of
-    these functions."""
+    without jitter, where K2's cotangent is g itself.  The helper passes
+    against their plain twins, bitwise: K1-int8's scale and pack passes
+    (s_w as quantize_canvas takes it, the packed texels as
+    quantize_footprint packs the whole canvas) and K2-bf16's row table
+    (tap_row_ranges); and K2-bf16's visit counts (row visits, and pixel
+    visits: each pixel with a tap on the canvas exactly once).  Times as
+    phase 3b, the helper passes by kernel, bounds with an s8 canvas for
+    K1-int8 (its pack pass reads the f32 canvas); grid_sample computes none
+    of these functions."""
     import torch
 
     from pixray_tpu_torch.ops import cuda_warp
     from pixray_tpu_torch.ops.color import jitter_planes_adjoint
     from pixray_tpu_torch.ops.warp import inv3x3
-    from pixray_tpu_torch.ops.warp_batch import warp_adjoint_rung, warp_modes_prec
+    from pixray_tpu_torch.ops.warp_batch import (_rung_taps, quantize_canvas, quantize_footprint, tap_row_ranges,
+                                                 warp_adjoint_rung, warp_modes_prec)
 
     dev, bf16 = work.device, torch.bfloat16
     inv = inv3x3(ms.float())
@@ -3316,6 +3324,19 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
     res = {"name": name, "n": n, "s": s, "canvas": [h, w], "jittered": jittered, "fwd": {}, "bwd": {}}
     plane, rows = s * s * 2, params.numel() * 4
     pres = {}
+    # the helper passes against their plain twins, bitwise
+    shape = tuple(work.shape)
+    s_w = quantize_canvas(work)[1]
+    scale_buf = cuda_warp.launch_canvas_scale(work)
+    texels = cuda_warp.launch_canvas_pack(work, scale_buf)
+    rows_k, rows_p = cuda_warp.launch_bank_rows(params_dev, shape, s), tap_row_ranges(inv_d, modes_d, shape, s)
+    on_canvas = int(_rung_taps(shape, inv_d, modes_d, 0.0, s)[1].any(0).sum())  # pixels with a tap on the canvas
+    res["helpers"] = {"scale_bitwise": torch.equal(scale_buf[:-1].max().clamp(min=1e-6), s_w) and
+                      torch.equal(scale_buf[-1], s_w),
+                      "pack_bitwise": torch.equal(texels, quantize_footprint(work, s_w, (0, h - 1), (0, w - 1))),
+                      "rows_bitwise": torch.equal(rows_k, rows_p), "on_canvas": on_canvas}
+    if not all(v for k, v in res["helpers"].items() if k.endswith("bitwise")):
+        fail(f"a helper pass of K1-int8 or K2-bf16 differs from its plain twin on {name}: {res['helpers']}")
     for prec in ("int8", "bf16", "high"):
         out_k, pre_k = cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16, save_pre=True, prec=prec)
         with torch.no_grad():
@@ -3346,7 +3367,14 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
             times = kernel_times(fwd)
             kernel = cuda_warp.KERNEL_NAMES[cuda_warp.FWD_COUNTERS[prec]]
             r["ms"] = sum(v for k, v in times.items() if kernel in k)
-            r["call_ms"], r["event_ms"] = sum(times.values()), median_ms(fwd)  # int8: the canvas quantize too
+            r["call_ms"], r["event_ms"] = sum(times.values()), median_ms(fwd)  # int8: its two passes too
+            r["helper_ms"] = helper_ms(times, cuda_warp.FWD_COUNTERS[prec])
+            if prec == "int8":
+                r["helper_bound"] = {"warp_fwd_int8_scale": bound(h * w * 3 * 4, h * w * 3),
+                                     "warp_fwd_int8_pack": bound(h * w * (3 * 4 + 4), h * w * 3 * 3)}
+                r["helper_plain_ms"] = {
+                    "warp_fwd_int8_scale": device_ms(lambda: work.abs().amax()),
+                    "warp_fwd_int8_pack": device_ms(lambda: quantize_footprint(work, s_w, (0, h - 1), (0, w - 1)))}
             r["plain_ms"], r["plain_event_ms"] = device_ms(plain), median_ms(plain)
         res["fwd"][prec] = r
     # K2's cotangent: the explicit jitter adjoint (K2's formulas) rounded to bf16, as phase 3b
@@ -3357,12 +3385,17 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
     d_exp = torch.where(applied[:, None, None, None], d_exp.to(bf16), g)
     params_flat = cuda_warp.pack_params(inv, modes, None, facs, fill=fill).to(dev)  # the same bank, no jitter
     for prec in ("bf16", "high", "int8"):
-        dwork_k = cuda_warp.launch_bank_bwd(g, pre_x, params_dev, tuple(work.shape), s, prec=prec)
-        dwork_p = warp_adjoint_rung(d_exp, inv_d, modes_d, tuple(work.shape), s, prec)
+        branches = torch.zeros((2,), dtype=torch.int32, device=dev) if prec == "bf16" else None
+        dwork_k = cuda_warp.launch_bank_bwd(g, pre_x, params_dev, shape, s, branches=branches, prec=prec)
+        dwork_p = warp_adjoint_rung(d_exp, inv_d, modes_d, shape, s, prec)
         torch.cuda.synchronize()
         scale = max(float(dwork_p.abs().max()), 1e-6)
         r = {"bitwise": torch.equal(dwork_k, dwork_p), "max_abs_err": float((dwork_k - dwork_p).abs().max()),
              "scale": scale, "diffs": int((dwork_k != dwork_p).sum())}
+        if prec == "bf16":
+            r["row_visits"], r["pixel_visits"] = (int(b) for b in branches.cpu())
+            if r["pixel_visits"] != on_canvas:
+                fail(f"K2-bf16 visited {r['pixel_visits']} pixels on {name}; {on_canvas} have a tap on the canvas")
         if prec == "int8":
             flat_k = cuda_warp.launch_bank_bwd(g, None, params_flat, tuple(work.shape), s, prec="int8")
             flat_p = warp_adjoint_rung(g, inv_d, modes_d, tuple(work.shape), s, "int8")
@@ -3377,7 +3410,8 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
         if not r["max_abs_err"] <= r["tol"]:
             fail(f"K2-{prec} disagrees with its plain twin on {name}: {r}")
         if time_it:
-            r["bound"] = bound(3 * n * plane + 3 * jittered * plane + rows + h * w * 3 * 4,
+            r["bound_bytes"] = 3 * n * plane + 3 * jittered * plane + rows + h * w * 3 * 4
+            r["bound"] = bound(r["bound_bytes"],
                                (WARP_BWD_FLOPS_PER_PIXEL * n + JITTER_BWD_FLOPS_PER_PIXEL * jittered) * s * s)
 
             def bwd(prec=prec):
@@ -3386,19 +3420,47 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
             def plain_bwd(prec=prec):
                 warp_adjoint_rung(d_exp, inv_d, modes_d, tuple(work.shape), s, prec)
 
-            r["ms"], r["event_ms"] = device_ms(bwd), median_ms(bwd)  # int8: its three kernels
+            times = kernel_times(bwd)
+            kernel = cuda_warp.KERNEL_NAMES[cuda_warp.BWD_COUNTERS[prec]]
+            # int8: its three kernels; bf16: the band kernel, its row table and sum passes apart
+            r["ms"] = sum(v for k, v in times.items() if prec == "int8" or kernel in k)
+            r["call_ms"], r["event_ms"] = sum(times.values()), median_ms(bwd)
+            r["helper_ms"] = helper_ms(times, cuda_warp.BWD_COUNTERS[prec])
             r["plain_ms"], r["plain_event_ms"] = device_ms(plain_bwd), median_ms(plain_bwd)
+            if prec == "bf16":
+                lay = cuda_warp.scratch_layout()
+                bands, groups = -(-h // lay["band_rows"]), min(lay["band_groups"], -(-n // lay["band_cluster"]))
+                partial_bytes = groups * (h + bands) * w * 3 * 4
+                r["helper_bound"] = {"warp_bwd_bf16_rows": bound(rows + n * s * 8, 25 * n * s * s),
+                                     "warp_bwd_bf16_sum": bound(partial_bytes + h * w * 3 * 4, groups * h * w * 3)}
+                partials = torch.zeros((groups, h + bands, w, 3), device=dev)
+                r["helper_plain_ms"] = {"warp_bwd_bf16_rows": device_ms(lambda: tap_row_ranges(inv_d, modes_d,
+                                                                                               shape, s)),
+                                        "warp_bwd_bf16_sum": device_ms(lambda: partials[:, :h].sum(0))}
+                # what the bands move beyond the bound: the row table once per band, the partial canvases
+                # written and read back
+                r["bytes_moved"] = r["bound_bytes"] + bands * n * s * 8 + 2 * partial_bytes
         res["bwd"][prec] = r
     return res
+
+
+def helper_ms(times, counter):
+    """{helper counter: its kernel's summed ms} of a rung's helper passes in ``times``."""
+    from pixray_tpu_torch.ops import cuda_warp
+
+    return {c: sum(v for k, v in times.items() if cuda_warp.KERNEL_NAMES[c] in k)
+            for c in cuda_warp.HELPERS.get(counter, ())}
 
 
 def phase_rung_kernels():
     """32: the rung variants of K1/K2 against their plain twins on the
     flagship bank (64 cuts of 224 on 224x224x3, bf16, 47 jittered, noise;
-    timed) and the ragged tie-rich bank of phase 3b."""
+    timed), the ragged tie-rich bank of phase 3b and 64 cuts of 384 on
+    384x384x3 (RN50x16's, drawn as the flagship's)."""
     import torch
 
     from pixray_tpu_torch.engine.cutouts import draw_noise
+    from pixray_tpu_torch.ops import cuda_warp
     from pixray_tpu_torch.ops import warp as W
 
     gen, gen_dev, (work, ms, modes, jitter, facs, planes) = flagship_bank_inputs()
@@ -3417,7 +3479,11 @@ def phase_rung_kernels():
     ragged = rung_bank_case("ragged ties", _tie_canvas(h, w, gen).to("cuda"), torch.cat([boxes, persp]),
                             torch.tensor([1, 0, 0, 3, 3, 3, 3, 2, 0], dtype=torch.int32), 0.5, s, jitter_r, facs_r,
                             planes_r, time_it=False)
-    for r in (flagship, ragged):
+    _, _, (work_l, ms_l, modes_l, jitter_l, facs_l, planes_l) = flagship_bank_inputs(64, 384)
+    large = rung_bank_case("64 cuts of 384", work_l, ms_l, modes_l, 0.37, 384, jitter_l, facs_l, planes_l,
+                           time_it=False)
+    layout = cuda_warp.scratch_layout()
+    for r in (flagship, ragged, large):
         f, b = r["fwd"], r["bwd"]
         print(f"rung kernels {r['name']} (N={r['n']}, S={r['s']}, {r['canvas'][0]}x{r['canvas'][1]}x3, bf16, "
               f"{r['jittered']} jittered, noise) against their plain twins: K1 pre-jitter bank bitwise "
@@ -3427,15 +3493,23 @@ def phase_rung_kernels():
               f"max_abs_err {b['int8']['max_abs_err']:.3g}), without jitter bitwise "
               f"{b['int8']['bitwise_without_jitter']}, twice the same bits {b['int8']['deterministic']}; K2-bf16 "
               f"max_abs_err {b['bf16']['max_abs_err']:.3g}, K2-high {b['high']['max_abs_err']:.3g} against max|dwork| "
-              f"{b['bf16']['scale']:.3g} (tol {b['bf16']['tol']:.3g})", flush=True)
+              f"{b['bf16']['scale']:.3g} (tol {b['bf16']['tol']:.3g}); bitwise their plain twins: K1-int8's scale "
+              f"and pack passes {r['helpers']['scale_bitwise']} / {r['helpers']['pack_bitwise']}, K2-bf16's row "
+              f"table {r['helpers']['rows_bitwise']}; K2-bf16 ({layout['band_rows']}-row bands, up to "
+              f"{layout['band_groups']} clusters of {layout['band_cluster']} blocks per band) row visits "
+              f"{b['bf16']['row_visits']} for {r['n'] * r['s']} rows, pixel visits {b['bf16']['pixel_visits']} "
+              f"(pixels with a tap on the canvas {r['helpers']['on_canvas']})", flush=True)
     f, b = flagship["fwd"], flagship["bwd"]
     tm = lambda r: f"{r['ms']:.4f} / {r['event_ms']:.4f} (bound {r['bound'][0]:.4f}, {r['bound'][1]}; plain " \
                    f"{r['plain_ms']:.4f} / {r['plain_event_ms']:.4f})"
+    hm = lambda r: ", ".join(f"{cuda_warp.KERNEL_NAMES[c]} {ms:.4f} (bound {r['helper_bound'][c][0]:.4f}, "
+                             f"{r['helper_bound'][c][1]})" for c, ms in r["helper_ms"].items())
     print(f"rung kernels flagship times (ms, summed kernel time / CUDA events of one call; grid_sample computes "
-          f"none of these functions): K1-int8 {tm(f['int8'])}, K1-bf16 {tm(f['bf16'])}, K1-high {tm(f['high'])}; "
-          f"K2-bf16 {tm(b['bf16'])}, K2-high {tm(b['high'])}, K2-int8 (max, scatter, finish) {tm(b['int8'])}",
-          flush=True)
-    return flagship, ragged
+          f"none of these functions): K1-int8 {tm(f['int8'])}, its passes {hm(f['int8'])}; K1-bf16 "
+          f"{tm(f['bf16'])}, K1-high {tm(f['high'])}; K2-bf16 {tm(b['bf16'])} (bytes moved "
+          f"{b['bf16']['bytes_moved'] / 1e6:.2f} MB), its passes {hm(b['bf16'])}; K2-high {tm(b['high'])}, "
+          f"K2-int8 (max, scatter, finish) {tm(b['int8'])}", flush=True)
+    return flagship, ragged, large
 
 
 # torch._int_mm at the ViT-B/32 bank's products (64 cuts x 50 tokens: in_proj, out_proj, mlp_fc,
@@ -3470,6 +3544,49 @@ def int_mm_layouts():
             fail(f"torch._int_mm with a column-major operand at {(m, k, n)}: {row}")
         out[(m, k, n)] = row
     return out
+
+
+LN_ATOL = 6.25e-2  # a LayerNorm's bf16 output, card against CPU: two bf16 ulps at |y| < 8 (sums in other orders)
+
+
+def layer_norm_check(p):
+    """A bf16 tower's LayerNorm affines are float32 tensors (the JAX
+    ``_cast_storage``), and its first LayerNorm, with its own affine (ones
+    and zeros: the exact bf16 copy) and with one written in float32, takes
+    a bf16 input inside a captured CUDA graph: the replay bitwise the eager
+    call, bf16 out, within LN_ATOL of the CPU.  Returns a summary string;
+    fatal otherwise."""
+    import copy
+
+    import torch
+
+    from pixray_tpu_torch.models.clip.model import LayerNorm
+
+    norms = [m for m in p.model.modules() if isinstance(m, LayerNorm)]
+    if not norms or any(t.dtype != torch.float32 for m in norms for t in (m.weight, m.bias)):
+        fail(f"{p.name}: LayerNorm affines not all float32: {sorted({str(m.weight.dtype) for m in norms})}")
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    errs = []
+    for written in (False, True):  # the tower's own affine (its exact bf16 copy), then one written in f32
+        ln = copy.deepcopy(norms[0])
+        with torch.no_grad():
+            if written:
+                ln.weight.copy_(torch.rand(ln.weight.shape, device="cuda", generator=gen) + 0.5)
+                ln.bias.copy_(torch.randn(ln.bias.shape, device="cuda", generator=gen) * 0.3)
+                ln.keep_exact_copy(torch.bfloat16)
+            x = torch.randn((64, 50, ln.weight.shape[0]), device="cuda", generator=gen).to(torch.bfloat16)
+            eager = ln(x)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                captured = ln(x)
+            graph.replay()
+            torch.cuda.synchronize()
+            cpu = ln.cpu()(x.cpu())
+        errs.append(float((captured.float().cpu() - cpu.float()).abs().max()))
+        if not (captured.dtype == torch.bfloat16 and torch.equal(captured, eager) and errs[-1] <= LN_ATOL):
+            fail(f"{p.name}: LayerNorm (ln32 {ln.ln32}, written {written}) in a graph: {captured.dtype}, replay "
+                 f"equal to eager {torch.equal(captured, eager)}, card vs CPU {errs[-1]:.3g}")
+    return f"affines f32 ({len(norms)}), in a graph bf16 out, card vs CPU {errs[0]:.2e} / written {errs[1]:.2e}"
 
 
 def phase_tower_rungs(card):
@@ -3507,7 +3624,7 @@ def phase_tower_rungs(card):
             torch.autograd.grad(e.float().sum(), x)
 
         r = {"rung": f"{prec} PREQ {preq} LN32 {ln32}", "ms": device_ms(step), "event_ms": median_ms(step, reps=5),
-             "quant": p.quant, "prequantized": p.quant_weights is not None}
+             "quant": p.quant, "prequantized": p.quant_weights is not None, "ln": layer_norm_check(p)}
         if on_cpu:
             q = Perceptor("ViT-B/32", "cpu", torch.bfloat16, sd, rungs=rungs)
             with torch.no_grad():
@@ -3528,6 +3645,7 @@ def phase_tower_rungs(card):
           f"per call: summed kernel ms (against the first rung) / CUDA events of an eager call, card against CPU on "
           f"{TOWER_CPU_CUTS} cuts (tol {TOWER_ATOL}): "
           + "; ".join(f"{r['rung']}: {r['ms']:.3f} ({r['ms'] / base:.2f}x) / {r['event_ms']:.3f} ms"
+                      + f", LayerNorm {r['ln']}"
                       + (f", card vs CPU {r['card_vs_cpu']:.2e}" if "card_vs_cpu" in r else "")
                       + (f", s8 codes equal {r['codes_equal']}" if "codes_equal" in r else "") for r in out)
           + f"; on {card}", flush=True)
@@ -3567,15 +3685,17 @@ def phase_ladder(tmp, card):
         bwd = cuda_warp.BWD_COUNTERS[bwd_prec(rg.warp, rg.warp_bwd, 224)]
         blk = engine.step_block
         ran = steps_run(engine, steps)
-        want = {cuda_warp.KERNEL_NAMES[fwd]: blk.n, cuda_warp.KERNEL_NAMES[bwd]: blk.n}
+        # each rung's kernel and its helper passes, once per step
+        counters = [c for k in (fwd, bwd) for c in (k, *cuda_warp.HELPERS.get(k, ()))]
+        want = {cuda_warp.KERNEL_NAMES[c]: blk.n for c in counters}
         events, seen, _ = replay_events(blk.graph, want, f"ladder {label}")
         # device busy per step; for the rows a default is decided on, from BUSY_WINDOWS replays,
         # to set a knob's change against the spread
         windows = BUSY_WINDOWS if label in VERDICT_ROWS else 1
         busy = [busy_ms(events) / blk.n] + [busy_ms(profiled_events(blk.graph.replay, 1)) / blk.n
                                             for _ in range(windows - 1)]
-        if launches[fwd] != ran or launches[bwd] != ran or sum(launches[k] for k in cuda_warp.LAUNCHES) != 2 * ran:
-            fail(f"ladder {label}: launches {launches}, expected {ran} of {fwd} and of {bwd}")
+        if {k: launches[k] for k in cuda_warp.LAUNCHES} != {k: ran if k in counters else 0 for k in cuda_warp.LAUNCHES}:
+            fail(f"ladder {label}: launches {launches}, expected {ran} of each of {counters}")
         first5, last5 = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
         if label in ("exact", "JAX defaults"):
             check_descent(f"ladder {label}", losses)
@@ -3716,6 +3836,49 @@ def phase_parallel(card):
     return rows
 
 
+def memo_random_inits():
+    """Draw each random tower and VQGAN once per process: wrap the
+    ``init_random_`` that the port's perceptors and VQGAN drawer call with a
+    memo keyed by the model's class, its config and the generator's seed,
+    which hands a later build of the same model the same seeded weights
+    (the draw takes ~3 s of host time for ViT-B/32; the script builds
+    engines on random towers some dozens of times)."""
+    from pixray_tpu_torch.drawers import vqgan as vqgan_drawer
+    from pixray_tpu_torch.models import perceptor
+
+    def memo(draw):
+        drawn = {}
+
+        def init_random_(model, gen):
+            key = (type(model).__name__, repr(getattr(model, "config", None)), str(gen.device), gen.initial_seed())
+            if key in drawn:
+                model.load_state_dict(drawn[key])
+            else:
+                draw(model, gen)
+                drawn[key] = {k: v.detach().clone() for k, v in model.state_dict().items()}
+            return model
+
+        return init_random_
+
+    for module in (perceptor, vqgan_drawer):
+        module.init_random_ = memo(module.init_random_)
+
+
+def phase_timer():
+    """A function that prints the seconds since its last call (or since
+    this one) and since this one, under a label: where the script's time
+    goes, phase by phase."""
+    start = last = time.perf_counter()
+
+    def tick(label):
+        nonlocal last
+        now = time.perf_counter()
+        print(f"phase time: {label} {now - last:.1f} s (total {now - start:.1f} s)", flush=True)
+        last = now
+
+    return tick
+
+
 def main():
     import torch
 
@@ -3725,6 +3888,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}", flush=True)
+    memo_random_inits()
+    tick = phase_timer()
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}",
           flush=True)
 
@@ -3732,101 +3897,150 @@ def main():
         print(f"build: {secs:.1f} s ({lib})", flush=True)
 
     flagship, small, bank64 = phase_kernels()
+    tick("phase_kernels")
     warp_batch = phase_warp_batch()
+    tick("phase_warp_batch")
     bank = phase_bank_kernels()
+    tick("phase_bank_kernels")
     phase_bank_no_jitter(bank[0])
+    tick("phase_bank_no_jitter")
     strokes = phase_stroke_kernels()
+    tick("phase_stroke_kernels")
     sizes = phase_bank_sizes(bank[0])
+    tick("phase_bank_sizes")
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, "pixel")
+    tick("phase_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, CLIPDRAW_CONFIG, "clipdraw", strokes=16)
+    tick("phase_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, VQGAN_CONFIG, "vqgan tiny_test",
                         state_dicts={"vqgan": wide_codebook_weights("tiny_test")},
                         vqgan_model="tiny_test", clip_models="TinyTest,TinyTest48")
+    tick("phase_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, f"plug-ins (pixel, transparent, {PLUGIN_EXTRA['filters']}, "
                         f"{PLUGIN_EXTRA['custom_loss']}, palette {PLUGIN_EXTRA['palette']})", **PLUGIN_EXTRA)
+    tick("phase_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         phase_tower_agreement(tmp)
+    tick("phase_tower_agreement")
     for config, label, steps in ((PIXEL_CONFIG, "pixel", BLOCKED_STEPS), (CLIPDRAW_CONFIG, "clipdraw", BLOCKED_STEPS),
                                  (VQGAN_CONFIG, "vqgan", 8), (RN50_CONFIG, "rn50", BLOCKED_STEPS),
                                  (tiler_config("tiler_fft_shift"), "tiler_fft_shift (a filter's shifts)",
                                   BLOCKED_STEPS)):
         with tempfile.TemporaryDirectory() as tmp:
             phase_blocked(tmp, config, label, steps, card)
+    tick("phase_blocked")
     with tempfile.TemporaryDirectory() as tmp:
         launches, main_steps = phase_main_path(tmp, card)
+    tick("phase_main_path")
     with tempfile.TemporaryDirectory() as tmp:
         phase_rn50_path(tmp, card)
+    tick("phase_rn50_path")
     for config, label in ((BEST_CONFIG, "best"), (MIXED_CONFIG, "mixed better")):
         with tempfile.TemporaryDirectory() as tmp:
             phase_preset_row(tmp, card, config, label)
+    tick("phase_preset_row")
     with tempfile.TemporaryDirectory() as tmp:
         stroke_launches, _ = phase_clipdraw_path(tmp, card)
+    tick("phase_clipdraw_path")
     with tempfile.TemporaryDirectory() as tmp:
         phase_line_sketch(tmp)
+    tick("phase_line_sketch")
     with tempfile.TemporaryDirectory() as tmp:
         vqgan_engine = phase_vqgan_path(tmp, card)
+    tick("phase_vqgan_path")
     phase_decoder_times(vqgan_engine.drawer.model)
+    tick("phase_decoder_times")
     del vqgan_engine
     with tempfile.TemporaryDirectory() as tmp:
         phase_vqgan_default(tmp)
+    tick("phase_vqgan_default")
     with tempfile.TemporaryDirectory() as tmp:
         phase_fft_path(tmp, card)
+    tick("phase_fft_path")
     with tempfile.TemporaryDirectory() as tmp:
         phase_tiler_recipes(tmp, card)
+    tick("phase_tiler_recipes")
     with tempfile.TemporaryDirectory() as tmp:
         phase_fft_modes(tmp)
+    tick("phase_fft_modes")
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, "image row (init image, image prompt, spot, spot_off, target, label)",
                         **image_extra(write_images(tmp)))
+    tick("phase_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         phase_image_row(tmp, card)
+    tick("phase_image_row")
     with tempfile.TemporaryDirectory() as tmp:
         phase_overlay_row(tmp, card)
+    tick("phase_overlay_row")
     with tempfile.TemporaryDirectory() as tmp:
         phase_animation_row(tmp, card)
+    tick("phase_animation_row")
     with tempfile.TemporaryDirectory() as tmp:
         phase_optimizers(tmp, card)
+    tick("phase_optimizers")
     with tempfile.TemporaryDirectory() as tmp:
         phase_resume(tmp, card)
+    tick("phase_resume")
     with tempfile.TemporaryDirectory() as tmp:
         phase_video_and_trace(tmp, card)
+    tick("phase_video_and_trace")
     with tempfile.TemporaryDirectory() as tmp:
         phase_anim_agreement(tmp)
+    tick("phase_anim_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         phase_checkpoints(tmp)
+    tick("phase_checkpoints")
     rows = {"pixel": (launches, main_steps)}
     with tempfile.TemporaryDirectory() as tmp:
         phase_vdiff_agreement(tmp)
+    tick("phase_vdiff_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         rows["vdiff"] = phase_vdiff_path(tmp, card)
+    tick("phase_vdiff_path")
     with tempfile.TemporaryDirectory() as tmp:
         rows["cc12m"] = phase_cc12m(tmp, card)
+    tick("phase_cc12m")
     with tempfile.TemporaryDirectory() as tmp:
         rows["pixray_vdiff.yaml"] = phase_vdiff_recipe(tmp, card)
+    tick("phase_vdiff_recipe")
     phase_esrgan(card)
+    tick("phase_esrgan")
     with tempfile.TemporaryDirectory() as tmp:
         phase_blocked(tmp, SR_CONFIG, "super_resolution", BLOCKED_STEPS, card)
+    tick("phase_blocked")
     with tempfile.TemporaryDirectory() as tmp:
         rows["super_resolution"] = phase_sr_path(tmp, card)
+    tick("phase_sr_path")
     with tempfile.TemporaryDirectory() as tmp:
         phase_new_agreement(tmp)
+    tick("phase_new_agreement")
     with tempfile.TemporaryDirectory() as tmp:
         phase_blocked(tmp, dict(PIXEL_CONFIG, pixel_type="hex"), "pixel hex", BLOCKED_STEPS, card)
+    tick("phase_blocked")
     with tempfile.TemporaryDirectory() as tmp:
         rows.update(phase_geometry_rows(tmp, card))
+    tick("phase_geometry_rows")
     with tempfile.TemporaryDirectory() as tmp:
         rows.update(phase_loss_rows(tmp, card))
+    tick("phase_loss_rows")
     with tempfile.TemporaryDirectory() as tmp:
         rows.update(phase_front_ends(tmp, card))
-    rung_flagship, rung_ragged = phase_rung_kernels()
+    tick("phase_front_ends")
+    rung_cases = phase_rung_kernels()
+    tick("phase_rung_kernels")
+    rung_flagship = rung_cases[0]
     phase_tower_rungs(card)
+    tick("phase_tower_rungs")
     with tempfile.TemporaryDirectory() as tmp:
         ladder = phase_ladder(tmp, card)
+    tick("phase_ladder")
     rows.update(phase_parallel(card))
+    tick("phase_parallel")
     per_row = lambda counter: {row: {"launches": got[counter], "steps": n} for row, (got, n) in rows.items()}
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
@@ -3852,7 +4066,7 @@ def main():
         kernels.append({"name": f"bank_fwd_{prec} (K1-{prec})", "route": "cuda", "source": warp_src,
                         "replaces": replaces.format(line), "launches": ladder_launches(ladder, counter),
                         "launches_by_row": {k: v["launches"][counter] for k, v in ladder.items()},
-                        "max_abs_err": max(x["fwd"][prec]["max_abs_err"] for x in (rung_flagship, rung_ragged)),
+                        "max_abs_err": max(x["fwd"][prec]["max_abs_err"] for x in rung_cases),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                         "library_ms": None})
     for prec, line in (("bf16", 754), ("high", 754), ("int8", 718)):
@@ -3860,8 +4074,23 @@ def main():
         kernels.append({"name": f"bank_bwd_{prec} (K2-{prec})", "route": "cuda", "source": warp_src,
                         "replaces": replaces.format(line), "launches": ladder_launches(ladder, counter),
                         "launches_by_row": {k: v["launches"][counter] for k, v in ladder.items()},
-                        "max_abs_err": max(x["bwd"][prec]["max_abs_err"] for x in (rung_flagship, rung_ragged)),
+                        "max_abs_err": max(x["bwd"][prec]["max_abs_err"] for x in rung_cases),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                        "library_ms": None})
+    # the helper passes of K1-int8 (the scale, the pack) and K2-bf16 (the row table, the sum): the first three
+    # bitwise their plain twins, the sum part of K2-bf16's
+    for counter, line, side, prec in (("warp_fwd_int8_scale", 823, "fwd", "int8"),
+                                      ("warp_fwd_int8_pack", 824, "fwd", "int8"),
+                                      ("warp_bwd_bf16_rows", 480, "bwd", "bf16"),
+                                      ("warp_bwd_bf16_sum", 754, "bwd", "bf16")):
+        r = rung_flagship[side][prec]
+        err = 0.0 if counter != "warp_bwd_bf16_sum" else max(x["bwd"]["bf16"]["max_abs_err"] for x in rung_cases)
+        kernels.append({"name": f"{cuda_warp.KERNEL_NAMES[counter]} ({counter})", "route": "cuda",
+                        "source": warp_src, "replaces": replaces.format(line),
+                        "launches": ladder_launches(ladder, counter),
+                        "launches_by_row": {k: v["launches"][counter] for k, v in ladder.items()},
+                        "max_abs_err": err, "ms": r["helper_ms"][counter], "plain_ms": r["helper_plain_ms"][counter],
+                        "bound_ms": r["helper_bound"][counter][0], "bound_by": r["helper_bound"][counter][1],
                         "library_ms": None})
     stroke_src = "pixray_tpu_torch/csrc/strokes.cu"
     replaces = "pixray_tpu/ops/pallas_strokes.py:{}"

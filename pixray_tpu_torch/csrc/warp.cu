@@ -65,13 +65,16 @@
 //     hi.hi + lo.hi + hi.lo of the bf16 split, in that order), then
 //     sum over the x taps of that times hat_x, plus the fill;
 //   bank_fwd_int8_kernel <- the int8 branch (:571-579 with :821-826, :650):
-//     the canvas arrives quantized (round(work / s_w * 127) as s8, s_w =
-//     max(max|work|, 1e-6) on the device, ops/warp_batch.py quantize_canvas),
-//     y hats round(hat * 127), an int32 sum per x tap, then f32 times hat_x,
-//     plus the fill over the dequant scale, times s_w / 127^2;
-//   bank_bwd_bf16_kernel / _high_kernel <- _bwd_kernel_multi_TB through
-//     _mm_nt: per tap bf16(hat_y) bf16(hat_x g) (or its hi/lo form) into
-//     the canvas, float atomics as the exact backward;
+//     the canvas quantized (round(work / s_w * 127) as s8, s_w =
+//     max(max|work|, 1e-6), ops/warp_batch.py quantize_canvas), y hats
+//     round(hat * 127), an int32 sum per x tap, then f32 times hat_x, plus
+//     the fill over the dequant scale, times s_w / 127^2; a body of its
+//     own, designed for this card, behind two small passes (see "K1-int8
+//     and K2-bf16" below);
+//   bank_bwd_bf16_kernel <- _bwd_kernel_multi_TB through _mm_nt: per tap
+//     bf16(hat_y) bf16(hat_x g) into the canvas; a body of its own (below);
+//   bank_bwd_high_kernel <- the same through _mm_nt's hi/lo form, float
+//     atomics as the exact backward;
 //   bank_bwd_int8_kernel <- the int8 branch (:718-743, :777-782): after
 //     bank_bwd_max_kernel has taken s_g = max|g| over the whole bank's
 //     post-epilogue cotangent (recomputed, nothing bank-sized written), per
@@ -91,15 +94,19 @@
 // at the raw coordinates.  All pointers are device pointers; nothing is
 // allocated here.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kParamStride = 16;
 constexpr int kMode = 9, kHue = 10, kSat = 11, kApply = 12, kFac = 13, kFill = 14;  // after the 9 of the matrix
@@ -268,27 +275,16 @@ __device__ __forceinline__ float rung_column(float top, float bot, const Hats& h
   return __fadd_rn(__fadd_rn(d1, d2), d3);
 }
 
-// The f32 bank value of one channel at rung P (work: f32, or the s8 canvas
-// for kInt8, whose fill_add is already over the dequant scale `scale`).
+// The f32 bank value of one channel at rung P (kHighest, kBf16, kHigh).
 template <int P>
-__device__ __forceinline__ float bank_value(const void* __restrict__ work, const Taps& tp, int w, int ci, float scale) {
-  if (P == kHighest) return bilinear((const float*)work, tp, w, ci);
+__device__ __forceinline__ float bank_value(const float* __restrict__ work, const Taps& tp, int w, int ci) {
+  if (P == kHighest) return bilinear(work, tp, w, ci);
   const Hats ht = jax_hats(tp);
-  float t0, t1;
-  if (P == kInt8) {
-    int8_t q[4];
-    tap_values((const int8_t*)work, tp, w, ci, q);
-    const int a0 = (int)rintf(__fmul_rn(ht.y0, kQ)), a1 = (int)rintf(__fmul_rn(ht.y1, kQ));
-    t0 = (float)(a0 * q[0] + a1 * q[2]);
-    t1 = (float)(a0 * q[1] + a1 * q[3]);
-  } else {
-    float v[4];
-    tap_values((const float*)work, tp, w, ci, v);
-    t0 = rung_column<P>(v[0], v[2], ht);
-    t1 = rung_column<P>(v[1], v[3], ht);
-  }
-  const float acc = __fadd_rn(__fadd_rn(__fmul_rn(t0, ht.x0), __fmul_rn(t1, ht.x1)), tp.fill_add);
-  return P == kInt8 ? __fmul_rn(acc, scale) : acc;
+  float v[4];
+  tap_values(work, tp, w, ci, v);
+  const float t0 = rung_column<P>(v[0], v[2], ht);
+  const float t1 = rung_column<P>(v[1], v[3], ht);
+  return __fadd_rn(__fadd_rn(__fmul_rn(t0, ht.x0), __fmul_rn(t1, ht.x1)), tp.fill_add);
 }
 
 // The jitter's forward state (ops/color.py jitter_planes, op by op in f32).
@@ -437,14 +433,13 @@ __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[Ve
   }
 }
 
-// work (H, W, 3) f32, or s8 for kInt8 with `scale_src` the device scalar
-// s_w; params (N, kParamStride) f32; z0..z2 (N, S, S) noise planes or null;
+// work (H, W, 3) f32; params (N, kParamStride) f32; z0..z2 (N, S, S) noise planes or null;
 // out (N, 3, S, S); pre (N, 3, S, S) the rounded pre-jitter bank, written
 // for the jittered cuts only (the backward reads no other), or null.  Each
 // thread makes kN consecutive pixels of one cut.
 template <typename T, int P>
-__device__ __forceinline__ void bank_fwd_body(const void* __restrict__ work, const float* __restrict__ scale_src,
-                                              const float* __restrict__ params, const T* __restrict__ z0,
+__device__ __forceinline__ void bank_fwd_body(const float* __restrict__ work, const float* __restrict__ params,
+                                              const T* __restrict__ z0,
                                               const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out,
                                               T* __restrict__ pre, int h, int w, int s, bool vec) {
   constexpr int kN = Vec<T>::kN;
@@ -453,10 +448,7 @@ __device__ __forceinline__ void bank_fwd_body(const void* __restrict__ work, con
   const int t0 = (blockIdx.x * blockDim.x + threadIdx.x) * kN;
   if (t0 >= k) return;
   const int count = min(kN, k - t0);
-  Cut c = load_cut(params, n);
-  // int8: the dequant scale s_w / 127^2, and the fill pre-divided by it (:824-826)
-  const float scale = P == kInt8 ? __fdiv_rn(__ldg(scale_src), kDequant) : 1.f;
-  if (P == kInt8) c.fill = __fdiv_rn(c.fill, scale);
+  const Cut c = load_cut(params, n);
   const bool noise = z0 != nullptr;
   const long plane = (long)n * k + t0;
   alignas(8) T zr[kN], zg[kN], zb[kN];
@@ -474,7 +466,7 @@ __device__ __forceinline__ void bank_fwd_body(const void* __restrict__ work, con
     float v[3];
 #pragma unroll
     for (int ci = 0; ci < 3; ++ci) {
-      v[ci] = round_to<T>(bank_value<P>(work, tp, w, ci, scale));
+      v[ci] = round_to<T>(bank_value<P>(work, tp, w, ci));
       p[ci][e] = from_float<T>(v[ci]);
     }
     if (c.apply) {
@@ -509,15 +501,14 @@ __device__ __forceinline__ void bank_fwd_body(const void* __restrict__ work, con
 #define BANK_FWD_KERNEL(NAME, P)                                                                              \
   template <typename T>                                                                                       \
   __global__ void __launch_bounds__(kThreads)                                                                 \
-  NAME(const void* __restrict__ work, const float* __restrict__ scale_src, const float* __restrict__ params,  \
-       const T* __restrict__ z0, const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out,     \
-       T* __restrict__ pre, int h, int w, int s, bool vec) {                                                  \
-    bank_fwd_body<T, P>(work, scale_src, params, z0, z1, z2, out, pre, h, w, s, vec);                         \
+  NAME(const float* __restrict__ work, const float* __restrict__ params, const T* __restrict__ z0,            \
+       const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out, T* __restrict__ pre, int h,   \
+       int w, int s, bool vec) {                                                                              \
+    bank_fwd_body<T, P>(work, params, z0, z1, z2, out, pre, h, w, s, vec);                                    \
   }
 BANK_FWD_KERNEL(bank_fwd_kernel, kHighest)
 BANK_FWD_KERNEL(bank_fwd_bf16_kernel, kBf16)
 BANK_FWD_KERNEL(bank_fwd_high_kernel, kHigh)
-BANK_FWD_KERNEL(bank_fwd_int8_kernel, kInt8)
 #undef BANK_FWD_KERNEL
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -709,7 +700,6 @@ __device__ __forceinline__ void bank_bwd_body(const T* __restrict__ g, const T* 
     bank_bwd_body<T, P>(g, pre, params, dwork, acc_q, gmax, branches, h, w, s, smem);                         \
   }
 BANK_BWD_KERNEL(bank_bwd_kernel, kHighest)
-BANK_BWD_KERNEL(bank_bwd_bf16_kernel, kBf16)
 BANK_BWD_KERNEL(bank_bwd_high_kernel, kHigh)
 BANK_BWD_KERNEL(bank_bwd_int8_kernel, kInt8)
 #undef BANK_BWD_KERNEL
@@ -754,6 +744,366 @@ bank_bwd_int8_finish_kernel(const long long* __restrict__ acc_q, const float* __
   dwork[q] = __fmul_rn(__ll2float_rn(acc_q[q]), scale);
 }
 
+// ------------------------------------------------------------------------
+// K1-int8 and K2-bf16, designed for this card: the JAX package's default
+// warp rungs (PIXRAY_TPU_WARP_PREC=int8 runs K1-int8 and, through
+// norm_prec, K2-bf16; K2-bf16 also takes K1-bf16's saved bank).  They compute
+// the same functions as the rungs' plain twins (ops/warp_batch.py
+// warp_modes_rung "int8", warp_adjoint_rung "bf16") with the exact kernels'
+// epilogue and its adjoint, but share no body with the exact kernels.
+//
+// bank_int8_scale_kernel + bank_int8_pack_kernel + bank_fwd_int8_kernel <-
+// pallas_warp.py's int8 branch of _fwd_kernel_multi_T (:571-579), the canvas
+// quantize of _run_fwd_multi_T (:821-827) and _finish_fwd's dequant (:650).
+//   Bound: bytes, as K1's (the bank, the pre-jitter bank of the jittered
+//   cuts, the noise planes); in practice the per-pixel arithmetic, as K1's.
+//   What held the first version (the exact forward's body at this rung)
+//   back: six eager kernels quantized the canvas in front of it, and each
+//   output pixel made 12 scattered byte loads (four taps times three
+//   interleaved channels).  The design: a scale pass takes max|work| as
+//   kScaleBlocks partial maxima (no zeroed scalar, so no fill kernel in
+//   front of it); a pack pass reduces them to s_w and quantizes the canvas
+//   once, with quantize_canvas's operations in its order (a true division
+//   by s_w, the product with 127, round-half-even), into one packed 32-bit
+//   texel per canvas pixel (r, g, b as s8, a zero byte; 0.2 MB at 224x224,
+//   L1- and L2-resident); K1-int8 then loads one texel per tap for all
+//   three channels, 4 loads per output pixel instead of 12.  The y-hat
+//   integer sums, the dequant and the epilogue are that version's
+//   arithmetic, so the pre-jitter bank stays bitwise the plain twin's.
+//   (Measured and dropped, PERF.md §6: each block quantizing its own canvas
+//   footprint into shared memory, 2-D output tiles included, which
+//   quantizes each canvas value some 20 times over and ran slower than the
+//   first version.)
+//
+// bank_bwd_rows_kernel + bank_bwd_bf16_kernel + bank_bwd_sum_kernel <-
+// _bwd_kernel_multi_TB through _mm_nt (:754-760), launched by
+// _run_bwd_multi_TB (:764-806), whose band plan (_chunk_band_plan, :480) the
+// row table takes the place of.
+//   Bound: bytes, as K2's (the cotangent, the saved bank, the 0.6 MB
+//   gradient).  What held the first version (the exact backward's body at
+//   this rung) above it: every (cut, 16x16 tile) block summed in shared
+//   memory and then issued one float atomicAdd to device memory per touched
+//   canvas element, 64 cuts aiming at one canvas.
+//   The TPU kernel has no such race: one dwork block is carried across its
+//   sequential grid.  The design gives each part of the gradient one owner
+//   again: the canvas is cut into bands of band_rows rows, and a pixel
+//   belongs to the band of its upper tap row on the canvas, so its
+//   cotangent (the epilogue's adjoint) is evaluated once.  A block owns one
+//   band for a set of cuts: it keeps an f32 copy of the band, plus the row
+//   below it (the halo), in shared memory, walks the output rows of its
+//   cuts that can hold pixels of the band (from the row table: per cut and
+//   output row, the least and the greatest canvas row that a tap on the
+//   canvas reads, exact for every mode, since it comes from the same tap
+//   code), and adds each pixel's four taps with shared-memory atomics.  A
+//   thread block cluster of `cluster` blocks holds the band for `cluster`
+//   cut sets: after a cluster barrier each block sums one slice of the band
+//   over the cluster's copies (distributed shared memory, rank order) and
+//   writes it with plain stores into its cluster's partial canvas; the sum
+//   pass adds the `groups` partial canvases and the halo rows in a fixed
+//   order.  No global atomic: each element of a partial canvas and of dwork
+//   is written once, dwork is not zeroed first.
+//   What it costs, measured (PERF.md §6, port_rungs.py): this kernel is
+//   slower than that first version, more than twice at the flagship.  A
+//   pixel's chain (the cotangent's loads, the adjoint's twelve IEEE
+//   divisions, twelve shared-memory float atomics, which are
+//   compare-and-swap loops on this card) is some thousands of cycles long;
+//   the first version keeps one pixel per thread and 2,048 threads per SM,
+//   these blocks walk their pixels in loops at 1,024 threads per SM; output
+//   rows whose taps span several bands are walked by each (the row visits);
+//   and the work of a band is uneven (a border cut clamped at the canvas
+//   edge puts thousands of pixels on one band and one row of words).  Band
+//   height, cluster size and groups: kBandRows, kBandCluster, kBandGroups,
+//   the fastest of port_rungs.py --sweep at the flagship (more blocks per
+//   band beat larger clusters); a per-warp queue of the owned pixels,
+//   warp-aggregated atomics, runs of rows as work units and a whole block
+//   on one output row at a time each measured slower and were not kept.
+//   The band is shrunk where it and its halo row would not fit
+//   kBandSmemMax.
+// ------------------------------------------------------------------------
+
+constexpr int kScaleBlocks = 256;            // K1-int8's scale pass: blocks, one partial maximum each
+constexpr int kBandRows = 8;                 // K2-bf16: canvas rows per band
+constexpr int kBandCluster = 2;              // K2-bf16: blocks per cluster (up to the portable 8)
+constexpr int kBandGroups = 32;              // K2-bf16: clusters (cut groups, partial canvases) per band
+constexpr int kBandSmemMax = 200 * 1024;     // K2-bf16: the largest band copy a block keeps
+static_assert(kScaleBlocks <= kThreads, "one partial maximum per thread of K1-int8");
+
+__device__ __forceinline__ float warp_fmax(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// K1-int8's first pass: partial[b] = max |work| over block b's grid-stride
+// share of the canvas (count floats, 16 bytes a load where aligned);
+// kScaleBlocks blocks.
+__global__ void __launch_bounds__(kThreads)
+bank_int8_scale_kernel(const float* __restrict__ work, float* __restrict__ partial, long count) {
+  __shared__ float red[kThreads / 32];
+  const long first = (long)blockIdx.x * kThreads + threadIdx.x, stride = (long)gridDim.x * kThreads;
+  const long quads = ((uintptr_t)work & 15u) == 0 ? count / 4 : 0;
+  float m = 0.f;
+  for (long q = first; q < quads; q += stride) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(work) + q);
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))));
+  }
+  for (long q = quads * 4 + first; q < count; q += stride) m = fmaxf(m, fabsf(__ldg(work + q)));
+  m = warp_fmax(m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int q = 1; q < kThreads / 32; ++q) m = fmaxf(m, red[q]);
+    partial[blockIdx.x] = m;
+  }
+}
+
+// one canvas value's s8 code, as quantize_canvas computes it: round(v / s_w * 127)
+__device__ __forceinline__ unsigned quant_byte(float v, float s_w) {
+  return (unsigned)((int)rintf(__fmul_rn(__fdiv_rn(v, s_w), kQ)) & 0xff);
+}
+
+// one canvas pixel's packed texel: the codes of r, g, b in bytes 0, 1, 2 (ops/warp_batch.py pack_texels)
+__device__ __forceinline__ unsigned pack_texel(const float* __restrict__ px, float s_w) {
+  return quant_byte(__ldg(px), s_w) | (quant_byte(__ldg(px + 1), s_w) << 8) | (quant_byte(__ldg(px + 2), s_w) << 16);
+}
+
+__device__ __forceinline__ int texel_code(unsigned t, int ci) { return (int)(signed char)(t >> (8 * ci)); }
+
+// K1-int8's second pass: the canvas quantized once, as packed texels
+// (texels[p] = pack_texel of canvas pixel p), with s_w = max(max|work|,
+// 1e-6) from the first pass's partial maxima, which it also stores in
+// scale[kScaleBlocks] for K1-int8.  One pixel per thread.
+__global__ void __launch_bounds__(kThreads)
+bank_int8_pack_kernel(const float* __restrict__ work, float* __restrict__ scale, unsigned* __restrict__ texels,
+                      long pixels) {
+  __shared__ float sred[kThreads / 32];
+  float m = warp_fmax(threadIdx.x < kScaleBlocks ? scale[threadIdx.x] : 0.f);
+  if ((threadIdx.x & 31) == 0) sred[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = sred[0];
+#pragma unroll
+  for (int r = 1; r < kThreads / 32; ++r) m = fmaxf(m, sred[r]);
+  const float s_w = fmaxf(m, 1e-6f);
+  if (blockIdx.x == 0 && threadIdx.x == 0) scale[kScaleBlocks] = s_w;
+  const long p = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (p < pixels) texels[p] = pack_texel(work + p * 3, s_w);
+}
+
+// texels (H, W) the packed canvas and scale[kScaleBlocks] its s_w, from
+// bank_int8_pack_kernel; params, z0..z2, out, pre, vec as bank_fwd_body.
+// Each thread makes kN consecutive pixels of one cut, as bank_fwd_body.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bank_fwd_int8_kernel(const unsigned* __restrict__ texels, const float* __restrict__ scale_src,
+                     const float* __restrict__ params, const T* __restrict__ z0, const T* __restrict__ z1,
+                     const T* __restrict__ z2, T* __restrict__ out, T* __restrict__ pre, int h, int w, int s,
+                     bool vec) {
+  constexpr int kN = Vec<T>::kN;
+  const int k = s * s;
+  const int n = blockIdx.y;
+  const int t0 = (blockIdx.x * blockDim.x + threadIdx.x) * kN;
+  if (t0 >= k) return;
+  const int count = min(kN, k - t0);
+  const Cut c = load_cut(params, n);
+  const float scale = __fdiv_rn(__ldg(scale_src + kScaleBlocks), kDequant);  // s_w / 127^2 (:824-826)
+  const float fillq = __fdiv_rn(c.fill, scale);                             // the fill over it
+  const bool noise = z0 != nullptr;
+  const long plane = (long)n * k + t0;
+  alignas(8) T zr[kN], zg[kN], zb[kN];
+  if (noise) {
+    load_vec(z0 + plane, zr, vec, count);
+    load_vec(z1 + plane, zg, vec, count);
+    load_vec(z2 + plane, zb, vec, count);
+  }
+  alignas(8) T o[3][kN], p[3][kN];
+  int i = t0 / s, j = t0 - i * s;  // the first pixel, then stepped along the row
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    if (e >= count) break;
+    const Taps tp = compute_taps(c, i, j, h, w, fillq);
+    const Hats ht = jax_hats(tp);
+    const int a0 = (int)rintf(__fmul_rn(ht.y0, kQ)), a1 = (int)rintf(__fmul_rn(ht.y1, kQ));
+    const long at = (long)tp.y0 * w + tp.x0;  // one load per tap for all three channels
+    const unsigned v00 = (tp.valid & 1u) ? __ldg(texels + at) : 0u;
+    const unsigned v01 = (tp.valid & 2u) ? __ldg(texels + at + 1) : 0u;
+    const unsigned v10 = (tp.valid & 4u) ? __ldg(texels + at + w) : 0u;
+    const unsigned v11 = (tp.valid & 8u) ? __ldg(texels + at + w + 1) : 0u;
+    float v[3];
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) {
+      const float c0 = (float)(a0 * texel_code(v00, ci) + a1 * texel_code(v10, ci));
+      const float c1 = (float)(a0 * texel_code(v01, ci) + a1 * texel_code(v11, ci));
+      const float acc = __fadd_rn(__fadd_rn(__fmul_rn(c0, ht.x0), __fmul_rn(c1, ht.x1)), tp.fill_add);
+      v[ci] = round_to<T>(__fmul_rn(acc, scale));
+      p[ci][e] = from_float<T>(v[ci]);
+    }
+    if (c.apply) {
+      float jr, jg, jb;
+      jitter_fwd(hsv_state(v[0], v[1], v[2], c.hue, c.sat), jr, jg, jb);
+      v[0] = round_to<T>(jr);
+      v[1] = round_to<T>(jg);
+      v[2] = round_to<T>(jb);
+    }
+    if (noise) {
+      const float zs[3] = {to_float(zr[e]), to_float(zg[e]), to_float(zb[e])};
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci)
+        v[ci] = round_to<T>(__fadd_rn(v[ci], round_to<T>(__fmul_rn(c.fac, zs[ci]))));
+    }
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) o[ci][e] = from_float<T>(v[ci]);
+    if (++j == s) {
+      j = 0;
+      ++i;
+    }
+  }
+  const long base = (long)n * 3 * k + t0;
+#pragma unroll
+  for (int ci = 0; ci < 3; ++ci) {
+    store_vec(out + base + (long)ci * k, o[ci], vec, count);
+    if (pre != nullptr && c.apply) store_vec(pre + base + (long)ci * k, p[ci], vec, count);
+  }
+}
+
+// K2-bf16's first pass: rows[n * S + i] = (least, greatest) canvas row that
+// a tap on the canvas of output row i of cut n reads, (INT_MAX, INT_MIN) for
+// a row with none (ops/warp_batch.py tap_row_ranges).  One warp per row.
+__global__ void __launch_bounds__(kThreads)
+bank_bwd_rows_kernel(const float* __restrict__ params, int2* __restrict__ rows, int n, int h, int w, int s) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= n * s) return;  // a whole warp
+  const int cn = row / s, i = row - cn * s;
+  const Cut c = load_cut(params, cn);
+  int lo = INT_MAX, hi = INT_MIN;
+  for (int j = lane; j < s; j += 32) {
+    const Taps tp = compute_taps(c, i, j, h, w, 0.f);
+    if (tp.valid) {
+      lo = min(lo, (tp.valid & 0b0011u) ? tp.y0 : tp.y0 + 1);
+      hi = max(hi, (tp.valid & 0b1100u) ? tp.y0 + 1 : tp.y0);
+    }
+  }
+  lo = warp_min(lo);
+  hi = warp_max(hi);
+  if (lane == 0) rows[row] = make_int2(lo, hi);
+}
+
+// g, pre, params as bank_bwd_body; rows the row table; partial (groups,
+// H + bands, W, 3) f32: rows 0..H-1 of partial[k] the sums of cut group k
+// over the canvas, row H + b the sums its band b adds to the row below the
+// band (the halo row); bank_bwd_sum_kernel adds them up.  branches (2,)
+// int or null: row visits and pixel visits.  Grid: per band of band_rows
+// canvas rows, `groups` clusters of cluster.num_blocks() blocks; block r
+// of cluster k takes the cuts k C + r, k C + r + groups C, ... (C the
+// cluster size).  Dynamic shared memory: (band_rows + 1) x W x 3 floats.
+// A pixel belongs to the band of its upper tap row on the canvas, so its
+// cotangent is computed once; its lower taps may land in the halo row.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bank_bwd_bf16_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
+                     const int2* __restrict__ rows, float* __restrict__ partial, int* __restrict__ branches, int n,
+                     int h, int w, int s, int band_rows, int groups) {
+  extern __shared__ float band_acc[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / csize;
+  const int band = cid / groups, group = cid - band * groups;
+  const int bands = (h + band_rows - 1) / band_rows;
+  const int lo = band * band_rows;
+  const int hi = min(lo + band_rows, h) - 1;
+  const int inner = (hi - lo + 1) * w * 3, elems = inner + w * 3;
+  for (int q = threadIdx.x; q < elems; q += kThreads) band_acc[q] = 0.f;
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = s * s;
+  int visits = 0, pixels = 0;
+  for (int cn = group * csize + rank; cn < n; cn += groups * csize) {
+    const Cut c = load_cut(params, cn);
+    // warp `warp` takes the rows warp, warp + 8, ... of the cut that touch the band, 32 at a time
+    for (int first = warp; first < s; first += 32 * (kThreads / 32)) {
+      const int i0 = first + (kThreads / 32) * lane;
+      bool hit = false;
+      if (i0 < s) {
+        const int2 r = __ldg(rows + (long)cn * s + i0);
+        hit = r.x <= hi && r.y >= lo;
+      }
+      unsigned mask = __ballot_sync(0xffffffffu, hit);
+      while (mask) {
+        const int b = __ffs(mask) - 1;
+        mask &= mask - 1;
+        const int i = first + (kThreads / 32) * b;
+        ++visits;
+        for (int j = lane; j < s; j += 32) {
+          const Taps tp = compute_taps(c, i, j, h, w, 0.f);
+          const int own = (tp.valid & 0b0011u) ? tp.y0 : tp.y0 + 1;
+          if (!tp.valid || own < lo || own > hi) continue;
+          ++pixels;
+          float gv[3];
+          cotangent(g, pre, c, (long)cn * 3 * k + (long)i * s + j, k, gv);
+          const Hats ht = jax_hats(tp);
+#pragma unroll
+          for (int tap = 0; tap < 4; ++tap) {
+            if (!(tp.valid & (1u << tap))) continue;
+            const int x = tp.x0 + (tap & 1), y = tp.y0 + (tap >> 1);
+            const float wa = (tap >> 1) ? ht.y1 : ht.y0, wb = (tap & 1) ? ht.x1 : ht.x0;
+            float* cell = band_acc + ((y - lo) * w + x) * 3;
+#pragma unroll
+            for (int ci = 0; ci < 3; ++ci)
+              if (gv[ci] != 0.f) atomicAdd(cell + ci, tap_contrib<kBf16>(wa, wb, gv[ci]));
+          }
+        }
+      }
+    }
+  }
+  if (branches != nullptr) {
+    pixels = warp_sum(pixels);
+    if (lane == 0) {
+      atomicAdd(branches, visits);
+      atomicAdd(branches + 1, pixels);
+    }
+  }
+  cluster.sync();
+  // each block sums one slice of the band (and its halo row) over the cluster's copies, in rank order
+  float* dst = partial + (long)group * (h + bands) * w * 3;
+  const int per = (elems + csize - 1) / csize;
+  const int q0 = rank * per, q1 = min(elems, q0 + per);
+  for (int q = q0 + threadIdx.x; q < q1; q += kThreads) {
+    float sum = 0.f;
+    for (int r = 0; r < csize; ++r) sum = __fadd_rn(sum, cluster.map_shared_rank(band_acc, r)[q]);
+    dst[q < inner ? (long)lo * w * 3 + q : (long)(h + band) * w * 3 + (q - inner)] = sum;
+  }
+  cluster.sync();  // no block leaves while a peer still reads its copy
+}
+
+// K2-bf16's last pass: dwork = the sum over the cut groups' partial canvases
+// and, on the first row of each band but the first, the halo rows of the
+// band above, in a fixed order.  One canvas element per thread.
+__global__ void __launch_bounds__(kThreads)
+bank_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ dwork, int groups, int h, int w,
+                    int band_rows) {
+  const long row = (long)w * 3;
+  const long q = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= h * row) return;
+  const int y = (int)(q / row);
+  const long stride = (long)(h + (h + band_rows - 1) / band_rows) * row;
+  const bool halo = y > 0 && y % band_rows == 0;
+  const long from = (long)(h + y / band_rows - 1) * row + (q - y * row);
+  float sum = 0.f;
+  for (int kk = 0; kk < groups; ++kk) {
+    sum = __fadd_rn(sum, __ldg(partial + kk * stride + q));
+    if (halo) sum = __fadd_rn(sum, __ldg(partial + kk * stride + from));
+  }
+  dwork[q] = sum;
+}
+
 bool aligned8(const void* p) { return p == nullptr || ((uintptr_t)p & 7u) == 0; }
 
 template <typename T>
@@ -767,19 +1117,21 @@ int launch_fwd(const void* work, const float* scale, const float* params, const 
   const T *zr = (const T*)z0, *zg = (const T*)z1, *zb = (const T*)z2;
   switch (prec) {
     case kHighest:
-      bank_fwd_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w, s, vec);
+      bank_fwd_kernel<T><<<grid, kThreads, 0, stream>>>((const float*)work, params, zr, zg, zb, (T*)out, (T*)pre, h,
+                                                        w, s, vec);
       break;
     case kBf16:
-      bank_fwd_bf16_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w,
-                                                             s, vec);
+      bank_fwd_bf16_kernel<T><<<grid, kThreads, 0, stream>>>((const float*)work, params, zr, zg, zb, (T*)out, (T*)pre,
+                                                             h, w, s, vec);
       break;
     case kHigh:
-      bank_fwd_high_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w,
-                                                             s, vec);
+      bank_fwd_high_kernel<T><<<grid, kThreads, 0, stream>>>((const float*)work, params, zr, zg, zb, (T*)out, (T*)pre,
+                                                             h, w, s, vec);
       break;
     case kInt8:
-      bank_fwd_int8_kernel<T><<<grid, kThreads, 0, stream>>>(work, scale, params, zr, zg, zb, (T*)out, (T*)pre, h, w,
-                                                             s, vec);
+      if (scale == nullptr) return (int)cudaErrorInvalidValue;
+      bank_fwd_int8_kernel<T><<<grid, kThreads, 0, stream>>>((const unsigned*)work, scale, params, zr, zg, zb,
+                                                             (T*)out, (T*)pre, h, w, s, vec);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -787,9 +1139,62 @@ int launch_fwd(const void* work, const float* scale, const float* params, const 
   return (int)cudaGetLastError();
 }
 
+// K2-bf16: bands of band_rows canvas rows (shrunk until a band and its
+// halo row fit kBandSmemMax), `groups` clusters of `cluster` blocks per band
+// (no more groups than the cuts fill), then the sum pass; 0 for a default.
+struct BandPlan {
+  int band_rows, cluster, groups;
+  bool ok() const { return band_rows >= 1 && cluster >= 1 && cluster <= 8; }
+};
+
+BandPlan band_plan(int n, int w, int band_rows, int cluster, int groups) {
+  BandPlan b;
+  b.cluster = cluster > 0 ? cluster : kBandCluster;
+  b.groups = std::max(1, std::min(groups > 0 ? groups : kBandGroups, (n + b.cluster - 1) / b.cluster));
+  const long fit = (long)kBandSmemMax / ((long)w * 3 * (long)sizeof(float)) - 1;  // a band and its halo row
+  b.band_rows = (int)std::min((long)(band_rows > 0 ? band_rows : kBandRows), fit);
+  return b;
+}
+
+template <typename T>
+int launch_bwd_bands(const T* g, const T* pre, const float* params, const int2* rows, float* dwork, float* partial,
+                     int* branches, int n, int h, int w, int s, BandPlan plan, cudaStream_t stream) {
+  if (rows == nullptr || partial == nullptr || !plan.ok()) return (int)cudaErrorInvalidValue;
+  const int band_rows = plan.band_rows, cluster = plan.cluster, groups = plan.groups;
+  const int smem = (int)((band_rows + 1) * (long)w * 3 * (long)sizeof(float));
+  static bool opted_in = false;  // dynamic shared memory past 48 KB, once per instantiation
+  if (!opted_in) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(bank_bwd_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBandSmemMax);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const int bands = (h + band_rows - 1) / band_rows;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bands * groups * cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, bank_bwd_bf16_kernel<T>, g, pre, params, rows, partial, branches,
+                                             n, h, w, s, band_rows, groups);
+  if (err != cudaSuccess) return (int)err;
+  const long count = (long)h * w * 3;
+  bank_bwd_sum_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(partial, dwork, groups,
+                                                                                               h, w, band_rows);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc_q, float* gmax,
-               int* branches, int prec, int n, int h, int w, int s, cudaStream_t stream) {
+               const int* rows, float* partial, int* branches, int prec, int n, int h, int w, int s, int band_rows,
+               int cluster, int groups, cudaStream_t stream) {
   const int smem = kSmemFloats * (int)sizeof(float);
   const int tiles = ((s + kTile - 1) / kTile) * ((s + kTile - 1) / kTile);
   dim3 grid(tiles, n);
@@ -799,9 +1204,12 @@ int launch_bwd(const void* g, const void* pre, const float* params, float* dwork
     case kHighest:
       bank_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
       break;
-    case kBf16:
-      bank_bwd_bf16_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
+    case kBf16: {
+      const int code = launch_bwd_bands<T>(gt, pt, params, (const int2*)rows, dwork, partial, branches, n, h, w, s,
+                                           band_plan(n, w, band_rows, cluster, groups), stream);
+      if (code != 0) return code;
       break;
+    }
     case kHigh:
       bank_bwd_high_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
       break;
@@ -822,9 +1230,24 @@ int launch_bwd(const void* g, const void* pre, const float* params, float* dwork
 
 }  // namespace
 
+// K1-int8's scale and pack passes: scale (kScaleBlocks + 1,) f32 (the
+// partial maxima, then s_w) and texels (H, W) int32 from the (H, W, 3) f32
+// canvas.
+extern "C" int bank_int8_scale(const float* work, float* scale, long long pixels, void* stream) {
+  bank_int8_scale_kernel<<<kScaleBlocks, kThreads, 0, (cudaStream_t)stream>>>(work, scale, (long)pixels * 3);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int bank_int8_pack(const float* work, float* scale, int* texels, long long pixels, void* stream) {
+  bank_int8_pack_kernel<<<(unsigned)((pixels + kThreads - 1) / kThreads), kThreads, 0, (cudaStream_t)stream>>>(
+      work, scale, (unsigned*)texels, (long)pixels);
+  return (int)cudaGetLastError();
+}
+
 // dtype: 0 float32, 1 bfloat16 (out, pre and the noise planes share it).
-// prec: 0 highest, 1 bf16, 2 high, 3 int8.  work: (H, W, 3) f32, or s8 for
-// int8 with scale the device scalar s_w (null otherwise).
+// prec: 0 highest, 1 bf16, 2 high, 3 int8.  work: (H, W, 3) f32, or for
+// int8 the packed texels (H, W) int32 of bank_int8_pack, with scale its
+// scale buffer (null otherwise).
 extern "C" int bank_fwd(const void* work, const float* scale, const float* params, const void* z0,
                         const void* z1, const void* z2, void* out, void* pre, int dtype, int prec, int n, int h,
                         int w, int s, void* stream) {
@@ -833,17 +1256,47 @@ extern "C" int bank_fwd(const void* work, const float* scale, const float* param
   return launch_fwd<float>(work, scale, params, z0, z1, z2, out, pre, prec, n, h, w, s, (cudaStream_t)stream);
 }
 
+// K2-bf16's row table: rows (N, S, 2) int32.
+extern "C" int bank_bwd_rows(const float* params, int* rows, int n, int h, int w, int s, void* stream) {
+  const int blocks = (n * s + kThreads / 32 - 1) / (kThreads / 32);
+  bank_bwd_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(params, (int2*)rows, n, h, w, s);
+  return (int)cudaGetLastError();
+}
+
+// K2-bf16's partial canvases: floats for (groups, H + bands, W, 3) at the
+// band rows and groups the launch takes (0: the defaults).
+extern "C" long long bank_bwd_partial_floats(int n, int h, int w, int band_rows, int cluster, int groups) {
+  const BandPlan b = band_plan(n, w, band_rows, cluster, groups);
+  if (!b.ok()) return -1;
+  return (long long)b.groups * (h + (h + b.band_rows - 1) / b.band_rows) * w * 3;
+}
+
 // int8 (prec 3): acc (H, W, 3) int64 and gmax (1,) f32, both zeroed by the
-// caller; three launches (max, scatter, finish).  Null for the other rungs.
+// caller; three launches (max, scatter, finish).  bf16 (prec 1): rows, the
+// row table of bank_bwd_rows, and partial, bank_bwd_partial_floats of f32
+// scratch; dwork need not be zeroed; two launches (bands, sum); band_rows,
+// cluster and groups 0 for the defaults; branches counts row and pixel
+// visits.  Null (and 0) where a rung takes none.
 extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc, float* gmax,
-                        int* branches, int dtype, int prec, int n, int h, int w, int s, void* stream) {
+                        const int* rows, float* partial, int* branches, int dtype, int prec, int n, int h, int w,
+                        int s, int band_rows, int cluster, int groups, void* stream) {
   if (dtype == 1)
-    return launch_bwd<bf16>(g, pre, params, dwork, acc, gmax, branches, prec, n, h, w, s, (cudaStream_t)stream);
-  return launch_bwd<float>(g, pre, params, dwork, acc, gmax, branches, prec, n, h, w, s, (cudaStream_t)stream);
+    return launch_bwd<bf16>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s, band_rows,
+                            cluster, groups, (cudaStream_t)stream);
+  return launch_bwd<float>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s, band_rows,
+                           cluster, groups, (cudaStream_t)stream);
 }
 
 // the per-cut row's layout: stride, then the offsets of mode, hue, saturation, apply, noise factor, fill
 extern "C" void bank_layout(int* out) {
   const int layout[7] = {kParamStride, kMode, kHue, kSat, kApply, kFac, kFill};
   for (int k = 0; k < 7; ++k) out[k] = layout[k];
+}
+
+// K1-int8's count of partial maxima, K2-bf16's default band rows, cluster size and cut groups
+extern "C" void bank_scratch(int* out) {
+  out[0] = kScaleBlocks;
+  out[1] = kBandRows;
+  out[2] = kBandCluster;
+  out[3] = kBandGroups;
 }

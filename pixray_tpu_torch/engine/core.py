@@ -162,7 +162,7 @@ class Engine:
 
     def __init__(self, args, device="cuda", state_dicts=None, mesh=None):
         self.args = args
-        self.mesh = self._build_mesh(args) if mesh is None else mesh
+        self.mesh = self._build_mesh(args, device) if mesh is None else mesh
         if self.mesh is not None:
             padded = PM.pad_cuts_for_mesh(args.num_cuts, self.mesh)
             if padded != args.num_cuts:
@@ -371,15 +371,16 @@ class Engine:
             print(f"Using initial image {args.init_image} ({len(self.init_image_rgba_list)})")
 
     @staticmethod
-    def _build_mesh(args):
+    def _build_mesh(args, device):
         """Under ``--shard_cutouts``: join the process group the environment
-        configures (``parallel.mesh.init_distributed``) and build
+        configures (``parallel.mesh.init_distributed``, gloo for a CPU
+        ``device``) and build
         ``--mesh_shape``'s mesh over every rank of it; None for one rank.
         A shape that cannot be built, or one that leaves ranks out, raises
         (the JAX engine prints "mesh setup skipped" and runs unsharded)."""
         if not args.shard_cutouts:
             return None
-        if PM.init_distributed():
+        if PM.init_distributed(device=device):
             rank, n = PM.world()
             print(f"Joined process group: rank {rank}/{n} ({torch.distributed.get_backend()})")
         mesh = PM.build_mesh(args.mesh_shape)

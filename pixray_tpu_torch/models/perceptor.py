@@ -78,9 +78,12 @@ def _require_checkpoint_tokenizer(name: str):
 
 
 def _cast_towers_(model, dtype):
-    """Every floating tensor to ``dtype`` but the BatchNorms', which the
-    towers apply in float32 (as the JAX package stores them)."""
+    """Every floating tensor to ``dtype`` but the BatchNorms' buffers and the
+    LayerNorms' affines, which the towers apply in float32 (the JAX
+    ``_cast_storage`` keeps every ``ln_*``, ``bn*``, ``norm*`` and
+    ``downsample_bn`` leaf in float32)."""
     keep = {id(t) for m in model.modules() if isinstance(m, FrozenBatchNorm2d) for t in m.buffers()}
+    keep |= {id(t) for m in model.modules() if isinstance(m, torch.nn.LayerNorm) for t in m.parameters()}
     for t in list(model.parameters()) + list(model.buffers()):
         if t.is_floating_point() and id(t) not in keep:
             t.data = t.data.to(dtype)
@@ -173,6 +176,7 @@ class Perceptor:
         for m in model.modules():
             if isinstance(m, LayerNorm):
                 m.ln32 = rungs.clip_ln32
+                m.keep_exact_copy(dtype)
         if self.config.vision_kind == "resnet":
             model.visual.to(memory_format=torch.channels_last)
         self.model = model

@@ -36,19 +36,25 @@ Precision rungs (``prec`` of K1, ``bwd`` of K2; ``config/precision.py``):
 "highest" is the exact warp, "bf16", "high" and "int8" the variants of
 ``csrc/warp.cu`` with the JAX package's rung functions, whose plain
 versions are ``ops/warp_batch.py``'s ``warp_modes_prec``.  K1-int8 takes
-the canvas quantized on the device (``quantize_canvas``: its scale is a
-device scalar, never read on the host); K2-int8 takes the bank's max|g|
-in a first pass and sums in int64.
+the canvas quantized on the device by two small passes
+(:func:`launch_canvas_scale`, :func:`launch_canvas_pack`; s_w stays on the
+device, never read on the host; plain twins ``quantize_canvas`` and
+``quantize_footprint``) as one packed texel per canvas pixel; K2-bf16 walks
+a row table (:func:`launch_bank_rows`, plain twin ``tap_row_ranges``) in
+canvas bands, summed by thread block clusters into a few partial canvases
+that its last pass adds up; K2-int8 takes the bank's max|g| in a first
+pass and sums in int64.
 
 ``LAUNCHES`` counts kernel launches (incremented only where a kernel is
 launched), one counter per rung of each kernel ("warp_fwd" and
-"warp_bwd" the exact rung), so a run can show that its path went through
-the kernels.
+"warp_bwd" the exact rung) and one per helper pass (``HELPERS``), so a run
+can show that its path went through the kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -57,8 +63,7 @@ from pixray_tpu_torch.ops.color import random_color_jitter_planes
 from pixray_tpu_torch.ops.nvcc import build_library, library_path, source_path
 from pixray_tpu_torch.ops.warp import inv3x3
 from pixray_tpu_torch.ops.warp_batch import (MODE_BORDER, MODE_FILL, MODE_REFLECT, MODE_ZEROS, WARP_PRECS,
-                                              modes_with_fill, norm_prec, quantize_canvas,
-                                              warp_modes_prec)
+                                              modes_with_fill, norm_prec, warp_modes_prec)
 
 SOURCE = source_path("warp.cu")
 LIBRARY = library_path("libpixray_warp.so")
@@ -75,9 +80,15 @@ BWD_COUNTERS = {"highest": "warp_bwd", "bf16": "warp_bwd_bf16", "high": "warp_bw
 KERNEL_NAMES = {"warp_fwd": "bank_fwd_kernel", "warp_fwd_bf16": "bank_fwd_bf16_kernel",
                 "warp_fwd_high": "bank_fwd_high_kernel", "warp_fwd_int8": "bank_fwd_int8_kernel",
                 "warp_bwd": "bank_bwd_kernel", "warp_bwd_bf16": "bank_bwd_bf16_kernel",
-                "warp_bwd_high": "bank_bwd_high_kernel", "warp_bwd_int8": "bank_bwd_int8_kernel"}
+                "warp_bwd_high": "bank_bwd_high_kernel", "warp_bwd_int8": "bank_bwd_int8_kernel",
+                "warp_fwd_int8_scale": "bank_int8_scale_kernel", "warp_fwd_int8_pack": "bank_int8_pack_kernel",
+                "warp_bwd_bf16_rows": "bank_bwd_rows_kernel", "warp_bwd_bf16_sum": "bank_bwd_sum_kernel"}
 
-LAUNCHES = {name: 0 for name in (*FWD_COUNTERS.values(), *BWD_COUNTERS.values())}
+# the helper passes of a rung's kernel, by counter
+HELPERS = {"warp_fwd_int8": ("warp_fwd_int8_scale", "warp_fwd_int8_pack"),
+           "warp_bwd_bf16": ("warp_bwd_bf16_rows", "warp_bwd_bf16_sum")}
+
+LAUNCHES = {name: 0 for name in (*FWD_COUNTERS.values(), *BWD_COUNTERS.values(), *sum(HELPERS.values(), ()))}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -99,12 +110,19 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(build())
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            i64 = ctypes.c_longlong
+            lib.bank_int8_scale.argtypes = [ptr, ptr, i64, ptr]
+            lib.bank_int8_pack.argtypes = [ptr, ptr, ptr, i64, ptr]
             lib.bank_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
-            lib.bank_fwd.restype = i32
-            lib.bank_bwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
-            lib.bank_bwd.restype = i32
-            lib.bank_layout.argtypes = [ptr]
-            lib.bank_layout.restype = None
+            lib.bank_bwd_rows.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
+            lib.bank_bwd.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+            for fn in (lib.bank_int8_scale, lib.bank_int8_pack, lib.bank_fwd, lib.bank_bwd_rows, lib.bank_bwd):
+                fn.restype = i32
+            lib.bank_bwd_partial_floats.argtypes = [i32] * 6
+            lib.bank_bwd_partial_floats.restype = i64
+            for fn in (lib.bank_layout, lib.bank_scratch):
+                fn.argtypes = [ptr]
+                fn.restype = None
             layout = (ctypes.c_int * len(_LAYOUT))()
             lib.bank_layout(layout)
             if tuple(layout) != _LAYOUT:
@@ -112,6 +130,16 @@ def _library():
                                    f"(stride, mode, hue, sat, apply, fac, fill), ops/cuda_warp.py as {_LAYOUT}")
             _lib = lib
         return _lib
+
+
+@functools.cache
+def scratch_layout() -> dict:
+    """K1-int8's count of partial maxima and K2-bf16's default band rows,
+    cluster size and cut groups, as ``csrc/warp.cu`` sets them (builds the
+    library)."""
+    out = (ctypes.c_int * 4)()
+    _library().bank_scratch(out)
+    return {"scale_blocks": out[0], "band_rows": out[1], "band_cluster": out[2], "band_groups": out[3]}
 
 
 # ------------------------------------------------------------------ parameters
@@ -196,13 +224,65 @@ def _check_prec(prec):
         raise ValueError(f"warp rung must be one of {WARP_PRECS}; got {prec!r}")
 
 
+def launch_canvas_scale(work):
+    """K1-int8's scale pass: (H, W, 3) f32 canvas on the card → its scale
+    buffer, (scale_blocks + 1,) f32 whose first scale_blocks are the partial
+    maxima of |work| (plain: ``work.abs().amax()``); the pack pass writes
+    s_w into the last."""
+    if work.device.type != "cuda":
+        raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {work.device}")
+    _check("work", work, work.device, torch.float32, work.shape)
+    scale = torch.empty((scratch_layout()["scale_blocks"] + 1,), dtype=torch.float32, device=work.device)
+    stream = torch.cuda.current_stream(work.device).cuda_stream
+    _raise_on(_library().bank_int8_scale(work.data_ptr(), scale.data_ptr(), work.numel() // 3, stream),
+              "bank_int8_scale")
+    LAUNCHES["warp_fwd_int8_scale"] += 1
+    return scale
+
+
+def launch_canvas_pack(work, scale):
+    """K1-int8's pack pass: the canvas quantized with s_w = max(max of the
+    partial maxima, 1e-6) (stored in ``scale``'s last element) → (H, W)
+    int32 texels, r, g, b as s8 in bytes 0, 1, 2 (plain:
+    ``quantize_footprint`` of the whole canvas)."""
+    if work.device.type != "cuda":
+        raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {work.device}")
+    _check("work", work, work.device, torch.float32, work.shape)
+    _check("scale", scale, work.device, torch.float32, (scratch_layout()["scale_blocks"] + 1,))
+    h, w, _ = work.shape
+    texels = torch.empty((h, w), dtype=torch.int32, device=work.device)
+    stream = torch.cuda.current_stream(work.device).cuda_stream
+    _raise_on(_library().bank_int8_pack(work.data_ptr(), scale.data_ptr(), texels.data_ptr(), h * w, stream),
+              "bank_int8_pack")
+    LAUNCHES["warp_fwd_int8_pack"] += 1
+    return texels
+
+
+def launch_bank_rows(params, work_shape, out_size: int):
+    """K2-bf16's row table: (N, PARAM_STRIDE) parameters on the card → (N,
+    S, 2) int32, per cut and output row the least and the greatest canvas
+    row that a tap on the canvas reads (plain: ``tap_row_ranges``)."""
+    dev = params.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
+    n = params.shape[0]
+    _check("params", params, dev, torch.float32, (n, PARAM_STRIDE))
+    h, w, _ = work_shape
+    rows = torch.empty((n, out_size, 2), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_library().bank_bwd_rows(params.data_ptr(), rows.data_ptr(), n, h, w, out_size, stream),
+              "bank_bwd_rows")
+    LAUNCHES["warp_bwd_bf16_rows"] += 1
+    return rows
+
+
 def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.float32,
                     save_pre: bool = False, prec: str = "highest"):
     """K1 at rung ``prec``: (H, W, 3) f32 canvas and (N, PARAM_STRIDE)
     parameters on the card → ((N, 3, S, S) bank in ``out_dtype``, the
     rounded pre-jitter bank or None).  The pre-jitter bank holds the
     jittered cuts' rows only; the others are left unwritten, since K2 reads
-    no other.  int8 quantizes the canvas on the device first."""
+    no other.  int8 runs the scale and pack passes first."""
     _check_prec(prec)
     dev = work.device
     if dev.type != "cuda":
@@ -225,7 +305,10 @@ def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.fl
     if n == 0:
         return out, pre
     ptr = lambda t: None if t is None else t.data_ptr()
-    src, scale = (work, None) if prec != "int8" else quantize_canvas(work)
+    src, scale = work, None
+    if prec == "int8":
+        scale = launch_canvas_scale(work)
+        src = launch_canvas_pack(work, scale)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = _library().bank_fwd(src.data_ptr(), ptr(scale), params.data_ptr(), *map(ptr, zs), out.data_ptr(),
                                ptr(pre), _DTYPES[out_dtype], _PREC_CODES[prec], n, h, w, out_size, stream)
@@ -239,8 +322,11 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None, pr
     saved pre-jitter bank (None when no cut is jittered) and the parameters
     → (H, W, 3) f32.  ``branches``, a (2,) int32 tensor on the card, if
     given, gains the count of blocks that summed in shared memory and of
-    those that added straight to device memory.  int8 sums in an int64
-    canvas after a pass that takes the bank's max|g|."""
+    those that added straight to device memory (bf16: the row visits and
+    the pixel visits of its bands).  int8 sums in an int64 canvas after a
+    pass that takes the bank's max|g|; bf16 walks the row table of
+    :func:`launch_bank_rows` into partial canvases, then its sum pass
+    writes every element of the gradient."""
     _check_prec(prec)
     dev = g.device
     if dev.type != "cuda":
@@ -255,19 +341,31 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None, pr
         _check("pre", pre, dev, g.dtype, g.shape)
     if branches is not None:
         _check("branches", branches, dev, torch.int32, (2,))
-    dwork = torch.zeros((h, w, c), dtype=torch.float32, device=dev)
     if n == 0:
-        return dwork
-    acc = gmax = None
+        return torch.zeros((h, w, c), dtype=torch.float32, device=dev)
+    lib = _library()
+    acc = gmax = rows = partial = None
     if prec == "int8":
         acc = torch.zeros((h, w, c), dtype=torch.int64, device=dev)
         gmax = torch.zeros((1,), dtype=torch.float32, device=dev)
+    if prec == "bf16":
+        rows = launch_bank_rows(params, work_shape, out_size)
+        floats = lib.bank_bwd_partial_floats(n, h, w, 0, 0, 0)
+        if floats < 0:
+            raise ValueError(f"K2-bf16 cannot keep a band of a canvas {w} pixels wide in shared memory")
+        partial = torch.empty((floats,), dtype=torch.float32, device=dev)
+        dwork = torch.empty((h, w, c), dtype=torch.float32, device=dev)
+    else:
+        dwork = torch.zeros((h, w, c), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
-    code = _library().bank_bwd(g.data_ptr(), ptr(pre), params.data_ptr(), dwork.data_ptr(), ptr(acc), ptr(gmax),
-                               ptr(branches), _DTYPES[g.dtype], _PREC_CODES[prec], n, h, w, out_size, stream)
+    code = lib.bank_bwd(g.data_ptr(), ptr(pre), params.data_ptr(), dwork.data_ptr(), ptr(acc), ptr(gmax), ptr(rows),
+                        ptr(partial), ptr(branches), _DTYPES[g.dtype], _PREC_CODES[prec], n, h, w, out_size, 0, 0, 0,
+                        stream)
     _raise_on(code, f"bank_bwd ({prec})")
     LAUNCHES[BWD_COUNTERS[prec]] += 1
+    if prec == "bf16":
+        LAUNCHES["warp_bwd_bf16_sum"] += 1  # the sum pass, launched after the bands
     return dwork
 
 

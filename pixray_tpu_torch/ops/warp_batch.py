@@ -163,6 +163,23 @@ def quantize_canvas(work):
     return torch.round(work / s_w * Q127).to(torch.int8), s_w
 
 
+def pack_texels(codes):
+    """(..., 3) int8 codes → (...) int32 texels as K1-int8's pack pass
+    writes them: r, g, b in bytes 0, 1, 2 (two's complement), byte 3 zero."""
+    b = codes.to(torch.int32) & 0xFF
+    return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+
+
+def quantize_footprint(work, s_w, rows, cols):
+    """The plain twin of K1-int8's pack pass on a footprint of the canvas:
+    rows ``rows[0]`` to ``rows[1]`` and columns ``cols[0]`` to ``cols[1]``
+    (inclusive) quantized with the kernel's operations in its order (a true
+    division by the device scalar ``s_w``, the product with 127, round half
+    to even) and packed (:func:`pack_texels`): (rows, cols) int32."""
+    patch = work[rows[0]:rows[1] + 1, cols[0]:cols[1] + 1].float()
+    return pack_texels(torch.round(torch.div(patch, s_w) * Q127).to(torch.int8))
+
+
 def _dequant_scale(s):
     """``s / 127^2`` as a true division (PyTorch's CUDA division by a
     Python scalar is a product with its reciprocal; the kernels divide)."""
@@ -201,6 +218,33 @@ def _rung_taps(work_shape, inv, modes, fill, out_size):
         fill = fill[:, None, None, None]
     cover = torch.where(m == MODE_FILL, 1.0 - cx * cy, torch.zeros_like(cx))
     return torch.stack(idx), torch.stack(valid), hx, hy, cover[:, None], fill
+
+
+ROWS_EMPTY = (2**31 - 1, -2**31)  # an output row with no tap on the canvas
+
+
+def tap_row_ranges(inv, modes, work_shape, out_size: int):
+    """The plain twin of K2-bf16's row table: per cut and output row, the
+    least and the greatest canvas row that a tap on the canvas reads
+    (``ROWS_EMPTY`` for a row with none), as (N, S, 2) int32.  The taps are
+    the exact warp's (floor of each mode's remapped coordinate, clamped to
+    [-2, size + 1]), which K2's rung variants share."""
+    h, w, _ = work_shape
+    sx, sy = source_coords(inv, out_size)
+    m = modes.to(sx.device)[:, None, None]
+    tx = torch.where(m == MODE_REFLECT, reflect_coord(sx, w),
+                     torch.where(m == MODE_BORDER, sx.clamp(0.0, w - 1.0), sx))
+    ty = torch.where(m == MODE_REFLECT, reflect_coord(sy, h),
+                     torch.where(m == MODE_BORDER, sy.clamp(0.0, h - 1.0), sy))
+    x0 = torch.floor(tx).clamp(-2, w + 1).nan_to_num(-2).long()
+    y0 = torch.floor(ty).clamp(-2, h + 1).nan_to_num(-2).long()
+    on_x = ((x0 >= 0) & (x0 < w)) | ((x0 + 1 >= 0) & (x0 + 1 < w))
+    top = on_x & (y0 >= 0) & (y0 < h)
+    bot = on_x & (y0 + 1 >= 0) & (y0 + 1 < h)
+    lo_empty, hi_empty = ROWS_EMPTY
+    lo = torch.where(top, y0, torch.where(bot, y0 + 1, torch.full_like(y0, lo_empty))).amin(dim=2)
+    hi = torch.where(bot, y0 + 1, torch.where(top, y0, torch.full_like(y0, hi_empty))).amax(dim=2)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32)
 
 
 def warp_modes_rung(work, inv, modes, fill, out_size: int, prec: str):

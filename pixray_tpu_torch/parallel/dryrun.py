@@ -232,9 +232,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, args, kwargs, rank, world_size, port, results, env, threads, deadline):
-    """One spawned rank: join the group through the PIXRAY_TPU_* variables,
-    run ``fn``, report its result (or its traceback) to the parent."""
+def _rank_main(fn, args, kwargs, rank, world_size, port, results, env, threads, deadline, backend):
+    """One spawned rank: join the group through the PIXRAY_TPU_* variables
+    (``backend``, or init_distributed's choice), run ``fn``, report its
+    result (or its traceback) to the parent."""
     import torch
     import torch.distributed as dist
 
@@ -244,7 +245,7 @@ def _rank_main(fn, args, kwargs, rank, world_size, port, results, env, threads, 
                       PIXRAY_TPU_PROCESS_ID=str(rank))
     torch.set_num_threads(threads)
     try:
-        init_distributed(timeout_s=deadline)
+        init_distributed(backend=backend, timeout_s=deadline)
         out = fn(*args, **kwargs)
         results.put((rank, True, out))
     except BaseException:  # reported to the parent, which fails the launch
@@ -256,11 +257,12 @@ def _rank_main(fn, args, kwargs, rank, world_size, port, results, env, threads, 
 
 
 def launch(fn, world_size: int, *args, deadline: float = 120.0, env: dict | None = None, threads: int = 1,
-           **kwargs) -> list:
+           backend: str | None = None, **kwargs) -> list:
     """Run ``fn(*args, **kwargs)`` on ``world_size`` spawned ranks joined in
     one process group (on 127.0.0.1, a port from the OS); returns their
     results in rank order.  ``fn`` must be importable by its module's name.
-    Each rank starts with ``OMP_NUM_THREADS`` = ``threads`` and ``env``.
+    Each rank starts with ``OMP_NUM_THREADS`` = ``threads`` and ``env``, and
+    joins with ``backend`` (None: ``mesh.init_distributed``'s choice).
     A rank that raises, exits non-zero or outlives ``deadline`` seconds
     raises here; every rank is killed before this returns or raises."""
     import torch.multiprocessing as mp
@@ -274,7 +276,7 @@ def launch(fn, world_size: int, *args, deadline: float = 120.0, env: dict | None
     try:
         for rank in range(world_size):
             p = ctx.Process(target=_rank_main, args=(fn, args, kwargs, rank, world_size, port, results,
-                                                     dict(env or {}), threads, deadline), daemon=True)
+                                                     dict(env or {}), threads, deadline, backend), daemon=True)
             p.start()
             procs.append(p)
     finally:
@@ -319,7 +321,8 @@ def main(argv=None) -> list[dict]:
     parser.add_argument("--device", default="cuda", choices=("cpu", "cuda"))
     parser.add_argument("--deadline", type=float, default=300.0)
     opts = parser.parse_args(argv)
-    reports = launch(sweep, opts.ranks, deadline=opts.deadline, device=opts.device)[0]
+    backend = "gloo" if opts.device == "cpu" else None  # CPU tensors have no nccl collective
+    reports = launch(sweep, opts.ranks, deadline=opts.deadline, backend=backend, device=opts.device)[0]
     for rep in reports:
         d, m = rep["shape"]["data"], rep["shape"]["model"]
         kind = (f"[{rep['members']} members placed]" if rep["ensemble"] else

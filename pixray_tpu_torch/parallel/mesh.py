@@ -56,7 +56,7 @@ def _env_int(name):
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
                      process_id: int | None = None, backend: str | None = None,
-                     timeout_s: float = DIST_TIMEOUT_S) -> bool:
+                     timeout_s: float = DIST_TIMEOUT_S, device=None) -> bool:
     """Join a process group (a no-op returning False when none is configured).
 
     Arguments fall back to ``$PIXRAY_TPU_COORDINATOR`` (host:port) /
@@ -64,9 +64,11 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     torchrun's ``MASTER_ADDR``:``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``.
     Ranks per host are ``$LOCAL_WORLD_SIZE`` (torchrun's), else every rank
     when the coordinator is a loopback address, else one; the local rank is
-    ``$LOCAL_RANK``, else the rank modulo that.  The backend is ``nccl``
-    when each local rank has a card of its own, else ``gloo`` (several
-    ranks on one card, or the CPU).  ``timeout_s`` bounds each collective.
+    ``$LOCAL_RANK``, else the rank modulo that.  The backend, unless
+    given, is ``gloo`` for a CPU ``device`` (the engine's); otherwise
+    ``nccl`` when each local rank has a card of its own, else ``gloo``
+    (several ranks on one card, or no card).  ``timeout_s`` bounds each
+    collective.
     Idempotent: an initialized group is kept.  Returns True when the group
     has more than one rank."""
     if dist.is_initialized():
@@ -88,6 +90,8 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     local_world = _env_int("LOCAL_WORLD_SIZE") or (num_processes if host in LOOPBACK else 1)
     local_rank = _env_int("LOCAL_RANK")
     local_rank = process_id % local_world if local_rank is None else local_rank
+    if backend is None and device is not None and torch.device(device).type == "cpu":
+        backend = "gloo"  # a CPU tensor has no nccl collective
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() and torch.cuda.device_count() >= local_world else "gloo"
     if backend == "nccl":
