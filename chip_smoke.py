@@ -116,7 +116,7 @@ Phases, each fatal on failure (exit code 1, no result line):
    draws, the JAX package's term names, the frame PNGs and anim.gif;
    steps/s, device events and busy per replayed step;
 16. optimizers: the pixel row under AdamW, Adagrad, Adamax, DiffGrad and
-   AdamP, each blocked against eager as in 5b (16 steps);
+   AdamP, each blocked against eager as in 5b (8 steps, one block);
 17. resume: the pixel row (24 steps, --checkpoint_every 12) and the
    clipdraw row (16, 8) against an engine resumed from the checkpoint, at
    the learning rate and at learning-rate scale 0: the restored latent,
@@ -180,8 +180,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    on the card against the CPU; a two-seed sweep shard;
 32. rung kernels: K1's int8, bf16 and high variants and K2's bf16, high
    and int8 variants (csrc/warp.cu, the JAX package's precision rungs)
-   against their plain twins on the flagship bank and the ragged tie-rich
-   bank: K1-int8's pre-jitter bank bitwise, the other banks within
+   against their plain twins on the flagship bank, the ragged tie-rich
+   bank, 64 cuts of 384 and 16 cuts of 512 (K2-bf16's shared memory past
+   48 KB): K1-int8's pre-jitter bank bitwise, the other banks within
    BANK_ULPS; K2-int8 bitwise without jitter and the same bits twice, the
    float rungs within BWD_RTOL of max|dwork|; kernel, call, CUDA-event and
    plain times beside the bounds (an s8 canvas for K1-int8);
@@ -1976,10 +1977,11 @@ def phase_animation_row(tmp, card):
 
 def phase_optimizers(tmp, card):
     """Row 16: the pixel row under each of the other optimizers, blocked
-    against eager as in 5b (one K1 and one K2 per step in the replay)."""
+    against eager as in 5b (one K1 and one K2 per step in the replay), over
+    one block of 8 steps after step 0, as vqgan's row."""
     for name in OPTIMIZERS:
         with tempfile.TemporaryDirectory(dir=tmp) as sub:
-            phase_blocked(sub, dict(PIXEL_CONFIG, optimiser=name), f"optimiser {name} (pixel)", BLOCKED_STEPS, card)
+            phase_blocked(sub, dict(PIXEL_CONFIG, optimiser=name), f"optimiser {name} (pixel)", 8, card)
 
 
 def _resume_case(tmp, label, config, steps, every, card):
@@ -3298,7 +3300,7 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
     without jitter, where K2's cotangent is g itself.  The helper passes
     against their plain twins, bitwise: K1-int8's scale and pack passes
     (s_w as quantize_canvas takes it, the packed texels as
-    quantize_footprint packs the whole canvas) and K2-bf16's row table
+    pack_texels packs quantize_canvas's codes) and K2-bf16's row table
     (tap_row_ranges); and K2-bf16's visit counts (row visits, and pixel
     visits: each pixel with a tap on the canvas exactly once).  Times as
     phase 3b, the helper passes by kernel, bounds with an s8 canvas for
@@ -3309,7 +3311,7 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
     from pixray_tpu_torch.ops import cuda_warp
     from pixray_tpu_torch.ops.color import jitter_planes_adjoint
     from pixray_tpu_torch.ops.warp import inv3x3
-    from pixray_tpu_torch.ops.warp_batch import (_rung_taps, quantize_canvas, quantize_footprint, tap_row_ranges,
+    from pixray_tpu_torch.ops.warp_batch import (_rung_taps, pack_texels, quantize_canvas, tap_row_ranges,
                                                  warp_adjoint_rung, warp_modes_prec)
 
     dev, bf16 = work.device, torch.bfloat16
@@ -3326,14 +3328,14 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
     pres = {}
     # the helper passes against their plain twins, bitwise
     shape = tuple(work.shape)
-    s_w = quantize_canvas(work)[1]
+    codes, s_w = quantize_canvas(work)
     scale_buf = cuda_warp.launch_canvas_scale(work)
     texels = cuda_warp.launch_canvas_pack(work, scale_buf)
     rows_k, rows_p = cuda_warp.launch_bank_rows(params_dev, shape, s), tap_row_ranges(inv_d, modes_d, shape, s)
     on_canvas = int(_rung_taps(shape, inv_d, modes_d, 0.0, s)[1].any(0).sum())  # pixels with a tap on the canvas
     res["helpers"] = {"scale_bitwise": torch.equal(scale_buf[:-1].max().clamp(min=1e-6), s_w) and
                       torch.equal(scale_buf[-1], s_w),
-                      "pack_bitwise": torch.equal(texels, quantize_footprint(work, s_w, (0, h - 1), (0, w - 1))),
+                      "pack_bitwise": torch.equal(texels, pack_texels(codes)),
                       "rows_bitwise": torch.equal(rows_k, rows_p), "on_canvas": on_canvas}
     if not all(v for k, v in res["helpers"].items() if k.endswith("bitwise")):
         fail(f"a helper pass of K1-int8 or K2-bf16 differs from its plain twin on {name}: {res['helpers']}")
@@ -3374,7 +3376,7 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
                                      "warp_fwd_int8_pack": bound(h * w * (3 * 4 + 4), h * w * 3 * 3)}
                 r["helper_plain_ms"] = {
                     "warp_fwd_int8_scale": device_ms(lambda: work.abs().amax()),
-                    "warp_fwd_int8_pack": device_ms(lambda: quantize_footprint(work, s_w, (0, h - 1), (0, w - 1)))}
+                    "warp_fwd_int8_pack": device_ms(lambda: pack_texels(quantize_canvas(work)[0]))}
             r["plain_ms"], r["plain_event_ms"] = device_ms(plain), median_ms(plain)
         res["fwd"][prec] = r
     # K2's cotangent: the explicit jitter adjoint (K2's formulas) rounded to bf16, as phase 3b
@@ -3455,8 +3457,10 @@ def helper_ms(times, counter):
 def phase_rung_kernels():
     """32: the rung variants of K1/K2 against their plain twins on the
     flagship bank (64 cuts of 224 on 224x224x3, bf16, 47 jittered, noise;
-    timed), the ragged tie-rich bank of phase 3b and 64 cuts of 384 on
-    384x384x3 (RN50x16's, drawn as the flagship's)."""
+    timed), the ragged tie-rich bank of phase 3b, 64 cuts of 384 on
+    384x384x3 (RN50x16's, drawn as the flagship's) and 16 cuts of 512 on
+    512x512x3, wide enough that K2-bf16's band copy takes more than 48 KB
+    of shared memory (the opt-in past the default)."""
     import torch
 
     from pixray_tpu_torch.engine.cutouts import draw_noise
@@ -3482,8 +3486,11 @@ def phase_rung_kernels():
     _, _, (work_l, ms_l, modes_l, jitter_l, facs_l, planes_l) = flagship_bank_inputs(64, 384)
     large = rung_bank_case("64 cuts of 384", work_l, ms_l, modes_l, 0.37, 384, jitter_l, facs_l, planes_l,
                            time_it=False)
+    _, _, (work_w, ms_w, modes_w, jitter_w, facs_w, planes_w) = flagship_bank_inputs(16, 512)
+    wide = rung_bank_case("16 cuts of 512", work_w, ms_w, modes_w, 0.37, 512, jitter_w, facs_w, planes_w,
+                          time_it=False)
     layout = cuda_warp.scratch_layout()
-    for r in (flagship, ragged, large):
+    for r in (flagship, ragged, large, wide):
         f, b = r["fwd"], r["bwd"]
         print(f"rung kernels {r['name']} (N={r['n']}, S={r['s']}, {r['canvas'][0]}x{r['canvas'][1]}x3, bf16, "
               f"{r['jittered']} jittered, noise) against their plain twins: K1 pre-jitter bank bitwise "
@@ -3509,7 +3516,7 @@ def phase_rung_kernels():
           f"{tm(f['bf16'])}, K1-high {tm(f['high'])}; K2-bf16 {tm(b['bf16'])} (bytes moved "
           f"{b['bf16']['bytes_moved'] / 1e6:.2f} MB), its passes {hm(b['bf16'])}; K2-high {tm(b['high'])}, "
           f"K2-int8 (max, scatter, finish) {tm(b['int8'])}", flush=True)
-    return flagship, ragged, large
+    return flagship, ragged, large, wide
 
 
 # torch._int_mm at the ViT-B/32 bank's products (64 cuts x 50 tokens: in_proj, out_proj, mlp_fc,
@@ -3552,7 +3559,7 @@ LN_ATOL = 6.25e-2  # a LayerNorm's bf16 output, card against CPU: two bf16 ulps 
 def layer_norm_check(p):
     """A bf16 tower's LayerNorm affines are float32 tensors (the JAX
     ``_cast_storage``), and its first LayerNorm, with its own affine (ones
-    and zeros: the exact bf16 copy) and with one written in float32, takes
+    and zeros) and with one written in float32, takes
     a bf16 input inside a captured CUDA graph: the replay bitwise the eager
     call, bf16 out, within LN_ATOL of the CPU.  Returns a summary string;
     fatal otherwise."""
@@ -3567,13 +3574,12 @@ def layer_norm_check(p):
         fail(f"{p.name}: LayerNorm affines not all float32: {sorted({str(m.weight.dtype) for m in norms})}")
     gen = torch.Generator(device="cuda").manual_seed(16)
     errs = []
-    for written in (False, True):  # the tower's own affine (its exact bf16 copy), then one written in f32
+    for written in (False, True):  # the tower's own affine, then one written in f32
         ln = copy.deepcopy(norms[0])
         with torch.no_grad():
             if written:
                 ln.weight.copy_(torch.rand(ln.weight.shape, device="cuda", generator=gen) + 0.5)
                 ln.bias.copy_(torch.randn(ln.bias.shape, device="cuda", generator=gen) * 0.3)
-                ln.keep_exact_copy(torch.bfloat16)
             x = torch.randn((64, 50, ln.weight.shape[0]), device="cuda", generator=gen).to(torch.bfloat16)
             eager = ln(x)
             graph = torch.cuda.CUDAGraph()

@@ -102,6 +102,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -813,8 +814,10 @@ bank_bwd_int8_finish_kernel(const long long* __restrict__ acc_q, const float* __
 //   and the work of a band is uneven (a border cut clamped at the canvas
 //   edge puts thousands of pixels on one band and one row of words).  Band
 //   height, cluster size and groups: kBandRows, kBandCluster, kBandGroups,
-//   the fastest of port_rungs.py --sweep at the flagship (more blocks per
-//   band beat larger clusters); a per-warp queue of the owned pixels,
+//   from a sweep at the flagship and at 384 (PERF.md §6: more blocks per
+//   band beat larger clusters; 16 groups against 32 were 3% slower at the
+//   flagship and 6% faster at 384, with half the partial canvases' scratch,
+//   10.8 MB at the flagship); a per-warp queue of the owned pixels,
 //   warp-aggregated atomics, runs of rows as work units and a whole block
 //   on one output row at a time each measured slower and were not kept.
 //   The band is shrunk where it and its halo row would not fit
@@ -824,7 +827,7 @@ bank_bwd_int8_finish_kernel(const long long* __restrict__ acc_q, const float* __
 constexpr int kScaleBlocks = 256;            // K1-int8's scale pass: blocks, one partial maximum each
 constexpr int kBandRows = 8;                 // K2-bf16: canvas rows per band
 constexpr int kBandCluster = 2;              // K2-bf16: blocks per cluster (up to the portable 8)
-constexpr int kBandGroups = 32;              // K2-bf16: clusters (cut groups, partial canvases) per band
+constexpr int kBandGroups = 16;              // K2-bf16: clusters (cut groups, partial canvases) per band
 constexpr int kBandSmemMax = 200 * 1024;     // K2-bf16: the largest band copy a block keeps
 static_assert(kScaleBlocks <= kThreads, "one partial maximum per thread of K1-int8");
 
@@ -1139,20 +1142,20 @@ int launch_fwd(const void* work, const float* scale, const float* params, const 
   return (int)cudaGetLastError();
 }
 
-// K2-bf16: bands of band_rows canvas rows (shrunk until a band and its
-// halo row fit kBandSmemMax), `groups` clusters of `cluster` blocks per band
-// (no more groups than the cuts fill), then the sum pass; 0 for a default.
+// K2-bf16: bands of kBandRows canvas rows (shrunk until a band and its
+// halo row fit kBandSmemMax), up to kBandGroups clusters of kBandCluster
+// blocks per band (no more groups than the cuts fill), then the sum pass.
 struct BandPlan {
   int band_rows, cluster, groups;
-  bool ok() const { return band_rows >= 1 && cluster >= 1 && cluster <= 8; }
+  bool ok() const { return band_rows >= 1; }
 };
 
-BandPlan band_plan(int n, int w, int band_rows, int cluster, int groups) {
+BandPlan band_plan(int n, int w) {
   BandPlan b;
-  b.cluster = cluster > 0 ? cluster : kBandCluster;
-  b.groups = std::max(1, std::min(groups > 0 ? groups : kBandGroups, (n + b.cluster - 1) / b.cluster));
+  b.cluster = kBandCluster;
+  b.groups = std::max(1, std::min(kBandGroups, (n + kBandCluster - 1) / kBandCluster));
   const long fit = (long)kBandSmemMax / ((long)w * 3 * (long)sizeof(float)) - 1;  // a band and its halo row
-  b.band_rows = (int)std::min((long)(band_rows > 0 ? band_rows : kBandRows), fit);
+  b.band_rows = (int)std::min((long)kBandRows, fit);
   return b;
 }
 
@@ -1162,12 +1165,16 @@ int launch_bwd_bands(const T* g, const T* pre, const float* params, const int2* 
   if (rows == nullptr || partial == nullptr || !plan.ok()) return (int)cudaErrorInvalidValue;
   const int band_rows = plan.band_rows, cluster = plan.cluster, groups = plan.groups;
   const int smem = (int)((band_rows + 1) * (long)w * 3 * (long)sizeof(float));
-  static bool opted_in = false;  // dynamic shared memory past 48 KB, once per instantiation
-  if (!opted_in) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(bank_bwd_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBandSmemMax);
+  // dynamic shared memory past 48 KB: an attribute of the current device, set once on each
+  static std::atomic<unsigned long long> opted_in{0};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = 1ull << (device & 63);
+  if (!(opted_in.load() & bit)) {
+    err = cudaFuncSetAttribute(bank_bwd_bf16_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kBandSmemMax);
     if (err != cudaSuccess) return (int)err;
-    opted_in = true;
+    opted_in.fetch_or(bit);
   }
   const int bands = (h + band_rows - 1) / band_rows;
   cudaLaunchConfig_t cfg = {};
@@ -1182,8 +1189,8 @@ int launch_bwd_bands(const T* g, const T* pre, const float* params, const int2* 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, bank_bwd_bf16_kernel<T>, g, pre, params, rows, partial, branches,
-                                             n, h, w, s, band_rows, groups);
+  err = cudaLaunchKernelEx(&cfg, bank_bwd_bf16_kernel<T>, g, pre, params, rows, partial, branches, n, h, w, s,
+                           band_rows, groups);
   if (err != cudaSuccess) return (int)err;
   const long count = (long)h * w * 3;
   bank_bwd_sum_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(partial, dwork, groups,
@@ -1193,8 +1200,8 @@ int launch_bwd_bands(const T* g, const T* pre, const float* params, const int2* 
 
 template <typename T>
 int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc_q, float* gmax,
-               const int* rows, float* partial, int* branches, int prec, int n, int h, int w, int s, int band_rows,
-               int cluster, int groups, cudaStream_t stream) {
+               const int* rows, float* partial, int* branches, int prec, int n, int h, int w, int s,
+               cudaStream_t stream) {
   const int smem = kSmemFloats * (int)sizeof(float);
   const int tiles = ((s + kTile - 1) / kTile) * ((s + kTile - 1) / kTile);
   dim3 grid(tiles, n);
@@ -1206,7 +1213,7 @@ int launch_bwd(const void* g, const void* pre, const float* params, float* dwork
       break;
     case kBf16: {
       const int code = launch_bwd_bands<T>(gt, pt, params, (const int2*)rows, dwork, partial, branches, n, h, w, s,
-                                           band_plan(n, w, band_rows, cluster, groups), stream);
+                                           band_plan(n, w), stream);
       if (code != 0) return code;
       break;
     }
@@ -1263,10 +1270,9 @@ extern "C" int bank_bwd_rows(const float* params, int* rows, int n, int h, int w
   return (int)cudaGetLastError();
 }
 
-// K2-bf16's partial canvases: floats for (groups, H + bands, W, 3) at the
-// band rows and groups the launch takes (0: the defaults).
-extern "C" long long bank_bwd_partial_floats(int n, int h, int w, int band_rows, int cluster, int groups) {
-  const BandPlan b = band_plan(n, w, band_rows, cluster, groups);
+// K2-bf16's partial canvases: floats for (groups, H + bands, W, 3).
+extern "C" long long bank_bwd_partial_floats(int n, int h, int w) {
+  const BandPlan b = band_plan(n, w);
   if (!b.ok()) return -1;
   return (long long)b.groups * (h + (h + b.band_rows - 1) / b.band_rows) * w * 3;
 }
@@ -1274,17 +1280,16 @@ extern "C" long long bank_bwd_partial_floats(int n, int h, int w, int band_rows,
 // int8 (prec 3): acc (H, W, 3) int64 and gmax (1,) f32, both zeroed by the
 // caller; three launches (max, scatter, finish).  bf16 (prec 1): rows, the
 // row table of bank_bwd_rows, and partial, bank_bwd_partial_floats of f32
-// scratch; dwork need not be zeroed; two launches (bands, sum); band_rows,
-// cluster and groups 0 for the defaults; branches counts row and pixel
-// visits.  Null (and 0) where a rung takes none.
+// scratch; dwork need not be zeroed; two launches (bands, sum); branches
+// counts row and pixel visits.  Null where a rung takes none.
 extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc, float* gmax,
                         const int* rows, float* partial, int* branches, int dtype, int prec, int n, int h, int w,
-                        int s, int band_rows, int cluster, int groups, void* stream) {
+                        int s, void* stream) {
   if (dtype == 1)
-    return launch_bwd<bf16>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s, band_rows,
-                            cluster, groups, (cudaStream_t)stream);
-  return launch_bwd<float>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s, band_rows,
-                           cluster, groups, (cudaStream_t)stream);
+    return launch_bwd<bf16>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s,
+                            (cudaStream_t)stream);
+  return launch_bwd<float>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s,
+                           (cudaStream_t)stream);
 }
 
 // the per-cut row's layout: stride, then the offsets of mode, hue, saturation, apply, noise factor, fill
@@ -1293,7 +1298,7 @@ extern "C" void bank_layout(int* out) {
   for (int k = 0; k < 7; ++k) out[k] = layout[k];
 }
 
-// K1-int8's count of partial maxima, K2-bf16's default band rows, cluster size and cut groups
+// K1-int8's count of partial maxima, K2-bf16's band rows, cluster size and most cut groups
 extern "C" void bank_scratch(int* out) {
   out[0] = kScaleBlocks;
   out[1] = kBandRows;

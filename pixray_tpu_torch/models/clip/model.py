@@ -52,9 +52,7 @@ class LayerNorm(nn.LayerNorm):
     stores it.  ``ln32`` (``PIXRAY_TPU_CLIP_LN32=1``): statistics and the
     affine in float32, one rounding at the end: ``F.layer_norm`` of the
     input cast to float32 (on the card it takes no bf16 input with float32
-    affines), or, where the affine has a bf16 copy of the same values
-    (:meth:`keep_exact_copy`), ``F.layer_norm`` at bf16 with it, which
-    computes in float32 too and saves the casts.  Otherwise the JAX
+    affines).  Otherwise the JAX
     ``LayerNorm`` as written for a bf16 input: the mean and variance as
     ``jnp.mean``/``jnp.var`` give them (float32 sums, rounded to bf16),
     ``(x - mean) * rsqrt(var + eps)`` in bf16, the affine in float32 and
@@ -63,25 +61,10 @@ class LayerNorm(nn.LayerNorm):
 
     ln32 = True
 
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        # the affine in the compute dtype, where it equals the float32 one (keep_exact_copy)
-        self.register_buffer("weight_copy", None, persistent=False)
-        self.register_buffer("bias_copy", None, persistent=False)
-
-    def keep_exact_copy(self, dtype):
-        """Keep the affine in ``dtype`` beside the float32 one when it rounds
-        to the same values (random towers' ones and zeros), else none."""
-        w, b = self.weight.detach().to(dtype), self.bias.detach().to(dtype)
-        exact = torch.equal(w.float(), self.weight.float()) and torch.equal(b.float(), self.bias.float())
-        self.weight_copy, self.bias_copy = (w, b) if exact else (None, None)
-
     def forward(self, x):
         if x.dtype == self.weight.dtype:
             return super().forward(x)
         if self.ln32:
-            if self.weight_copy is not None and self.weight_copy.dtype == x.dtype:
-                return F.layer_norm(x, self.normalized_shape, self.weight_copy, self.bias_copy, self.eps)
             return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps).to(x.dtype)
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)

@@ -176,7 +176,6 @@ class Perceptor:
         for m in model.modules():
             if isinstance(m, LayerNorm):
                 m.ln32 = rungs.clip_ln32
-                m.keep_exact_copy(dtype)
         if self.config.vision_kind == "resnet":
             model.visual.to(memory_format=torch.channels_last)
         self.model = model

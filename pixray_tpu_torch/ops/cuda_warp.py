@@ -39,7 +39,7 @@ versions are ``ops/warp_batch.py``'s ``warp_modes_prec``.  K1-int8 takes
 the canvas quantized on the device by two small passes
 (:func:`launch_canvas_scale`, :func:`launch_canvas_pack`; s_w stays on the
 device, never read on the host; plain twins ``quantize_canvas`` and
-``quantize_footprint``) as one packed texel per canvas pixel; K2-bf16 walks
+``pack_texels``) as one packed texel per canvas pixel; K2-bf16 walks
 a row table (:func:`launch_bank_rows`, plain twin ``tap_row_ranges``) in
 canvas bands, summed by thread block clusters into a few partial canvases
 that its last pass adds up; K2-int8 takes the bank's max|g| in a first
@@ -115,10 +115,10 @@ def _library():
             lib.bank_int8_pack.argtypes = [ptr, ptr, ptr, i64, ptr]
             lib.bank_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
             lib.bank_bwd_rows.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
-            lib.bank_bwd.argtypes = [ptr] * 9 + [i32] * 9 + [ptr]
+            lib.bank_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
             for fn in (lib.bank_int8_scale, lib.bank_int8_pack, lib.bank_fwd, lib.bank_bwd_rows, lib.bank_bwd):
                 fn.restype = i32
-            lib.bank_bwd_partial_floats.argtypes = [i32] * 6
+            lib.bank_bwd_partial_floats.argtypes = [i32] * 3
             lib.bank_bwd_partial_floats.restype = i64
             for fn in (lib.bank_layout, lib.bank_scratch):
                 fn.argtypes = [ptr]
@@ -134,8 +134,8 @@ def _library():
 
 @functools.cache
 def scratch_layout() -> dict:
-    """K1-int8's count of partial maxima and K2-bf16's default band rows,
-    cluster size and cut groups, as ``csrc/warp.cu`` sets them (builds the
+    """K1-int8's count of partial maxima and K2-bf16's band rows, cluster
+    size and most cut groups, as ``csrc/warp.cu`` sets them (builds the
     library)."""
     out = (ctypes.c_int * 4)()
     _library().bank_scratch(out)
@@ -244,7 +244,7 @@ def launch_canvas_pack(work, scale):
     """K1-int8's pack pass: the canvas quantized with s_w = max(max of the
     partial maxima, 1e-6) (stored in ``scale``'s last element) → (H, W)
     int32 texels, r, g, b as s8 in bytes 0, 1, 2 (plain:
-    ``quantize_footprint`` of the whole canvas)."""
+    ``pack_texels(quantize_canvas(work)[0])``)."""
     if work.device.type != "cuda":
         raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {work.device}")
     _check("work", work, work.device, torch.float32, work.shape)
@@ -350,7 +350,7 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None, pr
         gmax = torch.zeros((1,), dtype=torch.float32, device=dev)
     if prec == "bf16":
         rows = launch_bank_rows(params, work_shape, out_size)
-        floats = lib.bank_bwd_partial_floats(n, h, w, 0, 0, 0)
+        floats = lib.bank_bwd_partial_floats(n, h, w)
         if floats < 0:
             raise ValueError(f"K2-bf16 cannot keep a band of a canvas {w} pixels wide in shared memory")
         partial = torch.empty((floats,), dtype=torch.float32, device=dev)
@@ -360,8 +360,7 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None, pr
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
     code = lib.bank_bwd(g.data_ptr(), ptr(pre), params.data_ptr(), dwork.data_ptr(), ptr(acc), ptr(gmax), ptr(rows),
-                        ptr(partial), ptr(branches), _DTYPES[g.dtype], _PREC_CODES[prec], n, h, w, out_size, 0, 0, 0,
-                        stream)
+                        ptr(partial), ptr(branches), _DTYPES[g.dtype], _PREC_CODES[prec], n, h, w, out_size, stream)
     _raise_on(code, f"bank_bwd ({prec})")
     LAUNCHES[BWD_COUNTERS[prec]] += 1
     if prec == "bf16":

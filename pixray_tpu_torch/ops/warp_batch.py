@@ -170,16 +170,6 @@ def pack_texels(codes):
     return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
 
 
-def quantize_footprint(work, s_w, rows, cols):
-    """The plain twin of K1-int8's pack pass on a footprint of the canvas:
-    rows ``rows[0]`` to ``rows[1]`` and columns ``cols[0]`` to ``cols[1]``
-    (inclusive) quantized with the kernel's operations in its order (a true
-    division by the device scalar ``s_w``, the product with 127, round half
-    to even) and packed (:func:`pack_texels`): (rows, cols) int32."""
-    patch = work[rows[0]:rows[1] + 1, cols[0]:cols[1] + 1].float()
-    return pack_texels(torch.round(torch.div(patch, s_w) * Q127).to(torch.int8))
-
-
 def _dequant_scale(s):
     """``s / 127^2`` as a true division (PyTorch's CUDA division by a
     Python scalar is a product with its reciprocal; the kernels divide)."""

@@ -2,7 +2,7 @@
 """Time the cutout bank's default warp rungs, K1-int8 and K2-bf16, of one
 tree of the PyTorch port on one NVIDIA GPU.
 
-    python3 port_rungs.py [--root DIR] [--label NAME] [--sweep] [--ladder]
+    python3 port_rungs.py [--root DIR] [--label NAME] [--ladder]
 
 ``--root`` imports ``pixray_tpu_torch`` from another checkout (default:
 this one), so that two trees are measured in one call on one card, in
@@ -19,12 +19,10 @@ the bank without jitter, whose cotangent is g itself): the summed kernel
 time of one call (``chip_smoke.kernel_times``), each kernel by name, and
 the median CUDA-event time of one call, beside chip_smoke.py's bounds.
 
-``--sweep`` (a tree that has the band kernel) times K2-bf16 at other band
-heights, cluster sizes and cut groups through the library's ``bank_bwd``
-and prints its visit counts; ``--ladder`` drives chip_smoke.py 34's pixel row (17
-steps, blocked, ViT-B/32 on its seeded weights) at the exact rungs, with
-``PIXRAY_TPU_WARP_PREC=int8`` alone and with ``=bf16`` alone, and reads the
-device busy per step of three replays of each.  Prints one JSON line and
+``--ladder`` drives chip_smoke.py 34's pixel row (17 steps, blocked,
+ViT-B/32 on its seeded weights) at the exact rungs, with
+``PIXRAY_TPU_WARP_PREC=int8`` alone and with ``=bf16`` alone, and reads
+the device busy per step of three replays of each.  Prints one JSON line and
 writes it to ``chiprun_out/rungs_<label>.json``.
 """
 
@@ -39,8 +37,6 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# (band rows, cluster, cut groups) of K2-bf16's bands
-SWEEP = ((8, 2, 32), (8, 8, 8), (8, 4, 16), (4, 2, 32), (16, 2, 32), (8, 2, 16), (8, 1, 64))
 LADDER_ROWS = (("exact", {}), ("warp int8 alone", {"PIXRAY_TPU_WARP_PREC": "int8"}),
                ("warp bf16", {"PIXRAY_TPU_WARP_PREC": "bf16"}))
 LADDER_WINDOWS = 3
@@ -52,7 +48,7 @@ def _times(cs, fn):
     return {"ms": sum(times.values()), "kernels": times, "event_ms": cs.median_ms(fn)}
 
 
-def bank(cs, n, s, sweep):
+def bank(cs, n, s):
     """K1-int8 and K2-bf16 on one bank drawn as the flagship's."""
     import torch
 
@@ -81,30 +77,6 @@ def bank(cs, n, s, sweep):
         "k2_bound": cs.bound(3 * n * plane + 3 * jittered * plane + rows + canvas,
                              (cs.WARP_BWD_FLOPS_PER_PIXEL * n + cs.JITTER_BWD_FLOPS_PER_PIXEL * jittered) * s * s),
     }
-    if sweep:
-        lib = cuda_warp._library()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        table = cuda_warp.launch_bank_rows(params_dev, shape, s)
-        dwork = torch.empty(shape, dtype=torch.float32, device=dev)
-        h, w, _ = shape
-        out["sweep"] = []
-        for band_rows, cluster, groups in SWEEP:
-            counts = torch.zeros((2,), dtype=torch.int32, device=dev)
-            partial = torch.empty((lib.bank_bwd_partial_floats(n, h, w, band_rows, cluster, groups),),
-                                  dtype=torch.float32, device=dev)
-
-            def call(branches=None, plan=(band_rows, cluster, groups), partial=partial):
-                code = lib.bank_bwd(g.data_ptr(), pre.data_ptr(), params_dev.data_ptr(), dwork.data_ptr(), None,
-                                    None, table.data_ptr(), partial.data_ptr(),
-                                    None if branches is None else branches.data_ptr(), 1, 1, n, h, w, s, *plan,
-                                    stream)
-                if code != 0:
-                    raise RuntimeError(f"bank_bwd (band rows, cluster, groups {plan}): CUDA error {code}")
-
-            call(counts)
-            times = _times(cs, call)
-            out["sweep"].append({"band_rows": band_rows, "cluster": cluster, "groups": groups,
-                                 "row_visits": int(counts[0]), "pixel_visits": int(counts[1]), **times})
     return out
 
 
@@ -137,7 +109,6 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE, help="checkout whose pixray_tpu_torch is measured")
     ap.add_argument("--label", default="tree")
-    ap.add_argument("--sweep", action="store_true", help="K2-bf16 at other band heights and cluster sizes")
     ap.add_argument("--ladder", action="store_true", help="the pixel row's device busy at three warp rungs")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -156,7 +127,7 @@ def main():
     card = cs.card_line()
     cs.build_all()
     out = {"label": args.label, "package": os.path.dirname(pixray_tpu_torch.__file__), "card": card,
-           "banks": [bank(cs, 64, 224, args.sweep), bank(cs, 64, 384, args.sweep)]}
+           "banks": [bank(cs, 64, 224), bank(cs, 64, 384)]}
     if args.ladder:
         with tempfile.TemporaryDirectory() as tmp:
             out["ladder"] = ladder(cs, tmp)
@@ -170,10 +141,6 @@ def main():
               f"(bound {b['k1_bound'][0]:.4f}), K2-bf16 {t('k2_bf16')} ms (bound {b['k2_bound'][0]:.4f}), without "
               f"jitter {t('k2_bf16_no_jitter')} ms; kernels {json.dumps(b['k1_int8']['kernels'])} "
               f"{json.dumps(b['k2_bf16']['kernels'])}; on {card}", flush=True)
-        for r in b.get("sweep", []):
-            print(f"{args.label} sweep {b['s']}: {r['band_rows']} rows, clusters of {r['cluster']}, {r['groups']} "
-                  f"groups: {r['ms']:.4f} / {r['event_ms']:.4f} ms, row visits {r['row_visits']}, pixel visits "
-                  f"{r['pixel_visits']}", flush=True)
     for label, r in out.get("ladder", {}).items():
         print(f"{args.label} ladder {label}: busy per step {r['median_busy_ms']:.4f} ms "
               f"({[round(x, 4) for x in r['busy_ms']]}), last5 {r['last5']:.4f}, launches {r['launches']}; on {card}",

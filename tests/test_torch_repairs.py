@@ -92,8 +92,8 @@ def test_bf16_tower_keeps_layernorm_affines_f32(name, ln32, monkeypatch):
 def test_layernorm_takes_bf16_input_with_f32_affines(ln32, written, monkeypatch):
     """Both branches, with ``F.layer_norm`` as strict as on the card, where
     it takes no bf16 input with float32 affines (the CPU's accepts them):
-    affines written in float32 take the cast, ones and zeros their exact
-    bf16 copy (``keep_exact_copy``); both give the float32 LayerNorm."""
+    affines written in float32 and the ones and zeros a tower starts with
+    both give the float32 LayerNorm, with no state beside the affine."""
     layer_norm = torch.nn.functional.layer_norm
 
     def strict(x, shape, weight=None, bias=None, eps=1e-5):
@@ -108,8 +108,7 @@ def test_layernorm_takes_bf16_input_with_f32_affines(ln32, written, monkeypatch)
         with torch.no_grad():
             ln.weight.uniform_(0.5, 1.5)
             ln.bias.normal_(0.0, 0.3)
-    ln.keep_exact_copy(torch.bfloat16)
-    assert (ln.weight_copy is None) == written and not any(k.endswith("_copy") for k in ln.state_dict())
+    assert sorted(ln.state_dict()) == ["bias", "weight"] and not list(ln.buffers())
     x = torch.randn((5, 24)).to(torch.bfloat16)
     with torch.no_grad():
         y = ln(x)

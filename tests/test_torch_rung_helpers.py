@@ -1,13 +1,14 @@
 """The plain helpers the redesigned K1-int8 and K2-bf16 kernels rest on,
 on the CPU (``ops/warp_batch.py``):
 
-- ``quantize_footprint``, the plain twin of K1-int8's pack pass (a canvas
-  footprint quantized with the kernel's operations and packed as one
-  32-bit texel per canvas pixel, ``pack_texels``), is bitwise
-  ``quantize_canvas`` on the same elements: on canvases holding +s_w and
-  -s_w and values whose quotient times 127 is an exact half (where
-  round-half-even decides), and on the tie-rich canvas of ``chip_smoke.py``
-  phase 3b;
+- ``pack_texels(quantize_canvas(work)[0])``, the plain twin of K1-int8's
+  pack pass (the canvas quantized and packed as one 32-bit texel per
+  canvas pixel), holds the codes of the kernel's operations in its order
+  (a true division by s_w, the product with 127, round half to even; here
+  in numpy float32) in bytes 0-2 and zero in byte 3: on canvases holding
+  +s_w and -s_w and values whose quotient times 127 is an exact half
+  (where round-half-even decides), and on the tie-rich canvas of
+  ``chip_smoke.py`` phase 3b;
 - ``tap_row_ranges``, the plain twin of K2-bf16's row table (per cut and
   output row, the least and the greatest canvas row that a tap on the
   canvas reads), equals a brute force over every pixel's taps from
@@ -66,16 +67,17 @@ def _canvas(kind):
 
 
 @pytest.mark.parametrize("kind", ["halves at 1", "halves at 0.37", "halves at 2", "ties"])
-def test_footprint_quantize_is_quantize_canvas(kind):
+def test_packed_texels_are_quantize_canvas(kind):
     work = _canvas(kind)
     codes, s_w = WB.quantize_canvas(work)
-    h, w, _ = work.shape
-    for rows, cols in (((0, h - 1), (0, w - 1)), ((3, 9), (2, 17)), ((h - 1, h - 1), (0, 0))):
-        got = WB.quantize_footprint(work, s_w, rows, cols)
-        want = WB.pack_texels(codes[rows[0]:rows[1] + 1, cols[0]:cols[1] + 1])
-        assert torch.equal(got, want), (kind, rows, cols)
-    packed = WB.quantize_footprint(work, s_w, (0, h - 1), (0, w - 1))
+    x = work.numpy()
+    s_np = np.float32(max(np.abs(x).max(), np.float32(1e-6)))
+    assert float(s_w) == s_np
+    want = np.rint((x / s_np).astype(np.float32) * np.float32(127.0)).astype(np.int8)  # rint: half to even
+    assert np.array_equal(codes.numpy(), want)
+    packed = WB.pack_texels(codes)
     unpacked = torch.stack([((packed >> (8 * c)) & 0xFF).to(torch.uint8).view(torch.int8) for c in range(3)], -1)
+    assert packed.dtype == torch.int32 and packed.shape == work.shape[:2]
     assert torch.equal(unpacked, codes) and int((packed >> 24).abs().max()) == 0
     if kind != "ties":
         assert {127, -127} <= set(codes.reshape(-1).tolist())
