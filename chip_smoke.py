@@ -177,15 +177,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    job's runner still steps; K1/K2 per served step; time to first frame,
    ms per step, peak memory and memory after each job, job 4's within
    SERVED_MEMORY_MARGIN of job 1's; vectorize --models ViT-B/32 --inputs
-   on the card against the CPU; a two-seed sweep shard;
+   on the card against the CPU; a two-seed sweep shard (run last, after
+   35: after its served jobs torch.profiler sees no kernels);
 32. rung kernels: K1's int8, bf16 and high variants and K2's bf16, high
    and int8 variants (csrc/warp.cu, the JAX package's precision rungs)
    against their plain twins on the flagship bank, the ragged tie-rich
-   bank, 64 cuts of 384 and 16 cuts of 512 (K2-bf16's shared memory past
-   48 KB): K1-int8's pre-jitter bank bitwise, the other banks within
-   BANK_ULPS; K2-int8 bitwise without jitter and the same bits twice, the
-   float rungs within BWD_RTOL of max|dwork|; kernel, call, CUDA-event and
-   plain times beside the bounds (an s8 canvas for K1-int8);
+   bank, 64 cuts of 384, 16 cuts of 512 (K2-bf16's shared memory past
+   48 KB) and 8 zoomed-out cuts on 384x384 (K2-int8's scatter on device
+   memory): K1-int8's pre-jitter bank bitwise, the other banks within
+   BANK_ULPS; K2-int8's cotangent pass and K2-int8 bitwise with and
+   without jitter and the same bits twice, the float rungs within
+   RUNG_BWD_RTOL of max|dwork| and bitwise on a bank where each canvas
+   element takes one tap; kernel, call, CUDA-event and plain times beside the
+   bounds (an s8 canvas for K1-int8);
 33. tower rungs: ViT-B/32 on the flagship bank under PIXRAY_TPU_CLIP_PREC
    bf16 / int8 / int8b, _CLIP_PREQ 1 / 0 and _CLIP_LN32 0 / 1: forward +
    input gradient ms per call, and at the JAX default rung the card
@@ -3251,7 +3255,10 @@ TOWER_RUNGS = (("bf16", "1", "1", False), ("bf16", "1", "0", False), ("int8", "1
                ("int8b", "1", "0", True), ("int8b", "0", "0", False))
 TOWER_CPU_CUTS = 2
 TOWER_ATOL = 5e-2  # ViT-B/32 embeddings, card against CPU, both bf16: equal s8 codes, bf16 sums in other orders
-RUNG_BWD_RTOL = {"bf16": BWD_RTOL, "high": BWD_RTOL}  # K2's float rungs: atomics' order, of max|dwork|
+# K2's float rungs against their plain twins, of max|dwork|: the twins do the kernels' arithmetic, so only the
+# atomics' order parts them (at most 7.3e-7 on phase 32's banks on an H100); a K2-high body on the bf16 product
+# reads 1.1e-3 at the flagship, one on the f32 product stays inside (one_tap_case catches it)
+RUNG_BWD_RTOL = {"bf16": 1e-5, "high": 1e-5}
 
 
 _VIT_B32 = {}
@@ -3297,21 +3304,23 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
     the bank (within BANK_ULPS); per K2 rung the gradient from the explicit
     jitter adjoint's cotangent (int8 bitwise, the float rungs within
     RUNG_BWD_RTOL of max|dwork|), and K2-int8 once more on the bank
-    without jitter, where K2's cotangent is g itself.  The helper passes
-    against their plain twins, bitwise: K1-int8's scale and pack passes
-    (s_w as quantize_canvas takes it, the packed texels as
-    pack_texels packs quantize_canvas's codes) and K2-bf16's row table
-    (tap_row_ranges); and K2-bf16's visit counts (row visits, and pixel
-    visits: each pixel with a tap on the canvas exactly once).  Times as
-    phase 3b, the helper passes by kernel, bounds with an s8 canvas for
-    K1-int8 (its pack pass reads the f32 canvas); grid_sample computes none
-    of these functions."""
+    without jitter, where K2's cotangent is g itself, and a third time for
+    the same bits.  The helper passes against their plain twins, bitwise:
+    K1-int8's scale and pack passes (s_w as quantize_canvas takes it, the
+    packed texels as pack_texels packs quantize_canvas's codes), K2-bf16's
+    row table (tap_row_ranges) and K2-int8's cotangent pass (the jittered
+    cuts' cotangent bank and s_g as bank_cotangent_plain gives them, the
+    int64 canvas zeroed); K2-bf16's visit counts (row visits, and pixel
+    visits: each pixel with a tap on the canvas exactly once); and the
+    blocks of K2-int8's scatter that summed in shared memory and that added
+    to device memory.  Times as phase 3b, the helper passes by kernel,
+    bounds with an s8 canvas for K1-int8 (its pack pass reads the f32
+    canvas); grid_sample computes none of these functions."""
     import torch
 
     from pixray_tpu_torch.ops import cuda_warp
-    from pixray_tpu_torch.ops.color import jitter_planes_adjoint
     from pixray_tpu_torch.ops.warp import inv3x3
-    from pixray_tpu_torch.ops.warp_batch import (_rung_taps, pack_texels, quantize_canvas, tap_row_ranges,
+    from pixray_tpu_torch.ops.warp_batch import (DEQUANT, _rung_taps, pack_texels, quantize_canvas, tap_row_ranges,
                                                  warp_adjoint_rung, warp_modes_prec)
 
     dev, bf16 = work.device, torch.bfloat16
@@ -3380,14 +3389,19 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
             r["plain_ms"], r["plain_event_ms"] = device_ms(plain), median_ms(plain)
         res["fwd"][prec] = r
     # K2's cotangent: the explicit jitter adjoint (K2's formulas) rounded to bf16, as phase 3b
-    u = cuda_warp.unpack_params(params)
     pre_x = pres["int8"]
-    d_exp = torch.stack(jitter_planes_adjoint(*pre_x.unbind(1), u["hue"].to(dev)[:, None, None],
-                                              u["sat"].to(dev)[:, None, None], *g.float().unbind(1)), 1)
-    d_exp = torch.where(applied[:, None, None, None], d_exp.to(bf16), g)
+    d_exp, s_g = cuda_warp.bank_cotangent_plain(g, pre_x, params)
+    cot_k, partial_k, acc_k = cuda_warp.launch_bank_cotangent(g, pre_x, params_dev, shape)
+    torch.cuda.synchronize()
+    res["helpers"].update({"cot_bitwise": torch.equal(cot_k[applied], d_exp[applied]),
+                           "cot_diffs": int((cot_k[applied] != d_exp[applied]).sum()),
+                           "cot_max_bitwise": torch.equal(partial_k[:-1].max().clamp(min=1e-20), s_g),
+                           "cot_zeroed": bool((acc_k == 0).all())})
+    if not (res["helpers"]["cot_bitwise"] and res["helpers"]["cot_max_bitwise"] and res["helpers"]["cot_zeroed"]):
+        fail(f"K2-int8's cotangent pass differs from its plain twin on {name}: {res['helpers']}")
     params_flat = cuda_warp.pack_params(inv, modes, None, facs, fill=fill).to(dev)  # the same bank, no jitter
     for prec in ("bf16", "high", "int8"):
-        branches = torch.zeros((2,), dtype=torch.int32, device=dev) if prec == "bf16" else None
+        branches = torch.zeros((2,), dtype=torch.int32, device=dev) if prec in ("bf16", "int8") else None
         dwork_k = cuda_warp.launch_bank_bwd(g, pre_x, params_dev, shape, s, branches=branches, prec=prec)
         dwork_p = warp_adjoint_rung(d_exp, inv_d, modes_d, shape, s, prec)
         torch.cuda.synchronize()
@@ -3399,22 +3413,28 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
             if r["pixel_visits"] != on_canvas:
                 fail(f"K2-bf16 visited {r['pixel_visits']} pixels on {name}; {on_canvas} have a tap on the canvas")
         if prec == "int8":
+            r["shared_blocks"], r["device_blocks"] = (int(b) for b in branches.cpu())
             flat_k = cuda_warp.launch_bank_bwd(g, None, params_flat, tuple(work.shape), s, prec="int8")
             flat_p = warp_adjoint_rung(g, inv_d, modes_d, tuple(work.shape), s, "int8")
             r["bitwise_without_jitter"] = torch.equal(flat_k, flat_p)
             again = cuda_warp.launch_bank_bwd(g, pre_x, params_dev, tuple(work.shape), s, prec="int8")
             r["deterministic"] = torch.equal(again, dwork_k)
-            if not (r["bitwise_without_jitter"] and r["deterministic"]):
+            if not (r["bitwise"] and r["bitwise_without_jitter"] and r["deterministic"]):
                 fail(f"K2-int8 differs from its plain twin (or from itself) on {name}: {r}")
-            r["tol"] = RUNG_BWD_RTOL["bf16"] * scale  # with jitter: the two adjoints' cotangents may part by a bf16 ulp
-        else:
-            r["tol"] = RUNG_BWD_RTOL[prec] * scale
+        r["tol"] = RUNG_BWD_RTOL.get(prec, 0.0) * scale
         if not r["max_abs_err"] <= r["tol"]:
             fail(f"K2-{prec} disagrees with its plain twin on {name}: {r}")
         if time_it:
-            r["bound_bytes"] = 3 * n * plane + 3 * jittered * plane + rows + h * w * 3 * 4
-            r["bound"] = bound(r["bound_bytes"],
-                               (WARP_BWD_FLOPS_PER_PIXEL * n + JITTER_BWD_FLOPS_PER_PIXEL * jittered) * s * s)
+            canvas, grad = h * w * 3 * 8, h * w * 3 * 4  # the int64 canvas, the f32 gradient
+            # the whole rung's work: g, the pre-jitter bank of the jittered cuts, the jitter's adjoint, the scatter
+            r["bound_bytes"] = 3 * n * plane + 3 * jittered * plane + rows + grad
+            r["bound"] = r["rung_bound"] = bound(r["bound_bytes"], (WARP_BWD_FLOPS_PER_PIXEL * n +
+                                                                    JITTER_BWD_FLOPS_PER_PIXEL * jittered) * s * s)
+            if prec == "int8":
+                # the scatter's own work: the cotangent bank (g for the cuts without jitter), the partial maxima,
+                # the int64 canvas; the jitter's adjoint is the cotangent pass's
+                r["bound_bytes"] = 3 * n * plane + rows + 4 * (cuda_warp.scratch_layout()["cot_blocks"] + 1) + canvas
+                r["bound"] = bound(r["bound_bytes"], WARP_BWD_FLOPS_PER_PIXEL * n * s * s)
 
             def bwd(prec=prec):
                 cuda_warp.launch_bank_bwd(g, pre_x, params_dev, tuple(work.shape), s, prec=prec)
@@ -3424,11 +3444,29 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
 
             times = kernel_times(bwd)
             kernel = cuda_warp.KERNEL_NAMES[cuda_warp.BWD_COUNTERS[prec]]
-            # int8: its three kernels; bf16: the band kernel, its row table and sum passes apart
-            r["ms"] = sum(v for k, v in times.items() if prec == "int8" or kernel in k)
+            # the rung's kernel; its helper passes (and the fill of K2-high's canvas) apart
+            r["ms"] = sum(v for k, v in times.items() if kernel in k)
             r["call_ms"], r["event_ms"] = sum(times.values()), median_ms(bwd)
+            r["kernels"] = times
             r["helper_ms"] = helper_ms(times, cuda_warp.BWD_COUNTERS[prec])
             r["plain_ms"], r["plain_event_ms"] = device_ms(plain_bwd), median_ms(plain_bwd)
+            if prec == "int8":
+                # g; the pre-jitter and the cotangent bank of the jittered cuts; the canvas zeroed
+                cot_bytes = 3 * n * plane + 2 * 3 * jittered * plane + rows + canvas
+                r["helper_bound"] = {
+                    "warp_bwd_int8_cot": bound(cot_bytes, JITTER_BWD_FLOPS_PER_PIXEL * jittered * s * s),
+                    "warp_bwd_int8_finish": bound(canvas + grad, 2 * h * w * 3)}
+                r["helper_plain_ms"] = {
+                    "warp_bwd_int8_cot": device_ms(lambda: cuda_warp.bank_cotangent_plain(g, pre_x, params)),
+                    "warp_bwd_int8_finish": device_ms(lambda: acc_k.float() * (s_g / DEQUANT))}
+                # the rung's three passes, against the rung's bound
+                r["bytes_moved"] = cot_bytes + r["bound_bytes"] + canvas + grad
+            if prec == "high":
+                acc4 = torch.zeros((h, w, 4), device=dev)
+                r["helper_bound"] = {"warp_bwd_high_pack": bound(h * w * 16 + grad, 0)}
+                r["helper_plain_ms"] = {"warp_bwd_high_pack": device_ms(lambda: acc4[..., :3].contiguous())}
+                # beyond the bound: the (H, W, 4) canvas zeroed, reduced into (in L2) and read by the pack pass
+                r["bytes_moved"] = r["bound_bytes"] + 2 * h * w * 16
             if prec == "bf16":
                 lay = cuda_warp.scratch_layout()
                 bands, groups = -(-h // lay["band_rows"]), min(lay["band_groups"], -(-n // lay["band_cluster"]))
@@ -3454,13 +3492,82 @@ def helper_ms(times, counter):
             for c in cuda_warp.HELPERS.get(counter, ())}
 
 
+def zoomed_out_bank(gen, gen_dev):
+    """8 cuts of 224 on a 384x384x3 canvas whose 16x16 output tiles read
+    canvas footprints larger than K2-int8's shared-memory budget: boxes
+    3-4 times the canvas, folded by reflection, clamped at the border, off
+    the canvas in zeros, and two perspective cuts over a fill.  (work, ms,
+    modes, jitter, facs, planes) as flagship_bank_inputs."""
+    import torch
+
+    from pixray_tpu_torch.engine.cutouts import draw_noise
+    from pixray_tpu_torch.ops import warp as W
+    from pixray_tpu_torch.ops.color import draw_jitter_params
+
+    h = w = 384
+    s = 224
+    t = lambda *a: torch.tensor(a, dtype=torch.float32)
+    boxes = W.crop_box_transform(t(-576.0, -400.0, -300.0, -500.0, 200.0, -384.0),
+                                 t(-576.0, -300.0, -500.0, -384.0, 100.0, 150.0),
+                                 t(1536.0, 1300.0, 1200.0, 1400.0, 1150.0, 1250.0),
+                                 t(1536.0, 1250.0, 1300.0, 1152.0, 1200.0, 1180.0), s, s)
+    persp = W.mm3(W.crop_box_transform(t(-200.0, -300.0), t(-250.0, -100.0), t(900.0, 1000.0), t(950.0, 900.0), s, s),
+                  W.random_perspective(h, w, 0.5, torch.rand((2, 4, 2), generator=gen)))
+    modes = torch.tensor([0, 0, 1, 1, 2, 2, 3, 3], dtype=torch.int32)
+    jitter = draw_jitter_params(gen, 8)
+    facs, planes = draw_noise(gen, gen_dev, 8, s, torch.bfloat16, torch.device("cuda"))
+    work = torch.rand((h, w, 3), generator=gen).to("cuda")
+    return work, torch.cat([boxes, persp]), modes, jitter, facs, planes
+
+
+def one_tap_case():
+    """K2-bf16 and K2-high bitwise against their plain twins on a bank in
+    which every canvas element takes exactly one tap, so that no sum hangs
+    on the atomics' order: one cut of 112 halving the 224x224x3 canvas at a
+    fractional offset (hats 0.377 / 0.623 and 0.189 / 0.811).  A body on
+    another rung's products differs here in most elements: K2-high on the
+    f32 product in 147,738 of 150,528 on an H100, where RUNG_BWD_RTOL
+    passes it on every other bank.  → {rung: elements apart}, fatal unless
+    all 0."""
+    import torch
+
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.ops import warp as W
+    from pixray_tpu_torch.ops.warp import inv3x3
+    from pixray_tpu_torch.ops.warp_batch import MODE_REFLECT, _rung_taps, warp_adjoint_rung
+
+    h = w = 224
+    s = 112
+    t = lambda *a: torch.tensor(a, dtype=torch.float32)
+    inv = inv3x3(W.crop_box_transform(t(0.623), t(0.811), t(2.0 * s), t(2.0 * s), s, s))
+    modes = torch.tensor([MODE_REFLECT], dtype=torch.int32)
+    inv_d, modes_d = inv.to("cuda"), modes.to("cuda")
+    idx, valid = _rung_taps((h, w, 3), inv_d, modes_d, 0.0, s)[:2]
+    taps = torch.cat([i[v] for i, v in zip(idx, valid)])
+    if taps.numel() != h * w or taps.unique().numel() != h * w:
+        fail(f"the one-tap bank gives {taps.unique().numel()} of {h * w} canvas pixels {taps.numel()} taps")
+    g = torch.randn((1, 3, s, s), device="cuda", generator=torch.Generator(device="cuda").manual_seed(11))
+    g = g.to(torch.bfloat16)
+    params = cuda_warp.pack_params(inv, modes).to("cuda")
+    apart = {}
+    for prec in ("bf16", "high"):
+        dwork_k = cuda_warp.launch_bank_bwd(g, None, params, (h, w, 3), s, prec=prec)
+        apart[prec] = int((dwork_k != warp_adjoint_rung(g, inv_d, modes_d, (h, w, 3), s, prec)).sum())
+    if any(apart.values()):
+        fail(f"K2's float rungs differ from their plain twins where every canvas element takes one tap: {apart}")
+    return apart
+
+
 def phase_rung_kernels():
     """32: the rung variants of K1/K2 against their plain twins on the
     flagship bank (64 cuts of 224 on 224x224x3, bf16, 47 jittered, noise;
     timed), the ragged tie-rich bank of phase 3b, 64 cuts of 384 on
-    384x384x3 (RN50x16's, drawn as the flagship's) and 16 cuts of 512 on
+    384x384x3 (RN50x16's, drawn as the flagship's), 16 cuts of 512 on
     512x512x3, wide enough that K2-bf16's band copy takes more than 48 KB
-    of shared memory (the opt-in past the default)."""
+    of shared memory (the opt-in past the default), and zoomed_out_bank,
+    whose tiles' footprints send K2-int8's scatter to device memory (fatal
+    if no block of it went there); and one_tap_case, K2's float rungs
+    bitwise."""
     import torch
 
     from pixray_tpu_torch.engine.cutouts import draw_noise
@@ -3489,8 +3596,16 @@ def phase_rung_kernels():
     _, _, (work_w, ms_w, modes_w, jitter_w, facs_w, planes_w) = flagship_bank_inputs(16, 512)
     wide = rung_bank_case("16 cuts of 512", work_w, ms_w, modes_w, 0.37, 512, jitter_w, facs_w, planes_w,
                           time_it=False)
+    work_z, ms_z, modes_z, jitter_z, facs_z, planes_z = zoomed_out_bank(gen, gen_dev)
+    zoomed = rung_bank_case("zoomed out on 384", work_z, ms_z, modes_z, 0.37, 224, jitter_z, facs_z, planes_z,
+                            time_it=False)
+    if zoomed["bwd"]["int8"]["device_blocks"] < 1:
+        fail(f"no block of K2-int8's scatter added to device memory on the zoomed-out bank: {zoomed['bwd']['int8']}")
+    one_tap = one_tap_case()
+    print(f"rung kernels one tap a canvas element (1 cut of 112 halving 224x224x3, bf16): K2-bf16 / K2-high "
+          f"elements apart from their plain twins {one_tap['bf16']} / {one_tap['high']} (bitwise)", flush=True)
     layout = cuda_warp.scratch_layout()
-    for r in (flagship, ragged, large, wide):
+    for r in (flagship, ragged, large, wide, zoomed):
         f, b = r["fwd"], r["bwd"]
         print(f"rung kernels {r['name']} (N={r['n']}, S={r['s']}, {r['canvas'][0]}x{r['canvas'][1]}x3, bf16, "
               f"{r['jittered']} jittered, noise) against their plain twins: K1 pre-jitter bank bitwise "
@@ -3502,7 +3617,10 @@ def phase_rung_kernels():
               f"max_abs_err {b['bf16']['max_abs_err']:.3g}, K2-high {b['high']['max_abs_err']:.3g} against max|dwork| "
               f"{b['bf16']['scale']:.3g} (tol {b['bf16']['tol']:.3g}); bitwise their plain twins: K1-int8's scale "
               f"and pack passes {r['helpers']['scale_bitwise']} / {r['helpers']['pack_bitwise']}, K2-bf16's row "
-              f"table {r['helpers']['rows_bitwise']}; K2-bf16 ({layout['band_rows']}-row bands, up to "
+              f"table {r['helpers']['rows_bitwise']}, K2-int8's cotangent pass {r['helpers']['cot_bitwise']} "
+              f"(s_g {r['helpers']['cot_max_bitwise']}, int64 canvas zeroed {r['helpers']['cot_zeroed']}); K2-int8's "
+              f"scatter blocks in shared memory / device memory {b['int8']['shared_blocks']} / "
+              f"{b['int8']['device_blocks']}; K2-bf16 ({layout['band_rows']}-row bands, up to "
               f"{layout['band_groups']} clusters of {layout['band_cluster']} blocks per band) row visits "
               f"{b['bf16']['row_visits']} for {r['n'] * r['s']} rows, pixel visits {b['bf16']['pixel_visits']} "
               f"(pixels with a tap on the canvas {r['helpers']['on_canvas']})", flush=True)
@@ -3514,9 +3632,13 @@ def phase_rung_kernels():
     print(f"rung kernels flagship times (ms, summed kernel time / CUDA events of one call; grid_sample computes "
           f"none of these functions): K1-int8 {tm(f['int8'])}, its passes {hm(f['int8'])}; K1-bf16 "
           f"{tm(f['bf16'])}, K1-high {tm(f['high'])}; K2-bf16 {tm(b['bf16'])} (bytes moved "
-          f"{b['bf16']['bytes_moved'] / 1e6:.2f} MB), its passes {hm(b['bf16'])}; K2-high {tm(b['high'])}, "
-          f"K2-int8 (max, scatter, finish) {tm(b['int8'])}", flush=True)
-    return flagship, ragged, large, wide
+          f"{b['bf16']['bytes_moved'] / 1e6:.2f} MB), its passes {hm(b['bf16'])}; K2-high {tm(b['high'])} (bytes "
+          f"moved {b['high']['bytes_moved'] / 1e6:.2f} MB), its pass {hm(b['high'])}; K2-int8's scatter "
+          f"{tm(b['int8'])}, its passes {hm(b['int8'])}; the K2-int8 rung's three passes {b['int8']['call_ms']:.4f} "
+          f"(bytes moved {b['int8']['bytes_moved'] / 1e6:.2f} MB) against the rung's bound "
+          f"{b['int8']['rung_bound'][0]:.4f} ({b['int8']['rung_bound'][1]})",
+          flush=True)
+    return flagship, ragged, large, wide, zoomed
 
 
 # torch._int_mm at the ViT-B/32 bank's products (64 cuts x 50 tokens: in_proj, out_proj, mlp_fc,
@@ -4034,9 +4156,6 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         rows.update(phase_loss_rows(tmp, card))
     tick("phase_loss_rows")
-    with tempfile.TemporaryDirectory() as tmp:
-        rows.update(phase_front_ends(tmp, card))
-    tick("phase_front_ends")
     rung_cases = phase_rung_kernels()
     tick("phase_rung_kernels")
     rung_flagship = rung_cases[0]
@@ -4047,6 +4166,11 @@ def main():
     tick("phase_ladder")
     rows.update(phase_parallel(card))
     tick("phase_parallel")
+    # last: after its served jobs, torch.profiler saw no kernel in 29 of 30 windows over 13 s on an H100,
+    # and 32-35 time kernels by the profiler
+    with tempfile.TemporaryDirectory() as tmp:
+        rows.update(phase_front_ends(tmp, card))
+    tick("phase_front_ends")
     per_row = lambda counter: {row: {"launches": got[counter], "steps": n} for row, (got, n) in rows.items()}
 
     replaces = "pixray_tpu/ops/pallas_warp.py:{}"
@@ -4083,14 +4207,19 @@ def main():
                         "max_abs_err": max(x["bwd"][prec]["max_abs_err"] for x in rung_cases),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                         "library_ms": None})
-    # the helper passes of K1-int8 (the scale, the pack) and K2-bf16 (the row table, the sum): the first three
-    # bitwise their plain twins, the sum part of K2-bf16's
+    # the helper passes of K1-int8 (the scale, the pack), K2-bf16 (the row table, the sum), K2-int8 (the
+    # cotangent pass, the finish) and K2-high (the pack): the scale, pack, row table and cotangent passes bitwise
+    # their plain twins, the others part of their rung's result
     for counter, line, side, prec in (("warp_fwd_int8_scale", 823, "fwd", "int8"),
                                       ("warp_fwd_int8_pack", 824, "fwd", "int8"),
                                       ("warp_bwd_bf16_rows", 480, "bwd", "bf16"),
-                                      ("warp_bwd_bf16_sum", 754, "bwd", "bf16")):
+                                      ("warp_bwd_bf16_sum", 754, "bwd", "bf16"),
+                                      ("warp_bwd_int8_cot", 777, "bwd", "int8"),
+                                      ("warp_bwd_int8_finish", 803, "bwd", "int8"),
+                                      ("warp_bwd_high_pack", 930, "bwd", "high")):
         r = rung_flagship[side][prec]
-        err = 0.0 if counter != "warp_bwd_bf16_sum" else max(x["bwd"]["bf16"]["max_abs_err"] for x in rung_cases)
+        err = (max(x["bwd"][prec]["max_abs_err"] for x in rung_cases)
+               if counter in ("warp_bwd_bf16_sum", "warp_bwd_int8_finish", "warp_bwd_high_pack") else 0.0)
         kernels.append({"name": f"{cuda_warp.KERNEL_NAMES[counter]} ({counter})", "route": "cuda",
                         "source": warp_src, "replaces": replaces.format(line),
                         "launches": ladder_launches(ladder, counter),

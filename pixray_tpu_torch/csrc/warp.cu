@@ -73,14 +73,15 @@
 //     and K2-bf16" below);
 //   bank_bwd_bf16_kernel <- _bwd_kernel_multi_TB through _mm_nt: per tap
 //     bf16(hat_y) bf16(hat_x g) into the canvas; a body of its own (below);
-//   bank_bwd_high_kernel <- the same through _mm_nt's hi/lo form, float
-//     atomics as the exact backward;
-//   bank_bwd_int8_kernel <- the int8 branch (:718-743, :777-782): after
-//     bank_bwd_max_kernel has taken s_g = max|g| over the whole bank's
-//     post-epilogue cotangent (recomputed, nothing bank-sized written), per
-//     tap round(hat_y g / s_g 127) round(hat_x 127) summed in int64 (exact,
-//     so the sum is order-free and deterministic), and
-//     bank_bwd_int8_finish_kernel writes float(sum) s_g / 127^2.
+//   bank_bwd_high_kernel <- the same through _mm_nt's hi/lo form: per tap
+//     bf16(a) bf16(b g) + lo(a) bf16(b g) + bf16(a) lo(b g); a body of its
+//     own (see "K2-int8 and K2-high" below);
+//   bank_bwd_int8_kernel <- the int8 branch (:718-743, :777-782): with
+//     s_g = max|g| over the whole bank's post-epilogue cotangent, per tap
+//     round(hat_y g / s_g 127) round(hat_x 127) summed in int64 (exact, so
+//     the sum is order-free and deterministic), then float(sum) s_g /
+//     127^2; a body of its own behind a cotangent pass, before a finish
+//     pass (below).
 // The epilogue and its adjoint are the exact kernels' in every rung, and
 // each backward is the adjoint of the exact warp (straight-through), as the
 // JAX package's custom VJP has it.
@@ -553,27 +554,60 @@ __device__ __forceinline__ float tap_contrib(float a, float b, float gc) {
   return __fadd_rn(__fadd_rn(c, __fmul_rn(lo_part(a), bfr(gb))), __fmul_rn(bfr(a), lo_part(gb)));
 }
 
-__device__ __forceinline__ void add_to(float* p, float v) { atomicAdd(p, v); }
-__device__ __forceinline__ void add_to(int* p, int v) { atomicAdd(p, v); }
-__device__ __forceinline__ void add_to(unsigned long long* p, long long v) {
-  atomicAdd(p, (unsigned long long)v);  // two's complement: the signed sum
+// a signed int64 atomic sum: the two's complement of an unsigned one
+__device__ __forceinline__ void add_to(unsigned long long* p, long long v) { atomicAdd(p, (unsigned long long)v); }
+
+// The block's footprint on the canvas: the least and greatest x and y of
+// its threads' taps on the canvas (xmax < xmin where none lies on it),
+// uniform over the block.  red: 4 x (kThreads / 32) ints of shared memory;
+// one barrier, which also publishes what the threads wrote before it.
+struct Box {
+  int xmin, ymin, xmax, ymax;
+};
+
+__device__ __forceinline__ Box block_box(const Taps& tp, int (*red)[kThreads / 32]) {
+  Box b = {INT_MAX, INT_MAX, INT_MIN, INT_MIN};
+  if (tp.valid) {
+    b.xmin = (tp.valid & 0b0101u) ? tp.x0 : tp.x0 + 1;
+    b.xmax = (tp.valid & 0b1010u) ? tp.x0 + 1 : tp.x0;
+    b.ymin = (tp.valid & 0b0011u) ? tp.y0 : tp.y0 + 1;
+    b.ymax = (tp.valid & 0b1100u) ? tp.y0 + 1 : tp.y0;
+  }
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  b.xmin = warp_min(b.xmin);
+  b.ymin = warp_min(b.ymin);
+  b.xmax = warp_max(b.xmax);
+  b.ymax = warp_max(b.ymax);
+  if (lane == 0) {
+    red[0][wid] = b.xmin;
+    red[1][wid] = b.ymin;
+    red[2][wid] = b.xmax;
+    red[3][wid] = b.ymax;
+  }
+  __syncthreads();
+  b = {red[0][0], red[1][0], red[2][0], red[3][0]};
+#pragma unroll
+  for (int q = 1; q < kThreads / 32; ++q) {
+    b.xmin = min(b.xmin, red[0][q]);
+    b.ymin = min(b.ymin, red[1][q]);
+    b.xmax = max(b.xmax, red[2][q]);
+    b.ymax = max(b.ymax, red[3][q]);
+  }
+  return b;
 }
 
 // g (N, 3, S, S) cotangent; pre (N, 3, S, S) saved pre-jitter bank (read
-// only for jittered cuts); dwork (H, W, 3) f32, zeroed by the caller (kInt8:
-// acc (H, W, 3) int64, zeroed, and gmax the bank's max|g| from
-// bank_bwd_max_kernel); branches (2,) int or null: blocks that summed in
-// shared memory, blocks that added to device memory, counted when given (a
-// check, not the main path).  One block: one cut x one kTile x kTile output
-// tile, one pixel per thread.  Eight blocks per SM (32 registers a thread)
-// hide the atomics' latency best.
-template <typename T, int P>
+// only for jittered cuts); dwork (H, W, 3) f32, zeroed by the caller;
+// branches (2,) int or null: blocks that summed in shared memory, blocks
+// that added to device memory, counted when given (a check, not the main
+// path).  One block: one cut x one kTile x kTile output tile, one pixel per
+// thread.  Eight blocks per SM (32 registers a thread) hide the atomics'
+// latency best.
+template <typename T>
 __device__ __forceinline__ void bank_bwd_body(const T* __restrict__ g, const T* __restrict__ pre,
                                               const float* __restrict__ params, float* __restrict__ dwork,
-                                              unsigned long long* __restrict__ acc_q, const float* __restrict__ gmax,
-                                              int* __restrict__ branches, int h, int w, int s, void* smem) {
-  using Acc = typename std::conditional<P == kInt8, int, float>::type;
-  Acc* acc = (Acc*)smem;
+                                              int* __restrict__ branches, int h, int w, int s) {
+  __shared__ float acc[kSmemFloats];
   __shared__ int red[4][kThreads / 32];
   const int tiles_x = (s + kTile - 1) / kTile;
   const int i = (blockIdx.x / tiles_x) * kTile + threadIdx.x / kTile;
@@ -585,164 +619,54 @@ __device__ __forceinline__ void bank_bwd_body(const T* __restrict__ g, const T* 
   Taps tp;
   tp.valid = 0u;
   float gv[3];
-  int xmin = INT_MAX, ymin = INT_MAX, xmax = INT_MIN, ymax = INT_MIN;
   if (i < s && j < s) {
     tp = compute_taps(c, i, j, h, w, 0.f);
     cotangent(g, pre, c, (long)n * 3 * k + (long)i * s + j, k, gv);
-    if (tp.valid) {
-      xmin = (tp.valid & 0b0101u) ? tp.x0 : tp.x0 + 1;
-      xmax = (tp.valid & 0b1010u) ? tp.x0 + 1 : tp.x0;
-      ymin = (tp.valid & 0b0011u) ? tp.y0 : tp.y0 + 1;
-      ymax = (tp.valid & 0b1100u) ? tp.y0 + 1 : tp.y0;
-    }
   }
-
-  // the block's footprint on the canvas
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  xmin = warp_min(xmin);
-  ymin = warp_min(ymin);
-  xmax = warp_max(xmax);
-  ymax = warp_max(ymax);
-  if (lane == 0) {
-    red[0][wid] = xmin;
-    red[1][wid] = ymin;
-    red[2][wid] = xmax;
-    red[3][wid] = ymax;
-  }
-  __syncthreads();
-  xmin = red[0][0];
-  ymin = red[1][0];
-  xmax = red[2][0];
-  ymax = red[3][0];
-#pragma unroll
-  for (int q = 1; q < kThreads / 32; ++q) {
-    xmin = min(xmin, red[0][q]);
-    ymin = min(ymin, red[1][q]);
-    xmax = max(xmax, red[2][q]);
-    ymax = max(ymax, red[3][q]);
-  }
-  if (xmax < xmin) return;  // no tap of this tile lies on the canvas (uniform over the block)
-  const int fw = xmax - xmin + 1, fh = ymax - ymin + 1;
+  const Box box = block_box(tp, red);
+  if (box.xmax < box.xmin) return;  // no tap of this tile lies on the canvas (uniform over the block)
+  const int fw = box.xmax - box.xmin + 1, fh = box.ymax - box.ymin + 1;
   const bool local = (long)fw * fh * 3 <= kSmemFloats;
   if (branches != nullptr && threadIdx.x == 0) atomicAdd(branches + (local ? 0 : 1), 1);
   if (local) {
-    for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) acc[q] = Acc(0);
+    for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) acc[q] = 0.f;
     __syncthreads();
   }
 
   if (tp.valid) {
-    float wa[4], wb[4];  // per tap: the y weight, the x weight
-    if (P == kHighest) {
-      wa[0] = wa[1] = tp.ay;
-      wa[2] = wa[3] = tp.wy;
-      wb[0] = wb[2] = tp.ax;
-      wb[1] = wb[3] = tp.wx;
-    } else {
-      const Hats ht = jax_hats(tp);
-      wa[0] = wa[1] = ht.y0;
-      wa[2] = wa[3] = ht.y1;
-      wb[0] = wb[2] = ht.x0;
-      wb[1] = wb[3] = ht.x1;
-    }
-    float sg = 1.f;
-    if (P == kInt8) {
-      sg = fmaxf(__ldg(gmax), 1e-20f);
-#pragma unroll
-      for (int ci = 0; ci < 3; ++ci) gv[ci] = __fdiv_rn(gv[ci], sg);
-    }
+    const float wa[4] = {tp.ay, tp.ay, tp.wy, tp.wy}, wb[4] = {tp.ax, tp.wx, tp.ax, tp.wx};  // per tap: y, x weight
 #pragma unroll
     for (int tap = 0; tap < 4; ++tap) {
       if (!(tp.valid & (1u << tap))) continue;
       const int x = tp.x0 + (tap & 1), y = tp.y0 + (tap >> 1);
-      const int bq = P == kInt8 ? (int)rintf(__fmul_rn(wb[tap], kQ)) : 0;
 #pragma unroll
       for (int ci = 0; ci < 3; ++ci) {
         if (gv[ci] == 0.f) continue;
-        const long cell = ((long)y * w + x) * 3 + ci;
-        if (P == kInt8) {
-          const int contrib = (int)rintf(__fmul_rn(__fmul_rn(wa[tap], gv[ci]), kQ)) * bq;
-          if (local)
-            add_to((int*)acc + ((y - ymin) * fw + (x - xmin)) * 3 + ci, contrib);
-          else
-            add_to(acc_q + cell, (long long)contrib);
-        } else {
-          const float contrib = tap_contrib<P>(wa[tap], wb[tap], gv[ci]);
-          if (local)
-            add_to((float*)acc + ((y - ymin) * fw + (x - xmin)) * 3 + ci, contrib);
-          else
-            add_to(dwork + cell, contrib);
-        }
+        const float contrib = tap_contrib<kHighest>(wa[tap], wb[tap], gv[ci]);
+        if (local)
+          atomicAdd(acc + ((y - box.ymin) * fw + (x - box.xmin)) * 3 + ci, contrib);
+        else
+          atomicAdd(dwork + ((long)y * w + x) * 3 + ci, contrib);
       }
     }
   }
   if (local) {
     __syncthreads();
     for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) {
-      const Acc a = acc[q];
-      if (a != Acc(0)) {
+      const float a = acc[q];
+      if (a != 0.f) {
         const int cell = q / 3, ci = q - cell * 3;
-        const long at = ((long)(ymin + cell / fw) * w + (xmin + cell % fw)) * 3 + ci;
-        if (P == kInt8)
-          add_to(acc_q + at, (long long)a);
-        else
-          add_to(dwork + at, (float)a);
+        atomicAdd(dwork + ((long)(box.ymin + cell / fw) * w + (box.xmin + cell % fw)) * 3 + ci, a);
       }
     }
   }
 }
 
-#define BANK_BWD_KERNEL(NAME, P)                                                                              \
-  template <typename T>                                                                                       \
-  __global__ void __launch_bounds__(kThreads, 8)                                                              \
-  NAME(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,                  \
-       float* __restrict__ dwork, unsigned long long* __restrict__ acc_q, const float* __restrict__ gmax,     \
-       int* __restrict__ branches, int h, int w, int s) {                                                     \
-    extern __shared__ __align__(8) unsigned char smem[];                                                      \
-    bank_bwd_body<T, P>(g, pre, params, dwork, acc_q, gmax, branches, h, w, s, smem);                         \
-  }
-BANK_BWD_KERNEL(bank_bwd_kernel, kHighest)
-BANK_BWD_KERNEL(bank_bwd_high_kernel, kHigh)
-BANK_BWD_KERNEL(bank_bwd_int8_kernel, kInt8)
-#undef BANK_BWD_KERNEL
-
-// K2-int8's first pass: gmax = max |g| over the whole bank's post-epilogue
-// cotangent (every pixel, on the canvas or not), a float's bits through an
-// integer atomicMax (non-negative floats order as their bits do); gmax
-// zeroed by the caller.  Same grid as the backward.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bank_bwd_max_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
-                    float* __restrict__ gmax, int s) {
-  __shared__ float red[kThreads / 32];
-  const int tiles_x = (s + kTile - 1) / kTile;
-  const int i = (blockIdx.x / tiles_x) * kTile + threadIdx.x / kTile;
-  const int j = (blockIdx.x % tiles_x) * kTile + threadIdx.x % kTile;
-  const int n = blockIdx.y;
-  const int k = s * s;
-  float m = 0.f;
-  if (i < s && j < s) {
-    float gv[3];
-    cotangent(g, pre, load_cut(params, n), (long)n * 3 * k + (long)i * s + j, k, gv);
-    m = fmaxf(fmaxf(fabsf(gv[0]), fabsf(gv[1])), fabsf(gv[2]));
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int q = 1; q < kThreads / 32; ++q) m = fmaxf(m, red[q]);
-    atomicMax((int*)gmax, __float_as_int(m));
-  }
-}
-
-// K2-int8's last pass: dwork = float(acc) * (max(gmax, 1e-20) / 127^2).
-__global__ void __launch_bounds__(kThreads)
-bank_bwd_int8_finish_kernel(const long long* __restrict__ acc_q, const float* __restrict__ gmax,
-                            float* __restrict__ dwork, long count) {
-  const long q = (long)blockIdx.x * kThreads + threadIdx.x;
-  if (q >= count) return;
-  const float scale = __fdiv_rn(fmaxf(__ldg(gmax), 1e-20f), kDequant);
-  dwork[q] = __fmul_rn(__ll2float_rn(acc_q[q]), scale);
+__global__ void __launch_bounds__(kThreads, 8)
+bank_bwd_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
+                float* __restrict__ dwork, int* __restrict__ branches, int h, int w, int s) {
+  bank_bwd_body<T>(g, pre, params, dwork, branches, h, w, s);
 }
 
 // ------------------------------------------------------------------------
@@ -1107,6 +1031,243 @@ bank_bwd_sum_kernel(const float* __restrict__ partial, float* __restrict__ dwork
   dwork[q] = sum;
 }
 
+// ------------------------------------------------------------------------
+// K2-int8 and K2-high, designed for this card: the rung backwards that
+// first ran on the exact backward's body (bank_bwd_body at kInt8 and
+// kHigh).  Same functions as their plain twins (ops/warp_batch.py
+// warp_adjoint_rung "int8" and "high", from the exact kernels' cotangent).
+//
+// bank_bwd_cot_kernel + bank_bwd_int8_kernel + bank_bwd_int8_finish_kernel
+// <- pallas_warp.py's int8 branch of _bwd_kernel_multi_TB (:718-743), the
+// per-tensor cotangent scale of _run_bwd_multi_TB (:777-782) and its
+// dequant (:803-804).
+//   Bound: bytes, as K2's (the cotangent, the saved bank, the gradient)
+//   for the three passes; the scatter's own: the cotangent bank or g, the
+//   partial maxima and the int64 canvas.  What held the first version
+//   back: a max pass evaluated the whole
+//   post-epilogue cotangent (the jitter's adjoint, twelve IEEE divisions a
+//   pixel) only to take max|g|, and the scatter evaluated it a second time;
+//   two fill kernels zeroed the int64 canvas and the maximum in front of
+//   them.  The design: the cotangent pass evaluates it once per pixel,
+//   writes it in the bank's dtype for the jittered cuts (the others'
+//   cotangent is g itself, already in memory; bf16 holds the rounded value
+//   exactly) and leaves kCotBlocks partial maxima (no zeroed scalar); it
+//   also zeroes the int64 canvas, so no fill kernel runs.  Its blocks each
+//   take one contiguous run of the bank's pixels; kCotBlocks and the
+//   32-register cap were measured against 256 to 4096 blocks and 40 or 48
+//   registers (PERF.md §6: more blocks than the card holds at once, so that
+//   the last wave is short).  The scatter reads 6 bytes a pixel (the
+//   cotangent bank or g), reduces the partial maxima to s_g in every block
+//   (block 0 stores it for the last pass), and sums integers: in shared
+//   memory with native 32-bit integer atomics for footprints of up to
+//   kInt8SmemInts values (integer atomics need no compare-and-swap loop, so
+//   the budget can be larger than the float body's kSmemFloats; 6,144
+//   measured against 2,048, 10,240 and none), then one int64 atomic per
+//   touched element; int64 atomics to device memory otherwise.  Integer
+//   sums are exact, so the result is order-free and bitwise the plain
+//   twin's.  The finish pass writes float(sum) s_g / 127^2.
+//
+// bank_bwd_high_kernel + bank_bwd_high_pack_kernel <- _bwd_kernel_multi_TB
+// through _mm_nt's hi/lo form (:930-944).
+//   Bound: bytes, as K2's.  What held the first version back: per pixel
+//   twelve shared-memory float atomics (compare-and-swap loops on this card,
+//   retried when neighbouring pixels of a zoomed-in cut hit one texel), the
+//   block-wide footprint reduction and barriers around them, and 32
+//   registers a thread (spills).  The design drops shared memory: each tap
+//   adds its three channels with one vector reduction
+//   (red.global.add.v4.f32, sm_90) into an (H, W, 4) f32 canvas whose
+//   fourth lane takes 0, which L2 performs without a loop; the pack pass
+//   writes its first three lanes to dwork.  One pixel per thread, no
+//   barrier, at most 40 registers (6 blocks per SM).  Measured and dropped
+//   (PERF.md §6): a v2 and a scalar reduction a tap straight into dwork,
+//   summing the taps of a run of lanes on one texel with warp shuffles
+//   first, and caps of 32 and 255 registers.
+// ------------------------------------------------------------------------
+
+constexpr int kCotBlocks = 2048;      // K2-int8's cotangent pass: blocks, one partial maximum each
+constexpr int kCotBlocksPerSm = 8;    // ... at most 32 registers a thread (spills, but faster: PERF.md §6)
+constexpr int kInt8SmemInts = 6144;   // K2-int8's footprint budget: 24 KB of int32 sums, a 45 x 45 canvas patch
+constexpr int kHighBlocksPerSm = 6;   // K2-high: at most 40 registers a thread (PERF.md §6)
+
+// K2-int8's first pass: cot (N, 3, S, S) the post-epilogue cotangent of
+// the jittered cuts (rows of other cuts left unwritten; null when no cut is
+// jittered), partial[b] = max |cotangent| over block b's share of the bank
+// (every pixel, on the canvas or not), and acc (acc_count int64) zeroed.
+// kCotBlocks blocks; block b takes one contiguous run of the bank's pixels.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kCotBlocksPerSm)
+bank_bwd_cot_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
+                    T* __restrict__ cot, float* __restrict__ partial, unsigned long long* __restrict__ acc,
+                    long acc_count, int n, int s) {
+  const long tid = (long)blockIdx.x * kThreads + threadIdx.x, stride = (long)gridDim.x * kThreads;
+  for (long q = tid; q < acc_count / 2; q += stride) reinterpret_cast<ulonglong2*>(acc)[q] = make_ulonglong2(0, 0);
+  if (tid == 0 && (acc_count & 1)) acc[acc_count - 1] = 0;
+  __shared__ float red[kThreads / 32];
+  const int k = s * s, total = n * k;  // the caller keeps n S^2 below 2^31
+  const int per = (total + kCotBlocks - 1) / kCotBlocks, last = min(total, (int)(blockIdx.x + 1) * per);
+  int p = blockIdx.x * per + threadIdx.x;
+  int cn = p / k, q = p - cn * k;  // the pixel's cut and its offset in the plane, then stepped
+  float m = 0.f;
+  for (; p < last; p += kThreads, q += kThreads) {
+    while (q >= k) {
+      q -= k;
+      ++cn;
+    }
+    const Cut c = load_cut(params, cn);
+    const long at = (long)cn * 3 * k + q;
+    float gv[3];
+    cotangent(g, pre, c, at, k, gv);
+    if (c.apply) {
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci) cot[at + (long)ci * k] = from_float<T>(gv[ci]);
+    }
+    m = fmaxf(m, fmaxf(fmaxf(fabsf(gv[0]), fabsf(gv[1])), fabsf(gv[2])));
+  }
+  m = warp_fmax(m);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int q = 1; q < kThreads / 32; ++q) m = fmaxf(m, red[q]);
+    partial[blockIdx.x] = m;
+  }
+}
+
+// g, params as bank_bwd_body; cot the first pass's cotangent bank (read
+// for the jittered cuts, g for the others); partial (kCotBlocks + 1) its
+// partial maxima, s_g stored after them; acc (H, W, 3) int64, zeroed by the
+// first pass; branches as bank_bwd_body.  Grid and tiles as bank_bwd_body.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 8)
+bank_bwd_int8_kernel(const T* __restrict__ g, const T* __restrict__ cot, const float* __restrict__ params,
+                     float* __restrict__ partial, unsigned long long* __restrict__ acc, int* __restrict__ branches,
+                     int h, int w, int s) {
+  __shared__ int sums[kInt8SmemInts];
+  __shared__ int red[4][kThreads / 32];
+  __shared__ float mred[kThreads / 32];
+  float m = 0.f;
+  for (int q = threadIdx.x; q < kCotBlocks; q += kThreads) m = fmaxf(m, __ldg(partial + q));
+  const int tiles_x = (s + kTile - 1) / kTile;
+  const int i = (blockIdx.x / tiles_x) * kTile + threadIdx.x / kTile;
+  const int j = (blockIdx.x % tiles_x) * kTile + threadIdx.x % kTile;
+  const int n = blockIdx.y;
+  const int k = s * s;
+  const Cut c = load_cut(params, n);
+  Taps tp;
+  tp.valid = 0u;
+  float gv[3] = {0.f, 0.f, 0.f};
+  if (i < s && j < s) {
+    tp = compute_taps(c, i, j, h, w, 0.f);
+    if (tp.valid) {
+      const T* src = c.apply ? cot : g;
+      const long at = (long)n * 3 * k + (long)i * s + j;
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci) gv[ci] = to_float(src[at + (long)ci * k]);
+    }
+  }
+  m = warp_fmax(m);
+  if ((threadIdx.x & 31) == 0) mred[threadIdx.x >> 5] = m;
+  const Box box = block_box(tp, red);  // its barrier also publishes mred
+  m = mred[0];
+#pragma unroll
+  for (int q = 1; q < kThreads / 32; ++q) m = fmaxf(m, mred[q]);
+  const float sg = fmaxf(m, 1e-20f);
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) partial[kCotBlocks] = sg;
+  if (box.xmax < box.xmin) return;  // no tap of this tile lies on the canvas (uniform over the block)
+  const int fw = box.xmax - box.xmin + 1, fh = box.ymax - box.ymin + 1;
+  const bool local = (long)fw * fh * 3 <= kInt8SmemInts;
+  if (branches != nullptr && threadIdx.x == 0) atomicAdd(branches + (local ? 0 : 1), 1);
+  if (local) {
+    for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) sums[q] = 0;
+    __syncthreads();
+  }
+  if (tp.valid) {
+    const Hats ht = jax_hats(tp);
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) gv[ci] = __fdiv_rn(gv[ci], sg);
+#pragma unroll
+    for (int tap = 0; tap < 4; ++tap) {
+      if (!(tp.valid & (1u << tap))) continue;
+      const int x = tp.x0 + (tap & 1), y = tp.y0 + (tap >> 1);
+      const float wa = (tap >> 1) ? ht.y1 : ht.y0, wb = (tap & 1) ? ht.x1 : ht.x0;
+      const int bq = (int)rintf(__fmul_rn(wb, kQ));
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci) {
+        if (gv[ci] == 0.f) continue;
+        const int contrib = (int)rintf(__fmul_rn(__fmul_rn(wa, gv[ci]), kQ)) * bq;
+        if (local)
+          atomicAdd(sums + ((y - box.ymin) * fw + (x - box.xmin)) * 3 + ci, contrib);
+        else
+          add_to(acc + ((long)y * w + x) * 3 + ci, (long long)contrib);
+      }
+    }
+  }
+  if (local) {
+    __syncthreads();
+    for (int q = threadIdx.x; q < fw * fh * 3; q += kThreads) {
+      const int a = sums[q];
+      if (a != 0) {
+        const int cell = q / 3, ci = q - cell * 3;
+        add_to(acc + ((long)(box.ymin + cell / fw) * w + (box.xmin + cell % fw)) * 3 + ci, (long long)a);
+      }
+    }
+  }
+}
+
+// K2-int8's last pass: dwork = float(acc) * (s_g / 127^2), s_g from partial[kCotBlocks].
+__global__ void __launch_bounds__(kThreads)
+bank_bwd_int8_finish_kernel(const long long* __restrict__ acc, const float* __restrict__ partial,
+                            float* __restrict__ dwork, long count) {
+  const long q = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= count) return;
+  const float scale = __fdiv_rn(__ldg(partial + kCotBlocks), kDequant);
+  dwork[q] = __fmul_rn(__ll2float_rn(acc[q]), scale);
+}
+
+// one vector reduction (sm_90) of a texel's three channels, and 0 in the fourth lane, into 16-byte aligned
+// device memory
+__device__ __forceinline__ void red_add_texel(float* p, float r, float g, float b) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};" ::"l"(p), "f"(r), "f"(g), "f"(b), "f"(0.f) : "memory");
+}
+
+// g, pre, params as bank_bwd_body; acc (H, W, 4) f32, zeroed by the caller.
+// Grid (ceil(S^2 / kThreads), N): one output pixel of one cut per thread,
+// row-major.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kHighBlocksPerSm)
+bank_bwd_high_kernel(const T* __restrict__ g, const T* __restrict__ pre, const float* __restrict__ params,
+                     float* __restrict__ acc, int h, int w, int s) {
+  const int k = s * s, n = blockIdx.y;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= k) return;
+  const int i = p / s, j = p - i * s;
+  const Cut c = load_cut(params, n);
+  const Taps tp = compute_taps(c, i, j, h, w, 0.f);
+  if (!tp.valid) return;
+  float gv[3];
+  cotangent(g, pre, c, (long)n * 3 * k + p, k, gv);
+  if (gv[0] == 0.f && gv[1] == 0.f && gv[2] == 0.f) return;
+  const Hats ht = jax_hats(tp);
+#pragma unroll
+  for (int tap = 0; tap < 4; ++tap) {
+    if (!(tp.valid & (1u << tap))) continue;
+    const long cell = (long)(tp.y0 + (tap >> 1)) * w + tp.x0 + (tap & 1);
+    const float wa = (tap >> 1) ? ht.y1 : ht.y0, wb = (tap & 1) ? ht.x1 : ht.x0;
+    red_add_texel(acc + cell * 4, tap_contrib<kHigh>(wa, wb, gv[0]), tap_contrib<kHigh>(wa, wb, gv[1]),
+                  tap_contrib<kHigh>(wa, wb, gv[2]));
+  }
+}
+
+// K2-high's last pass: dwork (H, W, 3) = the first three lanes of acc (H, W, 4).
+__global__ void __launch_bounds__(kThreads)
+bank_bwd_high_pack_kernel(const float4* __restrict__ acc, float* __restrict__ dwork, long pixels) {
+  const long q = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= pixels) return;
+  const float4 v = __ldg(acc + q);
+  dwork[q * 3] = v.x;
+  dwork[q * 3 + 1] = v.y;
+  dwork[q * 3 + 2] = v.z;
+}
+
 bool aligned8(const void* p) { return p == nullptr || ((uintptr_t)p & 7u) == 0; }
 
 template <typename T>
@@ -1199,17 +1360,15 @@ int launch_bwd_bands(const T* g, const T* pre, const float* params, const int2* 
 }
 
 template <typename T>
-int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc_q, float* gmax,
-               const int* rows, float* partial, int* branches, int prec, int n, int h, int w, int s,
-               cudaStream_t stream) {
-  const int smem = kSmemFloats * (int)sizeof(float);
+int launch_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc, const int* rows,
+               float* partial, int* branches, int prec, int n, int h, int w, int s, cudaStream_t stream) {
   const int tiles = ((s + kTile - 1) / kTile) * ((s + kTile - 1) / kTile);
   dim3 grid(tiles, n);
   const T *gt = (const T*)g, *pt = (const T*)pre;
-  unsigned long long* acc = (unsigned long long*)acc_q;
+  const long count = (long)h * w * 3;
   switch (prec) {
     case kHighest:
-      bank_bwd_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
+      bank_bwd_kernel<T><<<grid, kThreads, 0, stream>>>(gt, pt, params, dwork, branches, h, w, s);
       break;
     case kBf16: {
       const int code = launch_bwd_bands<T>(gt, pt, params, (const int2*)rows, dwork, partial, branches, n, h, w, s,
@@ -1218,17 +1377,19 @@ int launch_bwd(const void* g, const void* pre, const float* params, float* dwork
       break;
     }
     case kHigh:
-      bank_bwd_high_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
+      if (acc == nullptr) return (int)cudaErrorInvalidValue;
+      bank_bwd_high_kernel<T><<<dim3((s * s + kThreads - 1) / kThreads, n), kThreads, 0, stream>>>(
+          gt, pt, params, (float*)acc, h, w, s);
+      bank_bwd_high_pack_kernel<<<(unsigned)((h * (long)w + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+          (const float4*)acc, dwork, (long)h * w);
       break;
-    case kInt8: {
-      if (acc == nullptr || gmax == nullptr) return (int)cudaErrorInvalidValue;
-      bank_bwd_max_kernel<T><<<grid, kThreads, 0, stream>>>(gt, pt, params, gmax, s);
-      bank_bwd_int8_kernel<T><<<grid, kThreads, smem, stream>>>(gt, pt, params, dwork, acc, gmax, branches, h, w, s);
-      const long count = (long)h * w * 3;
+    case kInt8:
+      if (acc == nullptr || partial == nullptr) return (int)cudaErrorInvalidValue;
+      bank_bwd_int8_kernel<T><<<grid, kThreads, 0, stream>>>(gt, pt, params, partial, (unsigned long long*)acc,
+                                                             branches, h, w, s);
       bank_bwd_int8_finish_kernel<<<(unsigned)((count + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-          (const long long*)acc, gmax, dwork, count);
+          (const long long*)acc, partial, dwork, count);
       break;
-    }
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1277,18 +1438,39 @@ extern "C" long long bank_bwd_partial_floats(int n, int h, int w) {
   return (long long)b.groups * (h + (h + b.band_rows - 1) / b.band_rows) * w * 3;
 }
 
-// int8 (prec 3): acc (H, W, 3) int64 and gmax (1,) f32, both zeroed by the
-// caller; three launches (max, scatter, finish).  bf16 (prec 1): rows, the
-// row table of bank_bwd_rows, and partial, bank_bwd_partial_floats of f32
-// scratch; dwork need not be zeroed; two launches (bands, sum); branches
-// counts row and pixel visits.  Null where a rung takes none.
-extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc, float* gmax,
+// K2-int8's cotangent pass: cot (N, 3, S, S) in the bank's dtype (the
+// jittered cuts' rows; null with pre), partial (kCotBlocks + 1,) f32 (the
+// partial maxima; the scatter stores s_g last), acc (H, W, 3) int64, zeroed.
+extern "C" int bank_bwd_cot(const void* g, const void* pre, const float* params, void* cot, float* partial,
+                            void* acc, int dtype, int n, int h, int w, int s, void* stream) {
+  if ((long)n * s * s >= INT_MAX) return (int)cudaErrorInvalidValue;
+  const long count = (long)h * w * 3;
+  auto* a = (unsigned long long*)acc;
+  if (dtype == 1)
+    bank_bwd_cot_kernel<bf16><<<kCotBlocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const bf16*)g, (const bf16*)pre, params, (bf16*)cot, partial, a, count, n, s);
+  else
+    bank_bwd_cot_kernel<float><<<kCotBlocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float*)g, (const float*)pre, params, (float*)cot, partial, a, count, n, s);
+  return (int)cudaGetLastError();
+}
+
+// int8 (prec 3): pre is the cotangent bank of bank_bwd_cot, partial its
+// partial maxima and acc its zeroed int64 canvas; two launches (scatter,
+// finish); dwork need not be zeroed.  high (prec 2): acc (H, W, 4) f32,
+// zeroed by the caller; two launches (scatter, pack); dwork need not be
+// zeroed.  bf16 (prec 1): rows, the row table of bank_bwd_rows, and
+// partial, bank_bwd_partial_floats of f32 scratch; dwork need not be
+// zeroed; two launches (bands, sum); branches counts row and pixel visits.
+// highest (prec 0): dwork zeroed by the caller.  Null where a rung takes
+// none.
+extern "C" int bank_bwd(const void* g, const void* pre, const float* params, float* dwork, void* acc,
                         const int* rows, float* partial, int* branches, int dtype, int prec, int n, int h, int w,
                         int s, void* stream) {
   if (dtype == 1)
-    return launch_bwd<bf16>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s,
+    return launch_bwd<bf16>(g, pre, params, dwork, acc, rows, partial, branches, prec, n, h, w, s,
                             (cudaStream_t)stream);
-  return launch_bwd<float>(g, pre, params, dwork, acc, gmax, rows, partial, branches, prec, n, h, w, s,
+  return launch_bwd<float>(g, pre, params, dwork, acc, rows, partial, branches, prec, n, h, w, s,
                            (cudaStream_t)stream);
 }
 
@@ -1298,10 +1480,12 @@ extern "C" void bank_layout(int* out) {
   for (int k = 0; k < 7; ++k) out[k] = layout[k];
 }
 
-// K1-int8's count of partial maxima, K2-bf16's band rows, cluster size and most cut groups
+// K1-int8's count of partial maxima, K2-bf16's band rows, cluster size and most cut groups, K2-int8's
+// count of partial maxima
 extern "C" void bank_scratch(int* out) {
   out[0] = kScaleBlocks;
   out[1] = kBandRows;
   out[2] = kBandCluster;
   out[3] = kBandGroups;
+  out[4] = kCotBlocks;
 }

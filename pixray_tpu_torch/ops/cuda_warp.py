@@ -42,8 +42,12 @@ device, never read on the host; plain twins ``quantize_canvas`` and
 ``pack_texels``) as one packed texel per canvas pixel; K2-bf16 walks
 a row table (:func:`launch_bank_rows`, plain twin ``tap_row_ranges``) in
 canvas bands, summed by thread block clusters into a few partial canvases
-that its last pass adds up; K2-int8 takes the bank's max|g| in a first
-pass and sums in int64.
+that its last pass adds up; K2-int8 evaluates the post-epilogue
+cotangent once, in a pass that also leaves its partial maxima and zeroes
+the int64 canvas (:func:`launch_bank_cotangent`, plain twin
+:func:`bank_cotangent_plain`), then sums integers and dequantizes;
+K2-high adds one vector reduction a tap into an (H, W, 4) canvas that its
+pack pass writes out.
 
 ``LAUNCHES`` counts kernel launches (incremented only where a kernel is
 launched), one counter per rung of each kernel ("warp_fwd" and
@@ -59,7 +63,7 @@ import threading
 
 import torch
 
-from pixray_tpu_torch.ops.color import random_color_jitter_planes
+from pixray_tpu_torch.ops.color import jitter_planes_adjoint, random_color_jitter_planes
 from pixray_tpu_torch.ops.nvcc import build_library, library_path, source_path
 from pixray_tpu_torch.ops.warp import inv3x3
 from pixray_tpu_torch.ops.warp_batch import (MODE_BORDER, MODE_FILL, MODE_REFLECT, MODE_ZEROS, WARP_PRECS,
@@ -82,11 +86,18 @@ KERNEL_NAMES = {"warp_fwd": "bank_fwd_kernel", "warp_fwd_bf16": "bank_fwd_bf16_k
                 "warp_bwd": "bank_bwd_kernel", "warp_bwd_bf16": "bank_bwd_bf16_kernel",
                 "warp_bwd_high": "bank_bwd_high_kernel", "warp_bwd_int8": "bank_bwd_int8_kernel",
                 "warp_fwd_int8_scale": "bank_int8_scale_kernel", "warp_fwd_int8_pack": "bank_int8_pack_kernel",
-                "warp_bwd_bf16_rows": "bank_bwd_rows_kernel", "warp_bwd_bf16_sum": "bank_bwd_sum_kernel"}
+                "warp_bwd_bf16_rows": "bank_bwd_rows_kernel", "warp_bwd_bf16_sum": "bank_bwd_sum_kernel",
+                "warp_bwd_int8_cot": "bank_bwd_cot_kernel", "warp_bwd_int8_finish": "bank_bwd_int8_finish_kernel",
+                "warp_bwd_high_pack": "bank_bwd_high_pack_kernel"}
 
-# the helper passes of a rung's kernel, by counter
+# the helper passes of a rung's kernel, by counter, in launch order
 HELPERS = {"warp_fwd_int8": ("warp_fwd_int8_scale", "warp_fwd_int8_pack"),
-           "warp_bwd_bf16": ("warp_bwd_bf16_rows", "warp_bwd_bf16_sum")}
+           "warp_bwd_bf16": ("warp_bwd_bf16_rows", "warp_bwd_bf16_sum"),
+           "warp_bwd_int8": ("warp_bwd_int8_cot", "warp_bwd_int8_finish"),
+           "warp_bwd_high": ("warp_bwd_high_pack",)}
+
+# the pass that bank_bwd launches after a K2 rung's kernel, by rung
+BWD_LAST_PASS = {"bf16": "warp_bwd_bf16_sum", "int8": "warp_bwd_int8_finish", "high": "warp_bwd_high_pack"}
 
 LAUNCHES = {name: 0 for name in (*FWD_COUNTERS.values(), *BWD_COUNTERS.values(), *sum(HELPERS.values(), ()))}
 
@@ -115,8 +126,10 @@ def _library():
             lib.bank_int8_pack.argtypes = [ptr, ptr, ptr, i64, ptr]
             lib.bank_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
             lib.bank_bwd_rows.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
-            lib.bank_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
-            for fn in (lib.bank_int8_scale, lib.bank_int8_pack, lib.bank_fwd, lib.bank_bwd_rows, lib.bank_bwd):
+            lib.bank_bwd_cot.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+            lib.bank_bwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
+            for fn in (lib.bank_int8_scale, lib.bank_int8_pack, lib.bank_fwd, lib.bank_bwd_rows, lib.bank_bwd_cot,
+                       lib.bank_bwd):
                 fn.restype = i32
             lib.bank_bwd_partial_floats.argtypes = [i32] * 3
             lib.bank_bwd_partial_floats.restype = i64
@@ -134,12 +147,13 @@ def _library():
 
 @functools.cache
 def scratch_layout() -> dict:
-    """K1-int8's count of partial maxima and K2-bf16's band rows, cluster
-    size and most cut groups, as ``csrc/warp.cu`` sets them (builds the
-    library)."""
-    out = (ctypes.c_int * 4)()
+    """K1-int8's count of partial maxima, K2-bf16's band rows, cluster
+    size and most cut groups, and K2-int8's count of partial maxima, as
+    ``csrc/warp.cu`` sets them (builds the library)."""
+    out = (ctypes.c_int * 5)()
     _library().bank_scratch(out)
-    return {"scale_blocks": out[0], "band_rows": out[1], "band_cluster": out[2], "band_groups": out[3]}
+    return {"scale_blocks": out[0], "band_rows": out[1], "band_cluster": out[2], "band_groups": out[3],
+            "cot_blocks": out[4]}
 
 
 # ------------------------------------------------------------------ parameters
@@ -192,6 +206,24 @@ def bank_epilogue_plain(batch, params, planes=None):
         facs = p["facs"].to(batch.device, r.dtype)[:, None, None]
         r, g, b = (x + facs * z for x, z in zip((r, g, b), planes))
     return torch.stack([r, g, b], dim=1)
+
+
+def bank_cotangent_plain(g, pre, params):
+    """The plain twin of K2-int8's cotangent pass: the bank's (N, 3, S, S)
+    cotangent ``g`` through the epilogue's adjoint, in ``g``'s dtype, and
+    s_g = max(max|cotangent|, 1e-20) (a () float32 tensor on ``g``'s
+    device, no host read).  The jittered cuts' rows are
+    ``jitter_planes_adjoint`` of their saved pre-jitter rows ``pre``,
+    rounded to the dtype (where the forward's ``.float()`` rounds); the
+    other rows are ``g`` itself, as is every row when ``pre`` is None."""
+    cot = g
+    if pre is not None:
+        p = unpack_params(params)
+        apply = p["apply"].to(g.device)
+        adj = jitter_planes_adjoint(*pre.unbind(1), p["hue"].to(g.device)[:, None, None],
+                                    p["sat"].to(g.device)[:, None, None], *g.float().unbind(1))
+        cot = torch.where(apply[:, None, None, None], torch.stack(adj, 1).to(g.dtype), g)
+    return cot, torch.clamp(cot.float().abs().amax(), min=1e-20)
 
 
 def cutout_bank_plain(work, params, out_size: int, planes=None, compute_dtype=None, prec="highest", bwd=None):
@@ -276,6 +308,36 @@ def launch_bank_rows(params, work_shape, out_size: int):
     return rows
 
 
+def launch_bank_cotangent(g, pre, params, work_shape):
+    """K2-int8's cotangent pass: (N, 3, S, S) cotangent, the saved
+    pre-jitter bank (None when no cut is jittered) and the parameters on the
+    card → (the post-epilogue cotangent bank in ``g``'s dtype, written for
+    the jittered cuts only, or None without ``pre``; the (cot_blocks + 1,)
+    f32 partial maxima of its magnitude, whose maximum clamped at 1e-20 is
+    s_g (plain: ``bank_cotangent_plain``); the (H, W, 3) int64 canvas the
+    scatter sums into, zeroed)."""
+    dev = g.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {dev}")
+    if g.dtype not in _DTYPES:
+        raise ValueError(f"unsupported bank dtype {g.dtype}")
+    n, (h, w, c), s = params.shape[0], work_shape, g.shape[-1]
+    _check("params", params, dev, torch.float32, (n, PARAM_STRIDE))
+    _check("g", g, dev, g.dtype, (n, c, s, s))
+    if pre is not None:
+        _check("pre", pre, dev, g.dtype, g.shape)
+    cot = None if pre is None else torch.empty_like(g)
+    partial = torch.empty((scratch_layout()["cot_blocks"] + 1,), dtype=torch.float32, device=dev)
+    acc = torch.empty((h, w, c), dtype=torch.int64, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(_library().bank_bwd_cot(g.data_ptr(), ptr(pre), params.data_ptr(), ptr(cot), partial.data_ptr(),
+                                      acc.data_ptr(), _DTYPES[g.dtype], n, h, w, s, stream),
+              "bank_bwd_cot")
+    LAUNCHES["warp_bwd_int8_cot"] += 1
+    return cot, partial, acc
+
+
 def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.float32,
                     save_pre: bool = False, prec: str = "highest"):
     """K1 at rung ``prec``: (H, W, 3) f32 canvas and (N, PARAM_STRIDE)
@@ -322,11 +384,14 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None, pr
     saved pre-jitter bank (None when no cut is jittered) and the parameters
     → (H, W, 3) f32.  ``branches``, a (2,) int32 tensor on the card, if
     given, gains the count of blocks that summed in shared memory and of
-    those that added straight to device memory (bf16: the row visits and
-    the pixel visits of its bands).  int8 sums in an int64 canvas after a
-    pass that takes the bank's max|g|; bf16 walks the row table of
-    :func:`launch_bank_rows` into partial canvases, then its sum pass
-    writes every element of the gradient."""
+    those that added straight to device memory (exact and int8; bf16: the
+    row visits and the pixel visits of its bands).  int8 runs
+    :func:`launch_bank_cotangent` first, then its scatter sums integers into
+    that pass's int64 canvas and its finish pass writes the gradient; high
+    adds vector reductions into an (H, W, 4) canvas that its pack pass
+    writes out; bf16 walks the row table of :func:`launch_bank_rows` into
+    partial canvases, then its sum pass writes every element of the
+    gradient."""
     _check_prec(prec)
     dev = g.device
     if dev.type != "cuda":
@@ -344,27 +409,29 @@ def launch_bank_bwd(g, pre, params, work_shape, out_size: int, branches=None, pr
     if n == 0:
         return torch.zeros((h, w, c), dtype=torch.float32, device=dev)
     lib = _library()
-    acc = gmax = rows = partial = None
+    acc = rows = partial = cot = None
     if prec == "int8":
-        acc = torch.zeros((h, w, c), dtype=torch.int64, device=dev)
-        gmax = torch.zeros((1,), dtype=torch.float32, device=dev)
-    if prec == "bf16":
+        cot, partial, acc = launch_bank_cotangent(g, pre, params, work_shape)
+    elif prec == "high":
+        acc = torch.zeros((h, w, 4), dtype=torch.float32, device=dev)
+    elif prec == "bf16":
         rows = launch_bank_rows(params, work_shape, out_size)
         floats = lib.bank_bwd_partial_floats(n, h, w)
         if floats < 0:
             raise ValueError(f"K2-bf16 cannot keep a band of a canvas {w} pixels wide in shared memory")
         partial = torch.empty((floats,), dtype=torch.float32, device=dev)
-        dwork = torch.empty((h, w, c), dtype=torch.float32, device=dev)
-    else:
-        dwork = torch.zeros((h, w, c), dtype=torch.float32, device=dev)
+    # the exact rung adds to dwork; the others' last pass writes every element
+    dwork = (torch.zeros if prec == "highest" else torch.empty)((h, w, c), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
-    code = lib.bank_bwd(g.data_ptr(), ptr(pre), params.data_ptr(), dwork.data_ptr(), ptr(acc), ptr(gmax), ptr(rows),
+    # int8's scatter reads the cotangent bank in place of the pre-jitter bank
+    second = cot if prec == "int8" else pre
+    code = lib.bank_bwd(g.data_ptr(), ptr(second), params.data_ptr(), dwork.data_ptr(), ptr(acc), ptr(rows),
                         ptr(partial), ptr(branches), _DTYPES[g.dtype], _PREC_CODES[prec], n, h, w, out_size, stream)
     _raise_on(code, f"bank_bwd ({prec})")
     LAUNCHES[BWD_COUNTERS[prec]] += 1
-    if prec == "bf16":
-        LAUNCHES["warp_bwd_bf16_sum"] += 1  # the sum pass, launched after the bands
+    if prec in BWD_LAST_PASS:
+        LAUNCHES[BWD_LAST_PASS[prec]] += 1  # bank_bwd launches it after the rung's kernel
     return dwork
 
 

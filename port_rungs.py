@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the cutout bank's default warp rungs, K1-int8 and K2-bf16, of one
-tree of the PyTorch port on one NVIDIA GPU.
+"""Time the cutout bank's warp rungs (K1-int8 and the four K2 rungs) of
+one tree of the PyTorch port on one NVIDIA GPU.
 
     python3 port_rungs.py [--root DIR] [--label NAME] [--ladder]
 
@@ -14,16 +14,20 @@ and only interfaces that every tree with the precision rungs has are called
 Banks: the flagship (64 cuts of 224 on the 224x224x3 work canvas, bf16,
 47 jittered, noise; ``chip_smoke.flagship_bank_inputs``) and 64 cuts of
 384 on 384x384x3, drawn alike.  Per bank, K1-int8 (``save_pre``, as the
-step calls it) and K2-bf16 (from K1-int8's saved bank, and once more on
-the bank without jitter, whose cotangent is g itself): the summed kernel
-time of one call (``chip_smoke.kernel_times``), each kernel by name, and
-the median CUDA-event time of one call, beside chip_smoke.py's bounds.
+step calls it), and each K2 rung from the saved bank of the K1 rung that
+selects it: the exact K2 from exact K1's, K2-bf16 and K2-int8 from
+K1-int8's, K2-high from K1-high's; and each K2 rung once more on the bank
+without jitter, whose cotangent is g itself.  Per call: the summed kernel
+time of one call (``chip_smoke.kernel_times``), each kernel and fill by
+name, and the median CUDA-event time of one call, beside chip_smoke.py's
+bounds.
 
 ``--ladder`` drives chip_smoke.py 34's pixel row (17 steps, blocked,
 ViT-B/32 on its seeded weights) at the exact rungs, with
-``PIXRAY_TPU_WARP_PREC=int8`` alone and with ``=bf16`` alone, and reads
-the device busy per step of three replays of each.  Prints one JSON line and
-writes it to ``chiprun_out/rungs_<label>.json``.
+``PIXRAY_TPU_WARP_PREC=high`` and with ``=int8`` plus
+``PIXRAY_TPU_WARP_BWD_PREC=int8``, and reads the device busy per step of
+three replays of each.  Prints one JSON line and writes it to
+``chiprun_out/rungs_<label>.json``.
 """
 
 from __future__ import annotations
@@ -37,8 +41,11 @@ import sys
 import tempfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-LADDER_ROWS = (("exact", {}), ("warp int8 alone", {"PIXRAY_TPU_WARP_PREC": "int8"}),
-               ("warp bf16", {"PIXRAY_TPU_WARP_PREC": "bf16"}))
+LADDER_ROWS = (("exact", {}), ("warp high", {"PIXRAY_TPU_WARP_PREC": "high"}),
+               ("warp int8, K2 int8", {"PIXRAY_TPU_WARP_PREC": "int8", "PIXRAY_TPU_WARP_BWD_PREC": "int8"}))
+# K2's rungs, each from the saved bank of the K1 rung that selects it
+K2_RUNGS = (("k2_exact", "highest", "highest"), ("k2_bf16", "int8", "bf16"), ("k2_int8", "int8", "int8"),
+            ("k2_high", "high", "high"))
 LADDER_WINDOWS = 3
 
 
@@ -49,7 +56,7 @@ def _times(cs, fn):
 
 
 def bank(cs, n, s):
-    """K1-int8 and K2-bf16 on one bank drawn as the flagship's."""
+    """K1-int8 and the four K2 rungs on one bank drawn as the flagship's."""
     import torch
 
     from pixray_tpu_torch.ops import cuda_warp
@@ -63,20 +70,21 @@ def bank(cs, n, s):
     flat_dev = cuda_warp.pack_params(inv, modes, None, facs, fill=0.37).to(dev)
     shape = tuple(work.shape)
     g = torch.randn((n, 3, s, s), device=dev, generator=torch.Generator(device=dev).manual_seed(9)).to(bf16)
-    _, pre = cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16, save_pre=True, prec="int8")
     jittered = int(jitter[2].sum())
     plane, rows, canvas = s * s * 2, params.numel() * 4, s * s * 3 * 4
     out = {
         "n": n, "s": s, "jittered": jittered,
         "k1_int8": _times(cs, lambda: cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16, save_pre=True,
                                                                  prec="int8")),
-        "k2_bf16": _times(cs, lambda: cuda_warp.launch_bank_bwd(g, pre, params_dev, shape, s, prec="bf16")),
-        "k2_bf16_no_jitter": _times(cs, lambda: cuda_warp.launch_bank_bwd(g, None, flat_dev, shape, s, prec="bf16")),
         "k1_bound": cs.bound(canvas + rows + 3 * n * plane * 2 + 3 * jittered * plane,
                              (cs.WARP_FWD_FLOPS_PER_PIXEL * n + cs.JITTER_FWD_FLOPS_PER_PIXEL * jittered) * s * s),
         "k2_bound": cs.bound(3 * n * plane + 3 * jittered * plane + rows + canvas,
                              (cs.WARP_BWD_FLOPS_PER_PIXEL * n + cs.JITTER_BWD_FLOPS_PER_PIXEL * jittered) * s * s),
     }
+    for key, fwd, bwd in K2_RUNGS:
+        _, pre = cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16, save_pre=True, prec=fwd)
+        out[key] = _times(cs, lambda: cuda_warp.launch_bank_bwd(g, pre, params_dev, shape, s, prec=bwd))
+        out[key + "_no_jitter"] = _times(cs, lambda: cuda_warp.launch_bank_bwd(g, None, flat_dev, shape, s, prec=bwd))
     return out
 
 
@@ -137,10 +145,11 @@ def main():
         f.write(line + "\n")
     for b in out["banks"]:
         t = lambda key: f"{b[key]['ms']:.4f} / {b[key]['event_ms']:.4f}"
+        k2 = "; ".join(f"{key} {t(key)} ms, without jitter {t(key + '_no_jitter')} ms, kernels "
+                       f"{json.dumps(b[key]['kernels'])}" for key, _, _ in K2_RUNGS)
         print(f"{args.label} bank {b['n']} cuts of {b['s']} ({b['jittered']} jittered): K1-int8 {t('k1_int8')} ms "
-              f"(bound {b['k1_bound'][0]:.4f}), K2-bf16 {t('k2_bf16')} ms (bound {b['k2_bound'][0]:.4f}), without "
-              f"jitter {t('k2_bf16_no_jitter')} ms; kernels {json.dumps(b['k1_int8']['kernels'])} "
-              f"{json.dumps(b['k2_bf16']['kernels'])}; on {card}", flush=True)
+              f"(bound {b['k1_bound'][0]:.4f}), kernels {json.dumps(b['k1_int8']['kernels'])}; K2 bound "
+              f"{b['k2_bound'][0]:.4f}: {k2}; on {card}", flush=True)
     for label, r in out.get("ladder", {}).items():
         print(f"{args.label} ladder {label}: busy per step {r['median_busy_ms']:.4f} ms "
               f"({[round(x, 4) for x in r['busy_ms']]}), last5 {r['last5']:.4f}, launches {r['launches']}; on {card}",

@@ -15,7 +15,20 @@ on the CPU (``ops/warp_batch.py``):
   ``_rung_taps`` (the taps K2's rung variants read), on axis-aligned,
   perspective, reflection, border, zeros and fill cuts: the ragged
   tie-rich bank of phase 3b (9 cuts of 40 on 90x100, zoomed out past the
-  canvas) and 8 cuts of 384 on 384x384 drawn as the flagship bank's.
+  canvas) and 8 cuts of 384 on 384x384 drawn as the flagship bank's;
+- ``cuda_warp.bank_cotangent_plain``, the plain twin of K2-int8's
+  cotangent pass (the post-epilogue cotangent bank in the bank's dtype and
+  its s_g), against autograd through the bank's plain epilogue
+  (``bank_epilogue_plain``): in f32 within 1e-5 of the largest cotangent
+  (the explicit adjoint sums autograd's terms in another order, as
+  test_torch_cutout_bank.py holds ``jitter_planes_adjoint``), in bf16
+  within one bf16 ulp (2**-8 relative) plus 4e-5 of the largest cotangent
+  (that f32 difference can round to the neighbouring bf16 value, and
+  terms that cancel leave it beside a small result, as chip_smoke.py's
+  ADJOINT_ULP and ADJOINT_CANCEL); the cuts without jitter, and every cut
+  without a saved bank, keep g bitwise; s_g is max|cotangent| clamped at
+  1e-20.  (Its maximum against the JAX int8 backward's scale is in
+  test_torch_warp_rungs.py.)
 """
 
 import numpy as np
@@ -23,6 +36,7 @@ import pytest
 import torch
 
 from pixray_tpu_torch.engine.cutouts import bank_order, cut_transforms, draw_cut_params
+from pixray_tpu_torch.ops import cuda_warp
 from pixray_tpu_torch.ops import warp as W
 from pixray_tpu_torch.ops import warp_batch as WB
 from pixray_tpu_torch.ops.warp import inv3x3
@@ -145,3 +159,52 @@ def test_row_table_is_the_taps_brute_force(bank):
     assert (got[..., 0] <= got[..., 1]).any() and (got[..., 0] >= 0).all()
     if bank != "8 cuts of 384":
         assert (got[..., 0] > got[..., 1]).any()  # some row with no tap on the canvas
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cotangent_bank_is_the_epilogue_adjoint(dtype):
+    """The ragged tie-rich bank through the warp, the jitter on its cuts
+    drawn with apply set on some (gray, clip-bound and tied pixels among
+    them), and a cotangent: ``bank_cotangent_plain`` against autograd of
+    ``bank_epilogue_plain`` (no noise: its adjoint is the identity)."""
+    from pixray_tpu_torch.ops.color import draw_jitter_params
+
+    ms, modes, shape, s = _ragged_bank()
+    gen = torch.Generator().manual_seed(5)
+    n = ms.shape[0]
+    jitter = draw_jitter_params(gen, n, p=0.7)
+    params = cuda_warp.pack_params(inv3x3(ms.float()), modes, jitter, fill=0.5)
+    work = _tie_canvas(*shape[:2], torch.Generator().manual_seed(3))
+    pre = WB.warp_modes_plain(work, inv3x3(ms.float()), modes, 0.5, s).to(dtype).requires_grad_(True)
+    g = torch.randn((n, 3, s, s), generator=gen).to(dtype)
+    (want,) = torch.autograd.grad(cuda_warp.bank_epilogue_plain(pre, params), pre, g)
+    got, s_g = cuda_warp.bank_cotangent_plain(g, pre.detach(), params)
+    apply = jitter[2]
+    assert got.dtype == dtype and 0 < int(apply.sum()) < n
+    assert torch.equal(got[~apply], g[~apply])
+    scale = float(want.float().abs().max())
+    ulp = 0.0 if dtype == torch.float32 else 2.0 ** -8
+    cancel = 1e-5 if dtype == torch.float32 else 4e-5
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= ulp * want.float().abs() + cancel * scale).all()), float(err.max())
+    assert float((got[apply].float() - g[apply].float()).abs().max()) > 1e-2 * scale  # the adjoint moved it
+    assert float(s_g) == float(got.float().abs().max())
+    same, s_same = cuda_warp.bank_cotangent_plain(g, None, params)
+    assert same is g and float(s_same) == float(g.float().abs().max())
+    assert float(cuda_warp.bank_cotangent_plain(torch.zeros_like(g), None, params)[1]) == np.float32(1e-20)
+
+
+def test_k2_rung_passes_refuse_cpu_tensors():
+    """K2-int8's cotangent pass launches only on CUDA tensors; the rung's
+    wrapper on the CPU is the plain twin (no kernel, no launch)."""
+    ms, modes, shape, s = _ragged_bank()
+    params = cuda_warp.pack_params(inv3x3(ms.float()), modes, fill=0.5)
+    g = torch.zeros((ms.shape[0], 3, s, s))
+    with pytest.raises(ValueError):
+        cuda_warp.launch_bank_cotangent(g, None, params, shape)
+    before = dict(cuda_warp.LAUNCHES)
+    work = _tie_canvas(*shape[:2], torch.Generator().manual_seed(3)).requires_grad_(True)
+    for prec in ("int8", "high"):
+        out = cuda_warp.cutout_bank(work, params, s, None, torch.bfloat16, "int8" if prec == "int8" else prec, prec)
+        out.float().sum().backward()
+    assert cuda_warp.LAUNCHES == before and torch.isfinite(work.grad).all()

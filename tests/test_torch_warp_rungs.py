@@ -110,6 +110,80 @@ def test_int8_backward_matches_pallas(monkeypatch):
     assert float((grad_b - grad).abs().max()) > 1e-3 * float(grad.abs().max())
 
 
+def _int8_bank_96x72():
+    """test_int8_backward_matches_pallas's bank: 5 cuts of S on a 96x72x3 canvas, one per mode and a second fill."""
+    h, w = 96, 72
+    rng = np.random.default_rng(7)
+    work = rng.random((h, w, 3)).astype(np.float32)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32))
+    persp = W.random_perspective(h, w, 0.3, t(rng.random((5, 4, 2))))
+    crop = W.random_resized_crop(h, w, S, t(rng.uniform(0.3, 0.9, 5)), t(rng.uniform(np.log(0.85), np.log(1.2), 5)),
+                                 t(rng.random(5)), t(rng.random(5)))
+    return work, inv3x3(W.mm3(crop, persp)).float().numpy(), np.array([0, 1, 2, 3, 3], np.int32)
+
+
+@pytest.mark.parametrize("jittered", [False, True], ids=["warp", "jitter"])
+def test_cotangent_max_is_the_jax_int8_scale(monkeypatch, jittered):
+    """K2-int8's cotangent pass (plain twin ``bank_cotangent_plain``): its
+    s_g is ``_run_bwd_multi_TB``'s max(max|g_flat|, 1e-20)
+    (pallas_warp.py:782) for the cotangent the JAX package's VJP hands that
+    kernel, on test_int8_backward_matches_pallas's 96x72x3 bank.  Without
+    jitter that cotangent is the bank's own, and s_g is bitwise the JAX
+    one.  With the JAX package's jitter (``_jitter_planes`` on four of the
+    five cuts, f32) behind the warp, it is the jitter's VJP, and the port's
+    cotangent bank (the explicit adjoint, from the JAX pre-jitter bank) and
+    its s_g agree within 1e-5 of the largest cotangent: autograd and the
+    explicit adjoint sum the same terms in another order
+    (test_torch_cutout_bank.py); the cuts without jitter keep g bitwise."""
+    from pixray_tpu.ops.color import _jitter_planes
+
+    work, inv, md = _int8_bank_96x72()
+    n = inv.shape[0]
+    hs = np.array([0.05, -0.08, 0.0, 0.1, -0.02], np.float32)
+    sf = np.array([1.05, 0.92, 1.0, 1.1, 0.95], np.float32)
+    apply = np.array([True, True, False, True, True]) if jittered else np.zeros(n, bool)
+    seen = {}
+    run_bwd = PW._run_bwd_multi_TB
+
+    def spy(g, *args):
+        s_g = jnp.maximum(jnp.max(jnp.abs(PW._g_flat(g, n, S * S, 3, args[-1]))).astype(jnp.float32), 1e-20)
+        jax.debug.callback(lambda g_, s_: seen.update(g=np.asarray(g_), s_g=np.asarray(s_)), g, s_g)
+        return run_bwd(g, *args)
+
+    monkeypatch.setattr(PW, "WARP_BWD_PREC", "int8")
+    monkeypatch.setattr(PW, "_run_bwd_multi_TB", spy)
+    warp = lambda w: PW.pallas_warp_modes(w, jnp.asarray(inv), jnp.asarray(md), jnp.asarray(FILL, jnp.float32), S,
+                                          True, PW.K_TILE, "int8", PW.N_CHUNK, 0, "nchw")
+
+    def f(w):
+        out = warp(w)
+        r, g, b = out[:, 0], out[:, 1], out[:, 2]
+        jr, jg, jb = _jitter_planes(r, g, b, jnp.asarray(hs)[:, None, None], jnp.asarray(sf)[:, None, None])
+        ap = jnp.asarray(apply)[:, None, None]
+        return jnp.stack([jnp.where(ap, jr, r), jnp.where(ap, jg, g), jnp.where(ap, jb, b)], axis=1)
+
+    out, vjp = jax.vjp(f, jnp.asarray(work))
+    cot = np.random.default_rng(2).standard_normal(out.shape).astype(np.float32)
+    vjp(jnp.asarray(cot))
+    jax.effects_barrier()
+    g_kernel = seen["g"].reshape(n, 3, S, S)
+    params = cuda_warp.pack_params(torch.tensor(inv), torch.tensor(md),
+                                   (torch.tensor(hs), torch.tensor(sf), torch.tensor(apply)), fill=FILL)
+    pre = torch.tensor(np.asarray(warp(jnp.asarray(work)))) if jittered else None
+    got, s_g = cuda_warp.bank_cotangent_plain(torch.tensor(cot), pre, params)
+    assert got.dtype == torch.float32 and s_g.dtype == torch.float32 and s_g.dim() == 0
+    np.testing.assert_array_equal(got.numpy()[~apply], cot[~apply])
+    np.testing.assert_array_equal(g_kernel[~apply], cot[~apply])
+    if jittered:
+        scale = float(np.abs(g_kernel).max())
+        np.testing.assert_allclose(got.numpy(), g_kernel, rtol=0, atol=1e-5 * scale)
+        np.testing.assert_allclose(float(s_g), float(seen["s_g"]), rtol=1e-5)
+        assert float(np.abs(g_kernel[apply] - cot[apply]).max()) > 1e-2 * scale  # the jitter's VJP moved it
+    else:
+        np.testing.assert_array_equal(g_kernel, cot)
+        assert float(s_g) == float(seen["s_g"])
+
+
 def test_int8_backward_is_order_free():
     """The int64 sum: the same gradient bitwise whatever the order of the
     cuts, and equal to a float64 sum of the same integer products."""
