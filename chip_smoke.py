@@ -3300,28 +3300,30 @@ class rung_env:
 def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it):
     """K1's and K2's rung variants against their plain twins on the card,
     on one bank (bf16, jitter, noise): per K1 rung the pre-jitter bank of
-    the jittered cuts (bitwise for int8, within BANK_ULPS otherwise) and
-    the bank (within BANK_ULPS); per K2 rung the gradient from the explicit
-    jitter adjoint's cotangent (int8 bitwise, the float rungs within
-    RUNG_BWD_RTOL of max|dwork|), and K2-int8 once more on the bank
-    without jitter, where K2's cotangent is g itself, and a third time for
-    the same bits.  The helper passes against their plain twins, bitwise:
+    the jittered cuts (bitwise) and the bank (within BANK_ULPS); per K2
+    rung the gradient from the explicit jitter adjoint's cotangent (int8
+    bitwise, the float rungs within RUNG_BWD_RTOL of max|dwork|), and
+    K2-int8 once more on the bank without jitter, where K2's cotangent is g
+    itself, and a third time for the same bits.  The helper passes against their plain twins, bitwise:
     K1-int8's scale and pack passes (s_w as quantize_canvas takes it, the
-    packed texels as pack_texels packs quantize_canvas's codes), K2-bf16's
+    packed texels as pack_texels packs quantize_canvas's codes), K1-bf16's
+    and K1-high's pack passes (pack_bf16_texels, bit for bit), K2-bf16's
     row table (tap_row_ranges) and K2-int8's cotangent pass (the jittered
     cuts' cotangent bank and s_g as bank_cotangent_plain gives them, the
     int64 canvas zeroed); K2-bf16's visit counts (row visits, and pixel
     visits: each pixel with a tap on the canvas exactly once); and the
     blocks of K2-int8's scatter that summed in shared memory and that added
-    to device memory.  Times as phase 3b, the helper passes by kernel,
-    bounds with an s8 canvas for K1-int8 (its pack pass reads the f32
-    canvas); grid_sample computes none of these functions."""
+    to device memory.  Times as phase 3b, the helper passes by kernel with
+    bounds of their own bytes; a rung's kernel and its call (its passes
+    with it) against the rung's bound, with an s8 canvas for K1-int8 (its
+    pack pass reads the f32 canvas); grid_sample computes none of these
+    functions."""
     import torch
 
     from pixray_tpu_torch.ops import cuda_warp
     from pixray_tpu_torch.ops.warp import inv3x3
-    from pixray_tpu_torch.ops.warp_batch import (DEQUANT, _rung_taps, pack_texels, quantize_canvas, tap_row_ranges,
-                                                 warp_adjoint_rung, warp_modes_prec)
+    from pixray_tpu_torch.ops.warp_batch import (DEQUANT, _rung_taps, pack_bf16_texels, pack_texels, quantize_canvas,
+                                                 tap_row_ranges, warp_adjoint_rung, warp_modes_prec)
 
     dev, bf16 = work.device, torch.bfloat16
     inv = inv3x3(ms.float())
@@ -3346,8 +3348,12 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
                       torch.equal(scale_buf[-1], s_w),
                       "pack_bitwise": torch.equal(texels, pack_texels(codes)),
                       "rows_bitwise": torch.equal(rows_k, rows_p), "on_canvas": on_canvas}
+    for prec in ("bf16", "high"):  # the bits, so that a -0 against a +0 counts
+        texels_k, texels_p = cuda_warp.launch_canvas_texels(work, prec), pack_bf16_texels(work, prec)
+        res["helpers"][f"{prec}_pack_bitwise"] = torch.equal(texels_k.view(torch.int16), texels_p.view(torch.int16))
     if not all(v for k, v in res["helpers"].items() if k.endswith("bitwise")):
-        fail(f"a helper pass of K1-int8 or K2-bf16 differs from its plain twin on {name}: {res['helpers']}")
+        fail(f"a helper pass of K1-int8, K1-bf16, K1-high or K2-bf16 differs from its plain twin on {name}: "
+             f"{res['helpers']}")
     for prec in ("int8", "bf16", "high"):
         out_k, pre_k = cuda_warp.launch_bank_fwd(work, params_dev, s, planes, bf16, save_pre=True, prec=prec)
         with torch.no_grad():
@@ -3358,8 +3364,8 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
         r = {"pre_bitwise": torch.equal(pre_k[applied], pre_p[applied]), "pre_max_ulps": int(pre_ulps.max()),
              "max_ulps": int(ulps.max()), "ulp_diffs": int((ulps > 0).sum()),
              "max_abs_err": float((out_k.float() - out_p.float()).abs().max())}
-        if prec == "int8" and not r["pre_bitwise"]:
-            fail(f"K1-int8's pre-jitter bank differs from its plain twin on {name}: {r}")
+        if not r["pre_bitwise"]:
+            fail(f"K1-{prec}'s pre-jitter bank differs from its plain twin on {name}: {r}")
         if not (r["pre_max_ulps"] <= BANK_ULPS and r["max_ulps"] <= BANK_ULPS):
             fail(f"K1-{prec}'s bank differs from its plain twin beyond {BANK_ULPS} ulps on {name}: {r}")
         pres[prec] = pre_k
@@ -3378,7 +3384,7 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
             times = kernel_times(fwd)
             kernel = cuda_warp.KERNEL_NAMES[cuda_warp.FWD_COUNTERS[prec]]
             r["ms"] = sum(v for k, v in times.items() if kernel in k)
-            r["call_ms"], r["event_ms"] = sum(times.values()), median_ms(fwd)  # int8: its two passes too
+            r["call_ms"], r["event_ms"] = sum(times.values()), median_ms(fwd)  # the rung's passes too
             r["helper_ms"] = helper_ms(times, cuda_warp.FWD_COUNTERS[prec])
             if prec == "int8":
                 r["helper_bound"] = {"warp_fwd_int8_scale": bound(h * w * 3 * 4, h * w * 3),
@@ -3386,6 +3392,13 @@ def rung_bank_case(name, work, ms, modes, fill, s, jitter, facs, planes, time_it
                 r["helper_plain_ms"] = {
                     "warp_fwd_int8_scale": device_ms(lambda: work.abs().amax()),
                     "warp_fwd_int8_pack": device_ms(lambda: pack_texels(quantize_canvas(work)[0]))}
+            else:
+                # the f32 canvas read, the texels written; a conversion per value (high: and a subtraction and a
+                # conversion more)
+                pack = f"warp_fwd_{prec}_pack"
+                r["helper_bound"] = {pack: bound(h * w * (3 * 4 + (8 if prec == "bf16" else 16)),
+                                                 h * w * 3 * (1 if prec == "bf16" else 3))}
+                r["helper_plain_ms"] = {pack: device_ms(lambda prec=prec: pack_bf16_texels(work, prec))}
             r["plain_ms"], r["plain_event_ms"] = device_ms(plain), median_ms(plain)
         res["fwd"][prec] = r
     # K2's cotangent: the explicit jitter adjoint (K2's formulas) rounded to bf16, as phase 3b
@@ -3616,9 +3629,10 @@ def phase_rung_kernels():
               f"{b['int8']['bitwise_without_jitter']}, twice the same bits {b['int8']['deterministic']}; K2-bf16 "
               f"max_abs_err {b['bf16']['max_abs_err']:.3g}, K2-high {b['high']['max_abs_err']:.3g} against max|dwork| "
               f"{b['bf16']['scale']:.3g} (tol {b['bf16']['tol']:.3g}); bitwise their plain twins: K1-int8's scale "
-              f"and pack passes {r['helpers']['scale_bitwise']} / {r['helpers']['pack_bitwise']}, K2-bf16's row "
-              f"table {r['helpers']['rows_bitwise']}, K2-int8's cotangent pass {r['helpers']['cot_bitwise']} "
-              f"(s_g {r['helpers']['cot_max_bitwise']}, int64 canvas zeroed {r['helpers']['cot_zeroed']}); K2-int8's "
+              f"and pack passes {r['helpers']['scale_bitwise']} / {r['helpers']['pack_bitwise']}, K1-bf16's and "
+              f"K1-high's pack passes {r['helpers']['bf16_pack_bitwise']} / {r['helpers']['high_pack_bitwise']}, "
+              f"K2-bf16's row table {r['helpers']['rows_bitwise']}, K2-int8's cotangent pass "
+              f"{r['helpers']['cot_bitwise']} (s_g {r['helpers']['cot_max_bitwise']}, int64 canvas zeroed {r['helpers']['cot_zeroed']}); K2-int8's "
               f"scatter blocks in shared memory / device memory {b['int8']['shared_blocks']} / "
               f"{b['int8']['device_blocks']}; K2-bf16 ({layout['band_rows']}-row bands, up to "
               f"{layout['band_groups']} clusters of {layout['band_cluster']} blocks per band) row visits "
@@ -3631,7 +3645,9 @@ def phase_rung_kernels():
                              f"{r['helper_bound'][c][1]})" for c, ms in r["helper_ms"].items())
     print(f"rung kernels flagship times (ms, summed kernel time / CUDA events of one call; grid_sample computes "
           f"none of these functions): K1-int8 {tm(f['int8'])}, its passes {hm(f['int8'])}; K1-bf16 "
-          f"{tm(f['bf16'])}, K1-high {tm(f['high'])}; K2-bf16 {tm(b['bf16'])} (bytes moved "
+          f"{tm(f['bf16'])}, its pass {hm(f['bf16'])}; K1-high {tm(f['high'])}, its pass {hm(f['high'])}; the "
+          f"calls with their passes against the rung's bound: K1-int8 {f['int8']['call_ms']:.4f}, K1-bf16 "
+          f"{f['bf16']['call_ms']:.4f}, K1-high {f['high']['call_ms']:.4f}; K2-bf16 {tm(b['bf16'])} (bytes moved "
           f"{b['bf16']['bytes_moved'] / 1e6:.2f} MB), its passes {hm(b['bf16'])}; K2-high {tm(b['high'])} (bytes "
           f"moved {b['high']['bytes_moved'] / 1e6:.2f} MB), its pass {hm(b['high'])}; K2-int8's scatter "
           f"{tm(b['int8'])}, its passes {hm(b['int8'])}; the K2-int8 rung's three passes {b['int8']['call_ms']:.4f} "
@@ -4207,11 +4223,14 @@ def main():
                         "max_abs_err": max(x["bwd"][prec]["max_abs_err"] for x in rung_cases),
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                         "library_ms": None})
-    # the helper passes of K1-int8 (the scale, the pack), K2-bf16 (the row table, the sum), K2-int8 (the
-    # cotangent pass, the finish) and K2-high (the pack): the scale, pack, row table and cotangent passes bitwise
-    # their plain twins, the others part of their rung's result
+    # the helper passes of K1-int8 (the scale, the pack), K1-bf16 and K1-high (the pack: _mm's split of the
+    # canvas), K2-bf16 (the row table, the sum), K2-int8 (the cotangent pass, the finish) and K2-high (the pack):
+    # the forward passes, the row table and the cotangent pass bitwise their plain twins, the others part of their
+    # rung's result
     for counter, line, side, prec in (("warp_fwd_int8_scale", 823, "fwd", "int8"),
                                       ("warp_fwd_int8_pack", 824, "fwd", "int8"),
+                                      ("warp_fwd_bf16_pack", 67, "fwd", "bf16"),
+                                      ("warp_fwd_high_pack", 71, "fwd", "high"),
                                       ("warp_bwd_bf16_rows", 480, "bwd", "bf16"),
                                       ("warp_bwd_bf16_sum", 754, "bwd", "bf16"),
                                       ("warp_bwd_int8_cot", 777, "bwd", "int8"),

@@ -63,7 +63,8 @@
 //   bank_fwd_bf16_kernel / _high_kernel <- _fwd_kernel_multi_T through _mm:
 //     per x tap, sum over the y taps of bf16(work) bf16(hat_y) in f32 (high:
 //     hi.hi + lo.hi + hi.lo of the bf16 split, in that order), then
-//     sum over the x taps of that times hat_x, plus the fill;
+//     sum over the x taps of that times hat_x, plus the fill; bodies of
+//     their own, each behind a pack pass (see "K1-bf16 and K1-high" below);
 //   bank_fwd_int8_kernel <- the int8 branch (:571-579 with :821-826, :650):
 //     the canvas quantized (round(work / s_w * 127) as s8, s_w =
 //     max(max|work|, 1e-6), ops/warp_batch.py quantize_canvas), y hats
@@ -255,40 +256,6 @@ __device__ __forceinline__ Hats jax_hats(const Taps& tp) {
 __device__ __forceinline__ float bfr(float x) { return __bfloat162float(__float2bfloat16_rn(x)); }
 __device__ __forceinline__ float lo_part(float x) { return bfr(__fsub_rn(x, bfr(x))); }
 
-// the four taps of one channel (0 off the canvas): v00, v01, v10, v11
-template <typename S>
-__device__ __forceinline__ void tap_values(const S* __restrict__ src, const Taps& tp, int w, int ci, S (&v)[4]) {
-  const long r0 = ((long)tp.y0 * w + tp.x0) * 3 + ci;
-  const long r1 = r0 + (long)w * 3;
-  v[0] = (tp.valid & 1u) ? __ldg(src + r0) : S(0);
-  v[1] = (tp.valid & 2u) ? __ldg(src + r0 + 3) : S(0);
-  v[2] = (tp.valid & 4u) ? __ldg(src + r1) : S(0);
-  v[3] = (tp.valid & 8u) ? __ldg(src + r1 + 3) : S(0);
-}
-
-// one x tap's column of a float rung: the sum over its two y taps
-template <int P>
-__device__ __forceinline__ float rung_column(float top, float bot, const Hats& ht) {
-  const float by0 = bfr(ht.y0), by1 = bfr(ht.y1);
-  const float d1 = __fadd_rn(__fmul_rn(bfr(top), by0), __fmul_rn(bfr(bot), by1));
-  if (P == kBf16) return d1;
-  const float d2 = __fadd_rn(__fmul_rn(lo_part(top), by0), __fmul_rn(lo_part(bot), by1));
-  const float d3 = __fadd_rn(__fmul_rn(bfr(top), lo_part(ht.y0)), __fmul_rn(bfr(bot), lo_part(ht.y1)));
-  return __fadd_rn(__fadd_rn(d1, d2), d3);
-}
-
-// The f32 bank value of one channel at rung P (kHighest, kBf16, kHigh).
-template <int P>
-__device__ __forceinline__ float bank_value(const float* __restrict__ work, const Taps& tp, int w, int ci) {
-  if (P == kHighest) return bilinear(work, tp, w, ci);
-  const Hats ht = jax_hats(tp);
-  float v[4];
-  tap_values(work, tp, w, ci, v);
-  const float t0 = rung_column<P>(v[0], v[2], ht);
-  const float t1 = rung_column<P>(v[1], v[3], ht);
-  return __fadd_rn(__fadd_rn(__fmul_rn(t0, ht.x0), __fmul_rn(t1, ht.x1)), tp.fill_add);
-}
-
 // The jitter's forward state (ops/color.py jitter_planes, op by op in f32).
 struct Hsv {
   float R, G, B, m1, maxc, n1, minc, md, s_raw, sd, rc, gc, bc, x, s2, f;
@@ -439,11 +406,11 @@ __device__ __forceinline__ void store_vec(T* __restrict__ dst, const T (&src)[Ve
 // out (N, 3, S, S); pre (N, 3, S, S) the rounded pre-jitter bank, written
 // for the jittered cuts only (the backward reads no other), or null.  Each
 // thread makes kN consecutive pixels of one cut.
-template <typename T, int P>
-__device__ __forceinline__ void bank_fwd_body(const float* __restrict__ work, const float* __restrict__ params,
-                                              const T* __restrict__ z0,
-                                              const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out,
-                                              T* __restrict__ pre, int h, int w, int s, bool vec) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bank_fwd_kernel(const float* __restrict__ work, const float* __restrict__ params, const T* __restrict__ z0,
+                const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out, T* __restrict__ pre, int h,
+                int w, int s, bool vec) {
   constexpr int kN = Vec<T>::kN;
   const int k = s * s;
   const int n = blockIdx.y;
@@ -468,7 +435,7 @@ __device__ __forceinline__ void bank_fwd_body(const float* __restrict__ work, co
     float v[3];
 #pragma unroll
     for (int ci = 0; ci < 3; ++ci) {
-      v[ci] = round_to<T>(bank_value<P>(work, tp, w, ci));
+      v[ci] = round_to<T>(bilinear(work, tp, w, ci));
       p[ci][e] = from_float<T>(v[ci]);
     }
     if (c.apply) {
@@ -498,20 +465,6 @@ __device__ __forceinline__ void bank_fwd_body(const float* __restrict__ work, co
     if (pre != nullptr && c.apply) store_vec(pre + base + (long)ci * k, p[ci], vec, count);
   }
 }
-
-// one __global__ per rung, so that each has a name of its own
-#define BANK_FWD_KERNEL(NAME, P)                                                                              \
-  template <typename T>                                                                                       \
-  __global__ void __launch_bounds__(kThreads)                                                                 \
-  NAME(const float* __restrict__ work, const float* __restrict__ params, const T* __restrict__ z0,            \
-       const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out, T* __restrict__ pre, int h,   \
-       int w, int s, bool vec) {                                                                              \
-    bank_fwd_body<T, P>(work, params, z0, z1, z2, out, pre, h, w, s, vec);                                    \
-  }
-BANK_FWD_KERNEL(bank_fwd_kernel, kHighest)
-BANK_FWD_KERNEL(bank_fwd_bf16_kernel, kBf16)
-BANK_FWD_KERNEL(bank_fwd_high_kernel, kHigh)
-#undef BANK_FWD_KERNEL
 
 __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
@@ -823,8 +776,8 @@ bank_int8_pack_kernel(const float* __restrict__ work, float* __restrict__ scale,
 }
 
 // texels (H, W) the packed canvas and scale[kScaleBlocks] its s_w, from
-// bank_int8_pack_kernel; params, z0..z2, out, pre, vec as bank_fwd_body.
-// Each thread makes kN consecutive pixels of one cut, as bank_fwd_body.
+// bank_int8_pack_kernel; params, z0..z2, out, pre, vec as bank_fwd_kernel.
+// Each thread makes kN consecutive pixels of one cut, as bank_fwd_kernel.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 bank_fwd_int8_kernel(const unsigned* __restrict__ texels, const float* __restrict__ scale_src,
@@ -1268,6 +1221,192 @@ bank_bwd_high_pack_kernel(const float4* __restrict__ acc, float* __restrict__ dw
   dwork[q * 3 + 2] = v.z;
 }
 
+// ------------------------------------------------------------------------
+// K1-bf16 and K1-high, designed for this card: the forward rungs that first
+// ran on the exact forward's body (its loop with the taps of a rung in place
+// of bilinear).  Same functions as their plain twins (ops/warp_batch.py
+// warp_modes_rung "bf16" and "high") with the exact kernel's epilogue.
+//
+// bank_bf16_pack_kernel + bank_fwd_bf16_kernel, bank_high_pack_kernel +
+// bank_fwd_high_kernel <- pallas_warp.py's float branch of
+// _fwd_kernel_multi_T (:586-589) through _mm (:61-77) at "bf16" and
+// "high", launched by _run_fwd_multi_T (:808); through norm_prec,
+// K1-bf16 is also the single-mode warp's forward (_fwd_kernel, :188) at
+// the bf16 and int8 rungs.
+//   Bound: bytes, as K1's (the bank, the pre-jitter bank of the jittered
+//   cuts, the noise planes; the f32 canvas read once); in practice the
+//   per-pixel arithmetic, as K1's.  What held the first version back: each
+//   output pixel made 12 scattered f32 loads (four taps times three
+//   interleaved channels) and split every tap value to bf16 in the hot
+//   loop (12 splits a pixel for bf16; 24 for high, whose lo part is a
+//   subtraction and two conversions more), at 64 and 68 registers (the
+//   bf16 bank's: 3 blocks an SM, not 4).  The design: a pack pass splits
+//   the canvas once, as _mm splits its a into a_hi and a_lo
+//   (ops/warp_batch.py pack_bf16_texels), into one texel per canvas pixel
+//   (bf16: 8 bytes, bf16(r), bf16(g), bf16(b), 0; high: 16 bytes, those
+//   three, then lo = bf16(x - bf16(x)) of each channel, then two zeros;
+//   0.4 / 0.8 MB at 224x224, L2-resident); the kernel loads one texel per
+//   tap for all three channels (4 vector loads a pixel instead of 12),
+//   splits each y hat once a pixel for the three channels, and forms each
+//   column's sum of two bf16 products with one FMA: such a product is exact
+//   in f32 (16 significant bits; while it stays above 2^-134, i.e. for
+//   canvas values of magnitude 2^-110 and above, or 0), so fmaf(a, b, c d)
+//   rounds once where a b + c d did.  The x-hat products, the fill term and
+//   high's (d1 + d2) + d3 keep their order and their roundings (those
+//   products are not exact), so the pre-jitter bank stays bitwise the plain
+//   twin's.  kBf16FwdBlocksPerSm and kHighFwdBlocksPerSm from a sweep (PERF.md §6).
+// ------------------------------------------------------------------------
+
+constexpr int kBf16FwdBlocksPerSm = 4;  // K1-bf16: at most 64 registers a thread (60 / 62, no spill)
+constexpr int kHighFwdBlocksPerSm = 5;  // K1-high: at most 48 (spills 12 / 20 B; at 64 none, but slower)
+
+template <int P> using RungTexel = std::conditional_t<P == kHigh, uint4, uint2>;
+
+__device__ __forceinline__ unsigned bf16_bits(float x) { return __bfloat16_as_ushort(__float2bfloat16_rn(x)); }
+
+// word q of a texel
+__device__ __forceinline__ unsigned texel_word(const uint2& t, int q) { return q == 0 ? t.x : t.y; }
+__device__ __forceinline__ unsigned texel_word(const uint4& t, int q) {
+  return q == 0 ? t.x : (q == 1 ? t.y : (q == 2 ? t.z : t.w));
+}
+
+// bf16 k of a texel (k = ci the hi part of channel ci, 3 + ci its lo part), widened to f32
+template <typename V> __device__ __forceinline__ float texel_value(const V& t, int k) {
+  const unsigned word = texel_word(t, k >> 1);
+  return __uint_as_float((k & 1) ? (word & 0xffff0000u) : (word << 16));
+}
+
+// canvas pixel p's texel at rung P (ops/warp_batch.py pack_bf16_texels)
+template <int P>
+__device__ __forceinline__ RungTexel<P> rung_texel(const float* __restrict__ px) {
+  const float r = __ldg(px), g = __ldg(px + 1), b = __ldg(px + 2);
+  const unsigned hr = bf16_bits(r), hg = bf16_bits(g), hb = bf16_bits(b);
+  if constexpr (P == kBf16) {
+    return make_uint2(hr | (hg << 16), hb);
+  } else {
+    const unsigned lr = bf16_bits(__fsub_rn(r, __uint_as_float(hr << 16)));
+    const unsigned lg = bf16_bits(__fsub_rn(g, __uint_as_float(hg << 16)));
+    const unsigned lb = bf16_bits(__fsub_rn(b, __uint_as_float(hb << 16)));
+    return make_uint4(hr | (hg << 16), hb | (lr << 16), lg | (lb << 16), 0u);
+  }
+}
+
+// K1-bf16's and K1-high's pass: texels[p] = the texel of canvas pixel p.  One pixel per thread.
+__global__ void __launch_bounds__(kThreads)
+bank_bf16_pack_kernel(const float* __restrict__ work, uint2* __restrict__ texels, long pixels) {
+  const long p = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (p < pixels) texels[p] = rung_texel<kBf16>(work + p * 3);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bank_high_pack_kernel(const float* __restrict__ work, uint4* __restrict__ texels, long pixels) {
+  const long p = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (p < pixels) texels[p] = rung_texel<kHigh>(work + p * 3);
+}
+
+// a b + c d, both exact products of bf16 values (see the note above): one rounding
+__device__ __forceinline__ float dot2(float a, float b, float c, float d) { return fmaf(a, b, __fmul_rn(c, d)); }
+
+// texels (H, W) of the pack pass; params, z0..z2, out, pre, vec as
+// bank_fwd_kernel.  Each thread makes kN consecutive pixels of one cut, as
+// bank_fwd_kernel.
+template <typename T, int P>
+__device__ __forceinline__ void bank_fwd_rung_body(const RungTexel<P>* __restrict__ texels,
+                                                   const float* __restrict__ params, const T* __restrict__ z0,
+                                                   const T* __restrict__ z1, const T* __restrict__ z2,
+                                                   T* __restrict__ out, T* __restrict__ pre, int h, int w, int s,
+                                                   bool vec) {
+  constexpr int kN = Vec<T>::kN;
+  const int k = s * s;
+  const int n = blockIdx.y;
+  const int t0 = (blockIdx.x * blockDim.x + threadIdx.x) * kN;
+  if (t0 >= k) return;
+  const int count = min(kN, k - t0);
+  const Cut c = load_cut(params, n);
+  const bool noise = z0 != nullptr;
+  const long plane = (long)n * k + t0;
+  alignas(8) T zr[kN], zg[kN], zb[kN];
+  if (noise) {
+    load_vec(z0 + plane, zr, vec, count);
+    load_vec(z1 + plane, zg, vec, count);
+    load_vec(z2 + plane, zb, vec, count);
+  }
+  alignas(8) T o[3][kN], p[3][kN];
+  int i = t0 / s, j = t0 - i * s;  // the first pixel, then stepped along the row
+#pragma unroll
+  for (int e = 0; e < kN; ++e) {
+    if (e >= count) break;
+    const Taps tp = compute_taps(c, i, j, h, w, c.fill);
+    const Hats ht = jax_hats(tp);
+    // the y hats split once, for the three channels
+    const float by0 = bfr(ht.y0), by1 = bfr(ht.y1);
+    const float ly0 = P == kHigh ? lo_part(ht.y0) : 0.f, ly1 = P == kHigh ? lo_part(ht.y1) : 0.f;
+    const long at = (long)tp.y0 * w + tp.x0;  // one load per tap for all three channels
+    const RungTexel<P> none = {};
+    const RungTexel<P> t00 = (tp.valid & 1u) ? __ldg(texels + at) : none;
+    const RungTexel<P> t01 = (tp.valid & 2u) ? __ldg(texels + at + 1) : none;
+    const RungTexel<P> t10 = (tp.valid & 4u) ? __ldg(texels + at + w) : none;
+    const RungTexel<P> t11 = (tp.valid & 8u) ? __ldg(texels + at + w + 1) : none;
+    float v[3];
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) {
+      const float a0 = texel_value(t00, ci), b0 = texel_value(t10, ci);
+      const float a1 = texel_value(t01, ci), b1 = texel_value(t11, ci);
+      float c0 = dot2(a0, by0, b0, by1), c1 = dot2(a1, by0, b1, by1);
+      if constexpr (P == kHigh) {
+        c0 = __fadd_rn(__fadd_rn(c0, dot2(texel_value(t00, 3 + ci), by0, texel_value(t10, 3 + ci), by1)),
+                       dot2(a0, ly0, b0, ly1));
+        c1 = __fadd_rn(__fadd_rn(c1, dot2(texel_value(t01, 3 + ci), by0, texel_value(t11, 3 + ci), by1)),
+                       dot2(a1, ly0, b1, ly1));
+      }
+      v[ci] = round_to<T>(__fadd_rn(__fadd_rn(__fmul_rn(c0, ht.x0), __fmul_rn(c1, ht.x1)), tp.fill_add));
+      p[ci][e] = from_float<T>(v[ci]);
+    }
+    if (c.apply) {
+      float jr, jg, jb;
+      jitter_fwd(hsv_state(v[0], v[1], v[2], c.hue, c.sat), jr, jg, jb);
+      v[0] = round_to<T>(jr);
+      v[1] = round_to<T>(jg);
+      v[2] = round_to<T>(jb);
+    }
+    if (noise) {
+      const float zs[3] = {to_float(zr[e]), to_float(zg[e]), to_float(zb[e])};
+#pragma unroll
+      for (int ci = 0; ci < 3; ++ci)
+        v[ci] = round_to<T>(__fadd_rn(v[ci], round_to<T>(__fmul_rn(c.fac, zs[ci]))));
+    }
+#pragma unroll
+    for (int ci = 0; ci < 3; ++ci) o[ci][e] = from_float<T>(v[ci]);
+    if (++j == s) {
+      j = 0;
+      ++i;
+    }
+  }
+  const long base = (long)n * 3 * k + t0;
+#pragma unroll
+  for (int ci = 0; ci < 3; ++ci) {
+    store_vec(out + base + (long)ci * k, o[ci], vec, count);
+    if (pre != nullptr && c.apply) store_vec(pre + base + (long)ci * k, p[ci], vec, count);
+  }
+}
+
+// one __global__ per rung, so that each has a name of its own
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kBf16FwdBlocksPerSm)
+bank_fwd_bf16_kernel(const uint2* __restrict__ texels, const float* __restrict__ params, const T* __restrict__ z0,
+                     const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out, T* __restrict__ pre,
+                     int h, int w, int s, bool vec) {
+  bank_fwd_rung_body<T, kBf16>(texels, params, z0, z1, z2, out, pre, h, w, s, vec);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kHighFwdBlocksPerSm)
+bank_fwd_high_kernel(const uint4* __restrict__ texels, const float* __restrict__ params, const T* __restrict__ z0,
+                     const T* __restrict__ z1, const T* __restrict__ z2, T* __restrict__ out, T* __restrict__ pre,
+                     int h, int w, int s, bool vec) {
+  bank_fwd_rung_body<T, kHigh>(texels, params, z0, z1, z2, out, pre, h, w, s, vec);
+}
+
 bool aligned8(const void* p) { return p == nullptr || ((uintptr_t)p & 7u) == 0; }
 
 template <typename T>
@@ -1285,11 +1424,11 @@ int launch_fwd(const void* work, const float* scale, const float* params, const 
                                                         w, s, vec);
       break;
     case kBf16:
-      bank_fwd_bf16_kernel<T><<<grid, kThreads, 0, stream>>>((const float*)work, params, zr, zg, zb, (T*)out, (T*)pre,
+      bank_fwd_bf16_kernel<T><<<grid, kThreads, 0, stream>>>((const uint2*)work, params, zr, zg, zb, (T*)out, (T*)pre,
                                                              h, w, s, vec);
       break;
     case kHigh:
-      bank_fwd_high_kernel<T><<<grid, kThreads, 0, stream>>>((const float*)work, params, zr, zg, zb, (T*)out, (T*)pre,
+      bank_fwd_high_kernel<T><<<grid, kThreads, 0, stream>>>((const uint4*)work, params, zr, zg, zb, (T*)out, (T*)pre,
                                                              h, w, s, vec);
       break;
     case kInt8:
@@ -1412,10 +1551,23 @@ extern "C" int bank_int8_pack(const float* work, float* scale, int* texels, long
   return (int)cudaGetLastError();
 }
 
+// K1-bf16's and K1-high's pack pass: texels (H, W, 4) bf16 for prec 1
+// (bf16), (H, W, 8) for prec 2 (high), from the (H, W, 3) f32 canvas.
+extern "C" int bank_bf16_pack(const float* work, void* texels, long long pixels, int prec, void* stream) {
+  const unsigned blocks = (unsigned)((pixels + kThreads - 1) / kThreads);
+  if (prec == kBf16)
+    bank_bf16_pack_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(work, (uint2*)texels, (long)pixels);
+  else if (prec == kHigh)
+    bank_high_pack_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(work, (uint4*)texels, (long)pixels);
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
 // dtype: 0 float32, 1 bfloat16 (out, pre and the noise planes share it).
-// prec: 0 highest, 1 bf16, 2 high, 3 int8.  work: (H, W, 3) f32, or for
-// int8 the packed texels (H, W) int32 of bank_int8_pack, with scale its
-// scale buffer (null otherwise).
+// prec: 0 highest, 1 bf16, 2 high, 3 int8.  work: (H, W, 3) f32; for bf16
+// and high the texels of bank_bf16_pack; for int8 the packed texels (H, W)
+// int32 of bank_int8_pack, with scale its scale buffer (null otherwise).
 extern "C" int bank_fwd(const void* work, const float* scale, const float* params, const void* z0,
                         const void* z1, const void* z2, void* out, void* pre, int dtype, int prec, int n, int h,
                         int w, int s, void* stream) {

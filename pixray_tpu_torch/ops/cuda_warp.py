@@ -39,7 +39,10 @@ versions are ``ops/warp_batch.py``'s ``warp_modes_prec``.  K1-int8 takes
 the canvas quantized on the device by two small passes
 (:func:`launch_canvas_scale`, :func:`launch_canvas_pack`; s_w stays on the
 device, never read on the host; plain twins ``quantize_canvas`` and
-``pack_texels``) as one packed texel per canvas pixel; K2-bf16 walks
+``pack_texels``) as one packed texel per canvas pixel; K1-bf16 and
+K1-high take the canvas split into bf16 once by a pack pass
+(:func:`launch_canvas_texels`, plain twin ``pack_bf16_texels``), one texel
+of hi (and lo) parts per canvas pixel; K2-bf16 walks
 a row table (:func:`launch_bank_rows`, plain twin ``tap_row_ranges``) in
 canvas bands, summed by thread block clusters into a few partial canvases
 that its last pass adds up; K2-int8 evaluates the post-epilogue
@@ -86,12 +89,14 @@ KERNEL_NAMES = {"warp_fwd": "bank_fwd_kernel", "warp_fwd_bf16": "bank_fwd_bf16_k
                 "warp_bwd": "bank_bwd_kernel", "warp_bwd_bf16": "bank_bwd_bf16_kernel",
                 "warp_bwd_high": "bank_bwd_high_kernel", "warp_bwd_int8": "bank_bwd_int8_kernel",
                 "warp_fwd_int8_scale": "bank_int8_scale_kernel", "warp_fwd_int8_pack": "bank_int8_pack_kernel",
+                "warp_fwd_bf16_pack": "bank_bf16_pack_kernel", "warp_fwd_high_pack": "bank_high_pack_kernel",
                 "warp_bwd_bf16_rows": "bank_bwd_rows_kernel", "warp_bwd_bf16_sum": "bank_bwd_sum_kernel",
                 "warp_bwd_int8_cot": "bank_bwd_cot_kernel", "warp_bwd_int8_finish": "bank_bwd_int8_finish_kernel",
                 "warp_bwd_high_pack": "bank_bwd_high_pack_kernel"}
 
 # the helper passes of a rung's kernel, by counter, in launch order
 HELPERS = {"warp_fwd_int8": ("warp_fwd_int8_scale", "warp_fwd_int8_pack"),
+           "warp_fwd_bf16": ("warp_fwd_bf16_pack",), "warp_fwd_high": ("warp_fwd_high_pack",),
            "warp_bwd_bf16": ("warp_bwd_bf16_rows", "warp_bwd_bf16_sum"),
            "warp_bwd_int8": ("warp_bwd_int8_cot", "warp_bwd_int8_finish"),
            "warp_bwd_high": ("warp_bwd_high_pack",)}
@@ -124,12 +129,13 @@ def _library():
             i64 = ctypes.c_longlong
             lib.bank_int8_scale.argtypes = [ptr, ptr, i64, ptr]
             lib.bank_int8_pack.argtypes = [ptr, ptr, ptr, i64, ptr]
+            lib.bank_bf16_pack.argtypes = [ptr, ptr, i64, i32, ptr]
             lib.bank_fwd.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
             lib.bank_bwd_rows.argtypes = [ptr, ptr, i32, i32, i32, i32, ptr]
             lib.bank_bwd_cot.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
             lib.bank_bwd.argtypes = [ptr] * 8 + [i32] * 6 + [ptr]
-            for fn in (lib.bank_int8_scale, lib.bank_int8_pack, lib.bank_fwd, lib.bank_bwd_rows, lib.bank_bwd_cot,
-                       lib.bank_bwd):
+            for fn in (lib.bank_int8_scale, lib.bank_int8_pack, lib.bank_bf16_pack, lib.bank_fwd, lib.bank_bwd_rows,
+                       lib.bank_bwd_cot, lib.bank_bwd):
                 fn.restype = i32
             lib.bank_bwd_partial_floats.argtypes = [i32] * 3
             lib.bank_bwd_partial_floats.restype = i64
@@ -290,6 +296,25 @@ def launch_canvas_pack(work, scale):
     return texels
 
 
+def launch_canvas_texels(work, prec: str):
+    """K1-bf16's or K1-high's pack pass (``prec`` "bf16" or "high"): (H, W,
+    3) f32 canvas on the card → its texels, (H, W, 4) bf16 for bf16, (H, W,
+    8) for high, each canvas pixel's hi parts (and lo parts) of r, g, b then
+    zeros (plain: ``pack_bf16_texels(work, prec)``)."""
+    if work.device.type != "cuda":
+        raise ValueError(f"the CUDA bank kernels need CUDA tensors, got {work.device}")
+    if prec not in ("bf16", "high"):
+        raise ValueError(f"the texel pack pass takes bf16 or high; got {prec!r}")
+    _check("work", work, work.device, torch.float32, work.shape)
+    h, w, _ = work.shape
+    texels = torch.empty((h, w, 4 if prec == "bf16" else 8), dtype=torch.bfloat16, device=work.device)
+    stream = torch.cuda.current_stream(work.device).cuda_stream
+    _raise_on(_library().bank_bf16_pack(work.data_ptr(), texels.data_ptr(), h * w, _PREC_CODES[prec], stream),
+              f"bank_bf16_pack ({prec})")
+    LAUNCHES[f"warp_fwd_{prec}_pack"] += 1
+    return texels
+
+
 def launch_bank_rows(params, work_shape, out_size: int):
     """K2-bf16's row table: (N, PARAM_STRIDE) parameters on the card → (N,
     S, 2) int32, per cut and output row the least and the greatest canvas
@@ -344,7 +369,8 @@ def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.fl
     parameters on the card → ((N, 3, S, S) bank in ``out_dtype``, the
     rounded pre-jitter bank or None).  The pre-jitter bank holds the
     jittered cuts' rows only; the others are left unwritten, since K2 reads
-    no other.  int8 runs the scale and pack passes first."""
+    no other.  int8 runs the scale and pack passes first, bf16 and high
+    their texel pack pass."""
     _check_prec(prec)
     dev = work.device
     if dev.type != "cuda":
@@ -371,6 +397,8 @@ def launch_bank_fwd(work, params, out_size: int, planes=None, out_dtype=torch.fl
     if prec == "int8":
         scale = launch_canvas_scale(work)
         src = launch_canvas_pack(work, scale)
+    elif prec in ("bf16", "high"):
+        src = launch_canvas_texels(work, prec)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = _library().bank_fwd(src.data_ptr(), ptr(scale), params.data_ptr(), *map(ptr, zs), out.data_ptr(),
                                ptr(pre), _DTYPES[out_dtype], _PREC_CODES[prec], n, h, w, out_size, stream)

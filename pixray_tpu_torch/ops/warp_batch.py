@@ -24,7 +24,8 @@ K1's and K2's rung variants, in tap form with the JAX hats
 - forward "bf16": per x tap, sum over the y taps of bf16(work) * bf16(hat_y)
   in float32, then sum over the x taps of that times hat_x, plus the fill;
   "high": the same from the hi/lo bf16 split of both factors, three products
-  (hi.hi, lo.hi, hi.lo) summed in that order;
+  (hi.hi, lo.hi, hi.lo) summed in that order; the kernels read the
+  canvas's splits from a pack pass (:func:`pack_bf16_texels`);
 - forward "int8": the canvas quantized per tensor (:func:`quantize_canvas`),
   the y hats as round(hat * 127), integer sums per x tap, then float32 times
   hat_x plus the fill divided by the dequant scale, times that scale
@@ -168,6 +169,23 @@ def pack_texels(codes):
     writes them: r, g, b in bytes 0, 1, 2 (two's complement), byte 3 zero."""
     b = codes.to(torch.int32) & 0xFF
     return b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16)
+
+
+def pack_bf16_texels(work, prec: str):
+    """(H, W, 3) float32 canvas → the texels of K1-bf16's and K1-high's
+    pack pass, bf16: (H, W, 4) ``bf16(r), bf16(g), bf16(b), 0`` for
+    "bf16"; (H, W, 8) for "high", those three, then the low parts
+    ``bf16(x - bf16(x))`` of each channel, then two zeros (``_mm``'s
+    ``a_hi`` and ``a_lo``)."""
+    hi = work.to(torch.bfloat16)
+    planes = [hi]
+    if prec == "high":
+        planes.append((work - hi.float()).to(torch.bfloat16))
+    elif prec != "bf16":
+        raise ValueError(f"pack_bf16_texels takes bf16 or high; got {prec!r}")
+    planes.append(torch.zeros((*work.shape[:-1], 1 if prec == "bf16" else 2), dtype=torch.bfloat16,
+                              device=work.device))
+    return torch.cat(planes, dim=-1)
 
 
 def _dequant_scale(s):

@@ -29,11 +29,30 @@ on the CPU (``ops/warp_batch.py``):
   without a saved bank, keep g bitwise; s_g is max|cotangent| clamped at
   1e-20.  (Its maximum against the JAX int8 backward's scale is in
   test_torch_warp_rungs.py.)
+- ``pack_bf16_texels``, the plain twin of K1-bf16's and K1-high's pack
+  pass, holds in its planes, bit for bit, the splits of the JAX package's
+  ``_mm`` (``pixray_tpu/ops/pallas_warp.py``): ``a.astype(bfloat16)`` and
+  ``(a - a_hi).astype(bfloat16)``, on seeded canvases with ties, negatives,
+  signed zeros and values at bf16 rounding boundaries (exact halves between
+  two bf16 values, with even and odd last bits, and their neighbours);
+  their sum equals ``_mm`` itself against an identity;
+- a plain warp from those texels, as the redesigned kernels form it (one
+  texel a tap, the y hats split once, each column a sum of two bf16
+  products, which are exact in f32), equals ``warp_modes_rung(...,
+  "bf16" / "high")`` bitwise on the ragged tie-rich bank and on a
+  perspective bank in every mode;
+- the pass's launcher refuses CPU tensors, and its counters and kernel
+  names are in ``cuda_warp``'s tables and in ``csrc/warp.cu``.
 """
 
+import re
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+
+from pixray_tpu.ops import pallas_warp as PW
 
 from pixray_tpu_torch.engine.cutouts import bank_order, cut_transforms, draw_cut_params
 from pixray_tpu_torch.ops import cuda_warp
@@ -208,3 +227,136 @@ def test_k2_rung_passes_refuse_cpu_tensors():
         out = cuda_warp.cutout_bank(work, params, s, None, torch.bfloat16, "int8" if prec == "int8" else prec, prec)
         out.float().sum().backward()
     assert cuda_warp.LAUNCHES == before and torch.isfinite(work.grad).all()
+
+
+def _boundary_canvas(h=24, w=20):
+    """Seeded float32 canvas whose values sit at bf16 rounding boundaries:
+    exact halves between two bf16 values (low 16 bits 0x8000, the bf16
+    part's last bit even and odd), one float32 ulp either side of them,
+    values bf16 holds exactly, signed zeros, negatives, over [-4, 4]."""
+    rng = np.random.default_rng(11)
+    base = rng.uniform(-4.0, 4.0, (h, w, 3)).astype(np.float32).view(np.uint32) & np.uint32(0xFFFF0000)
+    offsets = np.array([0x8000, 0x7FFF, 0x8001, 0x0000, 0x0001, 0xFFFF], dtype=np.uint32)
+    bits = base | offsets[rng.integers(0, offsets.size, base.shape)]
+    work = bits.view(np.float32).copy()
+    work[0, :4] = [[0.0, -0.0, 1.0], [-1.0, 0.5, -0.5], [0.0, 0.0, 0.0], [-0.0, -0.0, -0.0]]
+    return torch.tensor(work)
+
+
+def _texel_canvas(kind):
+    if kind == "ties":
+        return _tie_canvas(90, 100, torch.Generator().manual_seed(3))
+    if kind == "negatives":
+        return torch.tensor(np.random.default_rng(5).normal(0.0, 2.0, (30, 26, 3)).astype(np.float32))
+    return _boundary_canvas()
+
+
+@pytest.mark.parametrize("prec", ["bf16", "high"])
+@pytest.mark.parametrize("kind", ["ties", "negatives", "boundaries"])
+def test_bf16_texels_are_the_mm_splits(kind, prec):
+    work = _texel_canvas(kind)
+    h, w, _ = work.shape
+    texels = WB.pack_bf16_texels(work, prec)
+    assert texels.dtype == torch.bfloat16 and tuple(texels.shape) == (h, w, 4 if prec == "bf16" else 8)
+    bits = texels.view(torch.int16).numpy()
+    a = jnp.asarray(work.numpy())
+    a_hi = a.astype(jnp.bfloat16)  # _mm's a split (pallas_warp.py :67, :71, :73)
+    a_lo = (a - a_hi.astype(jnp.float32)).astype(jnp.bfloat16)
+    np.testing.assert_array_equal(bits[..., :3], np.asarray(a_hi).view(np.int16))
+    if prec == "high":
+        np.testing.assert_array_equal(bits[..., 3:6], np.asarray(a_lo).view(np.int16))
+    assert not bits[..., 3 if prec == "bf16" else 6:].any()
+    if kind == "boundaries":  # ties broken to even, both ways
+        low = work.numpy().view(np.uint32) & 0xFFFF
+        hi_bits = bits[..., :3].view(np.uint16)
+        ties = low == 0x8000
+        assert {0, 1} <= set((work.numpy().view(np.uint32)[ties] >> 16 & 1).tolist())
+        assert not (hi_bits[ties] & 1).any()
+    # the splits as _mm uses them: against an identity, "bf16" gives a_hi and "high" a_hi + a_lo
+    rows = jnp.asarray(work.numpy().reshape(-1, 6))
+    got = np.asarray(PW._mm(rows, jnp.eye(6, dtype=jnp.float32), prec)).reshape(work.shape)
+    split = texels[..., :3].float() + (texels[..., 3:6].float() if prec == "high" else 0.0)
+    np.testing.assert_array_equal(split.numpy(), got)
+
+
+def _texel_warp(texels, inv, modes, fill, out_size, prec):
+    """A plain warp from the pack pass's texels, as K1-bf16 and K1-high form
+    it: one texel per tap for the three channels, the y hats split once,
+    each column the sum of two bf16 products (each exact in f32), high's
+    (d1 + d2) + d3, then the x hats and the fill."""
+    h, w, _ = texels.shape
+    idx, valid, hx, hy, cover, fill = WB._rung_taps((h, w, 3), inv, modes, fill, out_size)
+    flat = texels.reshape(h * w, -1)
+
+    def tap(k):  # (N, 8 or 4, S, S) float32: hi r, g, b (then lo r, g, b)
+        vals = flat.index_select(0, idx[k].reshape(-1)).reshape(*idx[k].shape, -1).permute(0, 3, 1, 2).float()
+        return torch.where(valid[k][:, None], vals, torch.zeros(()))
+
+    t00, t01, t10, t11 = (tap(k) for k in range(4))
+    by0, by1 = (x.to(torch.bfloat16).float()[:, None] for x in hy)
+    ly0, ly1 = ((x - x.to(torch.bfloat16).float()).to(torch.bfloat16).float()[:, None] for x in hy)
+
+    def dot2(a, b, c, d):
+        for x, y in ((a, b), (c, d)):  # exact: the float64 product equals the float32 one
+            assert torch.equal((x.double() * y.double()).float().double(), x.double() * y.double())
+        return a * b + c * d
+
+    def column(top, bot):
+        d1 = dot2(top[:, :3], by0, bot[:, :3], by1)
+        if prec == "bf16":
+            return d1
+        return (d1 + dot2(top[:, 3:6], by0, bot[:, 3:6], by1)) + dot2(top[:, :3], ly0, bot[:, :3], ly1)
+
+    return column(t00, t10) * hx[0][:, None] + column(t01, t11) * hx[1][:, None] + cover * fill
+
+
+@pytest.mark.parametrize("prec", ["bf16", "high"])
+@pytest.mark.parametrize("bank", ["ragged ties", "perspective modes"])
+def test_warp_from_texels_is_the_rung(bank, prec):
+    if bank == "ragged ties":
+        ms, modes, shape, s = _ragged_bank()
+        work, fill = _tie_canvas(*shape[:2], torch.Generator().manual_seed(3)), 0.5
+    else:
+        from test_torch_warp import S, _perspective_bank
+
+        ms, s, fill = torch.tensor(_perspective_bank(8, seed=4)), S, 0.4
+        modes = torch.tensor([0, 1, 2, 3, 0, 1, 2, 3], dtype=torch.int32)
+        work = _boundary_canvas()
+    inv = inv3x3(ms.float())
+    want = WB.warp_modes_rung(work, inv, modes, fill, s, prec)
+    got = _texel_warp(WB.pack_bf16_texels(work, prec), inv, modes, fill, s, prec)
+    assert torch.equal(got, want)
+    assert float(want.abs().max()) > 0.1
+
+
+def test_texel_pack_refuses_cpu_tensors():
+    """K1-bf16's and K1-high's pack pass launches only on CUDA tensors; on
+    the CPU the rungs' wrapper is the plain twin (no kernel, no launch)."""
+    ms, modes, shape, s = _ragged_bank()
+    work = _tie_canvas(*shape[:2], torch.Generator().manual_seed(3))
+    for prec in ("bf16", "high"):
+        with pytest.raises(ValueError):
+            cuda_warp.launch_canvas_texels(work, prec)
+    params = cuda_warp.pack_params(inv3x3(ms.float()), modes, fill=0.5)
+    before = dict(cuda_warp.LAUNCHES)
+    grad_work = work.clone().requires_grad_(True)
+    for prec in ("bf16", "high"):
+        out = cuda_warp.cutout_bank(grad_work, params, s, None, torch.bfloat16, prec)
+        out.float().sum().backward()
+    assert cuda_warp.LAUNCHES == before and torch.isfinite(grad_work.grad).all()
+
+
+def test_pack_pass_is_named():
+    """The pass is counted by name: a helper of each rung's K1 counter, a
+    launch counter of its own, and a kernel of ``csrc/warp.cu`` under the
+    name the profiler reports, as every counted kernel is."""
+    for prec in ("bf16", "high"):
+        counter = f"warp_fwd_{prec}_pack"
+        assert cuda_warp.HELPERS[cuda_warp.FWD_COUNTERS[prec]] == (counter,)
+        assert cuda_warp.KERNEL_NAMES[counter] == f"bank_{prec}_pack_kernel"
+        assert counter in cuda_warp.LAUNCHES
+    with open(cuda_warp.SOURCE) as f:
+        source = f.read()
+    kernels = set(re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\)\s+)?(\w+)\(", source))
+    assert set(cuda_warp.LAUNCHES) == set(cuda_warp.KERNEL_NAMES)
+    assert set(cuda_warp.KERNEL_NAMES.values()) <= kernels, set(cuda_warp.KERNEL_NAMES.values()) - kernels
