@@ -216,7 +216,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    with 3 tiny towers placed, FSDP on (2, 2)) on four ranks; and a 1-rank
    NCCL group joined through init_distributed summing a latent gradient;
    ms per step and peak memory per rank (for the record: ranks on one
-   card say nothing of scaling).
+   card say nothing of scaling); (e) the sharded step in blocks on NCCL:
+   one rank spawned on a 1-rank NCCL group (backend checked), the pixel
+   row on its (1, 1) mesh, 17 steps eager sharded, blocked sharded (step
+   0 eager, then 2 blocks of 8, each one CUDA graph with the step's sum
+   over the mesh inside) and blocked unsharded: each block's first
+   replayed step bitwise the eager sharded step from the state it started
+   from, at learning-rate scale 0 a block bitwise its eager steps with
+   the latent kept, blocked sharded within 2e-3 of blocked unsharded (per
+   step loss; the final latent in the L2 norm, or within twice two
+   unsharded runs' gap, which K2's atomics widen past it over 17 steps),
+   K1 and K2 once per replayed step, 8 NCCL all-reduce kernel nodes in
+   the captured block (counted in the graph's own dump); ms per step of
+   the three, the captures' seconds and peak memory.
 
 The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
 towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
@@ -1495,51 +1507,22 @@ def phase_line_sketch(tmp):
 
 
 def keep_block_starts(engine):
-    """Wrap ``engine``'s block dispatch: at each block's dispatch, keep a
-    copy of the latent and the optimizer state (stream-ordered after the
-    replay before it: the state the block starts from) and the draws of
-    the block's first step.  Returns ({first step: {"z", "opt", "draws"}},
-    host ms per dispatch)."""
-    import copy
+    """``dryrun.keep_block_starts`` (at each block's dispatch, the state it
+    starts from and its first step's draws), and the host ms of each block
+    dispatch, the copies of the state left out.  Returns ({first step:
+    {"z", "opt", "draws"}}, host ms per dispatch)."""
+    from pixray_tpu_torch.parallel.dryrun import keep_block_starts as keep
 
-    import torch
+    host_ms, dispatch = [], engine._dispatch_block
 
-    from pixray_tpu_torch.engine.latent import tree_map
-
-    kept, host_ms, state = {}, [], {"keep": None}
-    dispatch, draw = engine._dispatch_block, engine.draw_step
-
-    def keeping_dispatch(cur_it, n):
-        kept[cur_it] = {"z": tree_map(torch.clone, engine.z), "opt": engine.optimizer.clone(engine.opt_state)}
-        state["keep"] = cur_it
+    def timed_dispatch(cur_it, n):
         t0 = time.perf_counter()
         out = dispatch(cur_it, n)
         host_ms.append(1e3 * (time.perf_counter() - t0))
         return out
 
-    def keeping_draws(planes_out=None):
-        draws = draw(planes_out=planes_out)
-        if state["keep"] is not None:
-            kept[state["keep"]]["draws"] = copy.deepcopy(draws)
-            state["keep"] = None
-        return draws
-
-    engine._dispatch_block, engine.draw_step = keeping_dispatch, keeping_draws
-    return kept, host_ms
-
-
-def block_starts_bitwise(engine, kept, losses):
-    """{step: whether the eager step from the state kept at that block's
-    dispatch, with its draws, gives the losses the replay gave for it
-    (``losses[step - 1]``) bitwise}.  Writes into the kept copies."""
-    from pixray_tpu_torch.engine.step import draws_to_inputs, train_step
-
-    out = {}
-    for it, k in sorted(kept.items()):
-        inputs = draws_to_inputs(engine.step_cfg, k["draws"], it, engine.device, anim_index=engine._anim_index())
-        _, eager, _ = train_step(engine.step_cfg, engine.optimizer, k["z"], k["opt"], engine.lr_scale, inputs)
-        out[it] = bool((eager.float().cpu() == losses[it - 1]).all())
-    return out
+    engine._dispatch_block = timed_dispatch
+    return keep(engine), host_ms
 
 
 def state_gap(a, b):
@@ -1585,6 +1568,7 @@ def phase_blocked(tmp, config, label, steps, card):
     from pixray_tpu_torch.engine.core import Engine
     from pixray_tpu_torch.engine.latent import leaves
     from pixray_tpu_torch.engine.optimizers import state_tensors
+    from pixray_tpu_torch.parallel import dryrun
 
     cfg = dict(config, iterations=steps + 1, outdir=tmp)
     runs = {name: Engine(apply_settings(dict(cfg, steps_per_call=spc), apply_side_effects=False), device="cuda")
@@ -1619,7 +1603,7 @@ def phase_blocked(tmp, config, label, steps, card):
     if runs["eager0"].dispatched_blocks:
         fail(f"blocked {label}: the --steps_per_call 1 run dispatched blocks")
     moved = not all(torch.equal(a, b) for a, b in zip(leaves(kept[1]["z"]), leaves(blocked.z)))
-    starts = block_starts_bitwise(blocked, kept, losses["blocked"])
+    starts = dryrun.block_starts_bitwise(blocked, kept, [None] + losses["blocked"])
     if sorted(starts) != [b for b, _ in expected] or not all(starts.values()) or not moved:
         fail(f"blocked {label}: the first replayed step of each block is not the eager step from the state it "
              f"started from, bitwise: {starts}; the latent moved {moved}")
@@ -3980,6 +3964,102 @@ def phase_parallel(card):
     return rows
 
 
+PARALLEL_BLOCK_STEPS = 17  # 35 (e): an eager step (its checkin), then 2 blocks of 8
+# 35 (e) holds the final latents of the blocked sharded and unsharded runs within
+# max(PARALLEL_TOL, PARALLEL_SPREAD x the L2 gap of two unsharded blocked runs from one seed):
+# after 17 steps K2's float atomics, through Adam, part two unsharded runs of the pixel row by
+# 6.0e-3 (L2) and the sharded run from one of them by 5.7e-3 (PERF.md §6, PR 19)
+PARALLEL_SPREAD = 2.0
+
+
+def phase_parallel_blocks(card):
+    """35 (e): the sharded step in blocks on NCCL, at the pixel row's width,
+    on one rank spawned into a 1-rank NCCL group (``init_distributed``'s
+    choice with a card for the rank; checked) and its (1, 1) mesh
+    (``dryrun.sharded_blocks``): (i) eager sharded, (ii) blocked sharded
+    and (iii) blocked unsharded, PARALLEL_BLOCK_STEPS steps each.  Fatal
+    unless: each block's first replayed step of (ii) gives the values of
+    the eager sharded step from the state it started from and its draws,
+    bitwise, and at learning-rate scale 0 a blocked and an eager sharded
+    engine from one state give every step's values bitwise over a block
+    and keep the latent bitwise (5b's two checks: K2's float atomics part
+    two runs with the learning rate on); (ii) within PARALLEL_TOL of (iii)
+    at every step's loss, and their final latents (L2) no farther apart
+    than PARALLEL_SPREAD times two unsharded blocked runs' (or
+    PARALLEL_TOL, the larger); K1 and K2 once per
+    replayed step (the capture's counters); and the captured block holds
+    one NCCL all-reduce kernel node per step (counted in its
+    ``debug_dump``: the profiler drops events).  Prints the ms per step of
+    the three (wall to a synchronize, the blocked runs' steps 1-16 less
+    the capture; a replay's device ms per step by CUDA events), the
+    captures' seconds and peak memory.  Returns {row: (launches, steps)}
+    of (ii), its capture's warm-up step counted."""
+    import numpy as np
+
+    from pixray_tpu_torch.engine.core import BLOCK_STEPS as block
+    from pixray_tpu_torch.ops import cuda_warp
+    from pixray_tpu_torch.parallel import dryrun
+
+    fwd, bwd = cuda_warp.FWD_COUNTERS["highest"], cuda_warp.BWD_COUNTERS["highest"]
+    n = PARALLEL_BLOCK_STEPS
+    label = "parallel blocks (1, 1) pixel"
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            (out,) = dryrun.launch(dryrun.sharded_blocks, 1, PIXEL_CONFIG, n, block, os.path.join(tmp, "block.dot"),
+                                   deadline=PARALLEL_DEADLINE, threads=PARALLEL_THREADS)
+        except Exception as exc:  # a rank's failure fails the phase
+            fail(f"{label}: {exc}")
+    launch_s = time.perf_counter() - t0
+    runs = out["runs"]
+    if out["backend"] != "nccl":
+        fail(f"{label}: the 1-rank group's backend is {out['backend']}, not nccl")
+    want = [(1 + block * k, block) for k in range((n - 1) // block)]
+    got = {name: run["blocks"] for name, run in runs.items()}
+    if got != {"eager": [], "blocked": want, "unsharded": want, "unsharded2": want}:
+        fail(f"{label}: blocks {got}, expected {want} for the blocked runs and none eager")
+    if not all(np.all(np.isfinite(run["losses"])) for run in runs.values()):
+        fail(f"{label}: non-finite losses {[run['losses'] for run in runs.values()]}")
+    if out["starts"] != {b: True for b, _ in want} or not out["moved"]:
+        fail(f"{label}: the first replayed step of each block is not the eager sharded step from the state it "
+             f"started from, bitwise: {out['starts']}; the latent moved {out['moved']}")
+    lr0 = out["lr0"]
+    if lr0["blocks"] != [(1, block)] or not all(lr0["values_bitwise"]) or not lr0["latent_kept"]:
+        fail(f"{label}: at learning-rate scale 0 the blocked sharded run parts from the eager one: {lr0}")
+    gap = dryrun.agreement(runs["blocked"], runs["unsharded"])
+    spread = dryrun.agreement(runs["unsharded2"], runs["unsharded"])
+    z_tol = max(PARALLEL_TOL, PARALLEL_SPREAD * spread["z_l2"])
+    if not (gap["loss"] <= PARALLEL_TOL and gap["z_l2"] <= z_tol):
+        fail(f"{label}: blocked sharded against blocked unsharded {gap} (tolerance {PARALLEL_TOL} on the loss, "
+             f"{z_tol:.3e} on z_l2; two unsharded runs part by {spread})")
+    for name in ("blocked", "unsharded", "unsharded2"):
+        if runs[name]["recorded"] != {fwd: block, bwd: block}:
+            fail(f"{label}: one replay of the {name} block launches {runs[name]['recorded']}, expected K1 and K2 "
+                 f"{block} times each")
+    if out["nccl_nodes"] != block:
+        fail(f"{label}: the captured block holds {out['nccl_nodes']} NCCL all-reduce kernel nodes of "
+             f"{out['kernel_nodes']}, expected {block} (one a step)")
+    eager_ms = statistics.median(runs["eager"]["ms"][1:])
+    wall = {name: (sum(runs[name]["ms"][1:]) - 1e3 * runs[name]["capture_s"]) / (n - 1)
+            for name in ("blocked", "unsharded")}
+    print(f"{label} (ViT-B/32, 64 cuts, 384x216, exact rungs; one rank, backend {out['backend']}): {n} steps each, "
+          f"blocks {want}; the first replayed step of each block bitwise the eager sharded step from the state it "
+          f"started from {out['starts']}; learning-rate scale 0: {sum(lr0['values_bitwise'])} of {block} steps' "
+          f"values bitwise, latent kept bitwise {lr0['latent_kept']}; blocked sharded against blocked unsharded: "
+          f"loss {gap['loss']:.3e}, latent {gap['z_l2']:.3e} (L2; max element {gap['z']:.3e}), two unsharded runs: "
+          f"loss {spread['loss']:.3e}, latent {spread['z_l2']:.3e} (L2; max element {spread['z']:.3e}); K1/K2 per replayed "
+          f"step {runs['blocked']['recorded'][fwd] / block:.2f} / {runs['blocked']['recorded'][bwd] / block:.2f}; "
+          f"{out['nccl_nodes']} NCCL all-reduce nodes of {out['kernel_nodes']} kernel nodes in the captured block; "
+          f"ms per step (wall, blocked without the capture): (i) eager sharded {eager_ms:.3f}, (ii) blocked sharded "
+          f"{wall['blocked']:.3f}, (iii) blocked unsharded {wall['unsharded']:.3f}; one replay's device ms per step "
+          f"(ii) {runs['blocked']['replay_ms'] / block:.3f}, (iii) {runs['unsharded']['replay_ms'] / block:.3f}; "
+          f"capture s (ii) {runs['blocked']['capture_s']:.3f}, (iii) {runs['unsharded']['capture_s']:.3f}; peak MiB "
+          f"(i) {runs['eager']['peak_mib']:.1f}, (ii) {runs['blocked']['peak_mib']:.1f}, (iii) "
+          f"{runs['unsharded']['peak_mib']:.1f}; launch {launch_s:.1f} s; on {card}", flush=True)
+    total = {k: sum(s.get(k, 0) for s in runs["blocked"]["launches"]) for k in (fwd, bwd)}
+    return {label: (total, n + 1)}
+
+
 def memo_random_inits():
     """Draw each random tower and VQGAN once per process: wrap the
     ``init_random_`` that the port's perceptors and VQGAN drawer call with a
@@ -4182,6 +4262,8 @@ def main():
     tick("phase_ladder")
     rows.update(phase_parallel(card))
     tick("phase_parallel")
+    rows.update(phase_parallel_blocks(card))
+    tick("phase_parallel_blocks")
     # last: after its served jobs, torch.profiler saw no kernel in 29 of 30 windows over 13 s on an H100,
     # and 32-35 time kernels by the profiler
     with tempfile.TemporaryDirectory() as tmp:

@@ -15,8 +15,8 @@ CPU.  The host draws a block's steps in the eager order, so a blocked run
 draws exactly what a single-step run draws; it dispatches the next block
 before it reads the current block's losses (in one transfer), unless a
 host event comes between.  ``train(cur_it, draws=...)`` with explicit
-draws is always one eager step.  On the card ``--steps_per_call 1`` is the
-only way to the eager step.
+draws is always one eager step.  On the card ``--steps_per_call 1`` (or a
+gloo mesh, below) is the only way to the eager step.
 
 ``device`` is explicit and defaults to ``"cuda"``; asking for CUDA where
 there is none raises (there is no CPU fallback).  The towers compute in
@@ -94,8 +94,13 @@ joins the process group the environment configures and lays
 ``--mesh_shape`` over all of its ranks, one device each (plain ``"cuda"``
 is the rank's card), padding ``num_cuts`` to the data axis.  Every rank
 seeds and draws the whole step as one process would; the step
-(``engine/step.py``) splits the work and sums it.  Steps are eager under
-a mesh (``--steps_per_call`` becomes 1), and only rank 0 writes files.
+(``engine/step.py``) splits the work and sums it, and only rank 0 writes
+files.  Under a mesh the engine dispatches blocks as it does unsharded,
+except where the step's collectives cannot sit in a CUDA graph: on the
+CPU (gloo) a block is its steps in a loop; on the card over NCCL one
+replay of a graph that holds every collective of its steps; on the card
+over gloo (ranks sharing one card) every step is eager (``--steps_per_call``
+becomes 1; ``mesh.step_capturable``).
 """
 
 from __future__ import annotations
@@ -142,14 +147,28 @@ def resolve_seed(seed_setting):
 
 
 def resolve_device(device) -> torch.device:
-    """``device`` as a torch device; in a process group, plain ``"cuda"``
-    is the rank's card, ``cuda:{local rank % cards}``."""
+    """``device`` as a torch device; in a process group (one rank's too),
+    plain ``"cuda"`` is the rank's card, ``cuda:{local rank % cards}``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("device 'cuda' was asked for but CUDA is not available")
-    if device.type == "cuda" and device.index is None and PM.world()[1] > 1:
+    if device.type == "cuda" and device.index is None and torch.distributed.is_initialized():
         device = torch.device("cuda", PM.local_rank() % torch.cuda.device_count())
     return device
+
+
+def mesh_dispatch(args, mesh, device) -> str:
+    """Under a mesh, blocks as unsharded, unless the step's collectives
+    cannot sit in a CUDA graph: on the card over gloo (ranks sharing one
+    card) every step is eager, and ``args.steps_per_call`` becomes 1.  On
+    the CPU a block is its steps in a loop; on the card over NCCL one graph
+    replay with the collectives inside.  Returns the backend and the
+    dispatch, in words."""
+    backend = torch.distributed.get_backend(mesh.group)
+    if torch.device(device).type == "cuda" and not PM.step_capturable(mesh):
+        args.steps_per_call = 1  # a gloo collective runs on the host, outside any graph
+        return f"{backend}: eager steps, --steps_per_call 1"
+    return f"{backend}: blocks as unsharded"
 
 
 class Engine:
@@ -168,14 +187,13 @@ class Engine:
             if padded != args.num_cuts:
                 print(f"padding num_cuts {args.num_cuts} -> {padded} for the {self.mesh.shape} mesh")
                 args.num_cuts = padded
-            # eager steps: a gloo collective cannot sit in a CUDA graph
-            args.steps_per_call = 1
-            print(f"Using device mesh {self.mesh.shape} for cutout data-parallelism; --steps_per_call 1 "
-                  "(a gloo collective cannot sit in a CUDA graph)")
         self.writer = self.mesh is None or self.mesh.rank == 0  # under a mesh, rank 0 writes the files
         self.device = resolve_device(device)
-        if self.mesh is not None and self.device.type == "cuda":
-            torch.cuda.set_device(self.device)
+        if self.mesh is not None:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            print(f"Using device mesh {self.mesh.shape} for cutout data-parallelism "
+                  f"({mesh_dispatch(args, self.mesh, self.device)})")
         if args.init_weight_pix and not args.init_image:
             raise ValueError("init_weight_pix needs an init_image")
 

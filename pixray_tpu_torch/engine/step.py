@@ -619,8 +619,10 @@ class StepBlock:
     the capture (collecting an unreachable engine would destroy its graph
     inside it).  A capture that fails raises.  The launch
     counters move by what the capture recorded at each replay (the capture
-    itself launches nothing).  On the CPU a block is ``n`` eager steps from
-    the same inputs."""
+    itself launches nothing).  Under a mesh over NCCL the graph holds every
+    collective of its steps, and every rank captures and replays them in
+    one order, as every rank dispatches the same blocks.  On the CPU a
+    block is ``n`` eager steps from the same inputs."""
 
     def __init__(self, cfg: StepConfig, optimizer, n: int, cut_counts: list[int], device, skip=frozenset()):
         self.cfg, self.optimizer, self.n, self.cut_counts = cfg, optimizer, n, cut_counts
@@ -701,13 +703,21 @@ class StepBlock:
         side.wait_stream(main)
         with torch.cuda.stream(side):
             # first use on this stream (cuBLAS workspaces, cuDNN's choice, the
-            # kernels' attributes), on copies: the run does not advance
+            # kernels' attributes), on copies: the run does not advance.  Under
+            # a mesh it runs the step's collectives, which makes each group's
+            # NCCL communicator (made at its first collective, which a capture
+            # may not do).  PyTorch 2.11 with NCCL 2.28 needs nothing more:
+            # ProcessGroupNCCL leaves captured work out of its watchdog, so its
+            # async error handling stays on, and the collective's fork to
+            # NCCL's stream and join back hold under a thread-local capture
             total, values, _ = train_step(cfg, opt, tree_map(torch.clone, z), opt.clone(opt_state),
                                           lr_scale, self.inputs(0))
         main.wait_stream(side)
         self.totals = torch.zeros((self.n,), dtype=total.dtype, device=self.device)
         self.values = torch.zeros((self.n, values.numel()), dtype=values.dtype, device=self.device)
-        graph = torch.cuda.CUDAGraph()
+        # the graph is kept beside its executable, so that debug_dump can
+        # print it (chip_smoke.py counts the collectives of a block from it)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # no garbage collection inside the capture: collecting an unreachable
         # engine destroys its graph, a call the capture may not see.  One
         # capture at a time in the process (the collector's switch is global);
@@ -734,5 +744,6 @@ class StepBlock:
                                  for counter, b in zip(LAUNCH_COUNTERS, before)]
                 for counter, b in zip(LAUNCH_COUNTERS, before):
                     counter.update(b)  # recorded into the graph, not launched
+        graph.instantiate()
         self.graph = graph
         self.capture_s = time.perf_counter() - t0

@@ -129,12 +129,13 @@ def adjust_range_affine(img, out_lo=0.0, out_hi=1.0):
 
 
 class Perceptor:
-    """A frozen scoring model.  ``dtype`` is the tower's compute dtype;
+    """A frozen scoring model on ``device`` (the card unless the caller
+    asks for the CPU, as the Engine's).  ``dtype`` is the tower's compute dtype;
     ``rungs`` the precision rungs (None: read from the environment now).
     ``quant`` is the vision tower's int8 rung or None, ``quant_weights``
     its pre-quantized weights (:func:`build_quant_collection`) or None."""
 
-    def __init__(self, name: str, device="cpu", dtype=torch.float32, state_dict=None, rungs: Rungs | None = None):
+    def __init__(self, name: str, device="cuda", dtype=torch.float32, state_dict=None, rungs: Rungs | None = None):
         if name in CLIP_CONFIGS:
             self.config, mean, std = CLIP_CONFIGS[name], CLIP_MEAN, CLIP_STD
         elif name in SLIP_CONFIGS:

@@ -108,8 +108,9 @@ def init_random_(model: VGG16Features, gen: torch.Generator) -> VGG16Features:
     return model
 
 
-def load_vgg16(device="cpu", dtype=torch.float32, state_dict=None, seed: int = 16) -> VGG16Features:
-    """The frozen tower on ``device`` in ``dtype``: from ``state_dict``
+def load_vgg16(device="cuda", dtype=torch.float32, state_dict=None, seed: int = 16) -> VGG16Features:
+    """The frozen tower on ``device`` (the card unless the caller asks for
+    the CPU) in ``dtype``: from ``state_dict``
     (torchvision names), else from the first weight file found, else random
     from ``seed`` with a warning."""
     model = VGG16Features()

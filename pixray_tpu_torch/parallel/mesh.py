@@ -26,7 +26,9 @@ has no ``all_gather`` for CUDA tensors and several ranks that share one
 card must use gloo (NCCL refuses two ranks on one device).  The one gather
 (:func:`gather_along`, :class:`GatherRows`) is a sum of zero-filled full
 buffers, each holding its rank's rows: exact, as the fill is -0.0 (x + -0.0
-is x for every x, -0.0 included).
+is x for every x, -0.0 included).  Over NCCL the collectives run on the
+card, so a step's sit in its block's CUDA graph (:func:`step_capturable`);
+gloo's run on the host, and a card's step over gloo is eager.
 """
 
 from __future__ import annotations
@@ -166,6 +168,24 @@ def build_mesh(mesh_shape="auto") -> Mesh | None:
                 data_groups[rank % m], model_groups[rank // m])
 
 
+def one_rank_mesh() -> Mesh:
+    """A (1, 1) :class:`Mesh` over the process group of one rank, every
+    group the world: the sharded step's code on one device, as the JAX
+    package's ``tools/tpu_mesh_smoke.py`` builds a 1-device mesh
+    (:func:`build_mesh` gives None for one rank)."""
+    if world()[1] != 1 or not dist.is_initialized():
+        raise ValueError(f"one_rank_mesh needs a process group of one rank, not {world()[1]}")
+    g = dist.group.WORLD
+    return Mesh({DATA_AXIS: 1, MODEL_AXIS: 1}, 0, 0, 0, g, g, g)
+
+
+def step_capturable(mesh: Mesh) -> bool:
+    """Whether a step sharded over ``mesh`` can be captured into a CUDA
+    graph: NCCL enqueues its collectives on the card, where a capture
+    records them; gloo runs them on the host, outside any graph."""
+    return dist.get_backend(mesh.group) == "nccl"
+
+
 def host_local(x) -> np.ndarray:
     """A tensor's value as a numpy copy (every rank holds whole tensors)."""
     if isinstance(x, torch.Tensor):
@@ -197,8 +217,16 @@ def pad_cuts_for_mesh(num_cuts: int, mesh: Mesh | None) -> int:
 
 
 def all_reduce_(t, group):
-    """Sum ``t`` over ``group`` in place (gloo and NCCL, CPU and CUDA)."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    """Sum ``t`` over ``group`` in place (gloo and NCCL, CPU and CUDA).
+
+    Over NCCL a float tensor's sum is premultiplied by 1.0: the same bits
+    (x * 1.0 is x, -0.0 included), but NCCL launches it on a group of one
+    rank too, where it drops a plain sum without a kernel; so a captured
+    block holds one NCCL kernel per collective on any group size."""
+    op = dist.ReduceOp.SUM
+    if t.is_floating_point() and dist.get_backend(group) == "nccl":
+        op = dist._make_nccl_premul_sum(1.0)
+    dist.all_reduce(t, op=op, group=group)
     return t
 
 

@@ -111,3 +111,79 @@ def test_engine_refuses_a_mesh_shape_it_cannot_build():
         dryrun.trajectory(dryrun.tiny_settings(shard_cutouts=True, mesh_shape="2"), 1, "cpu")
     run = dryrun.trajectory(dryrun.tiny_settings(shard_cutouts=True, mesh_shape="auto"), 1, "cpu")
     assert run["engine"].mesh is None and np.isfinite(run["losses"][0])
+
+
+# ---------------------------------------------------------------- the dispatch rule under a mesh
+@pytest.mark.parametrize("device, backend, want", [
+    ("cpu", "gloo", 0),  # the tests and the dry run: blocks, each its steps in a loop
+    ("cuda", "nccl", 0),  # one card per rank: one CUDA graph per block, the collectives inside
+    ("cuda", "gloo", 1),  # ranks sharing one card: gloo runs on the host, so every step is eager
+])
+def test_mesh_dispatch_rule(device, backend, want, monkeypatch):
+    """The engine's rule, with the group's backend stubbed (no card and no
+    group is needed to decide it)."""
+    from pixray_tpu_torch.engine import core
+
+    monkeypatch.setattr(M.dist, "get_backend", lambda group=None: backend)
+    mesh = M.Mesh({M.DATA_AXIS: 2, M.MODEL_AXIS: 1}, 0, 0, 0, object(), None, None)
+    args = dryrun.tiny_settings(steps_per_call=0)
+    said = core.mesh_dispatch(args, mesh, torch.device(device))
+    assert args.steps_per_call == want
+    assert said.startswith(backend) and ("eager" in said) == (want == 1)
+    assert M.step_capturable(mesh) == (backend == "nccl")
+
+
+def test_one_rank_mesh_needs_a_group_of_one():
+    with pytest.raises(ValueError, match="process group of one rank"):
+        M.one_rank_mesh()
+
+
+@pytest.fixture
+def one_rank_gloo():
+    """A 1-rank gloo group in this process, destroyed after the test."""
+    M.init_distributed(f"127.0.0.1:{dryrun.free_port()}", 1, 0, backend="gloo")
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_mesh_smoke_on_one_gloo_rank(one_rank_gloo):
+    """``dryrun.mesh_smoke("cpu")``: the sharded step on a (1, 1) mesh, and
+    sharded-vs-unsharded parity eager and blocked (an eager step, then two
+    blocks of 4, each its steps in a loop on the CPU)."""
+    mesh = M.one_rank_mesh()
+    assert mesh.shape == {M.DATA_AXIS: 1, M.MODEL_AXIS: 1} and not M.step_capturable(mesh)
+    out = dryrun.mesh_smoke("cpu")
+    assert out["backend"] == "gloo" and np.isfinite(out["loss"])
+    for kind in ("eager", "blocked"):
+        rep = out[kind]
+        assert rep["shape"] == {M.DATA_AXIS: 1, M.MODEL_AXIS: 1} and rep["members"] == 1
+        assert rep["loss_delta"] <= 2e-3 and rep["z_delta"] <= 2e-3
+    assert out["eager"]["blocks"] == []
+    assert out["blocked"]["blocks"] == [(1, 4), (5, 4)]
+
+
+def test_sharded_blocks_rehearsed_on_one_gloo_rank(one_rank_gloo):
+    """``dryrun.sharded_blocks``, which ``chip_smoke.py`` runs at the pixel
+    row's width on a 1-rank NCCL group, on the CPU at dry-run scale: the
+    three runs and the block structure, each block's first step bitwise
+    the eager sharded step from the state it started from, and at
+    learning-rate scale 0 a block bitwise its eager steps with the latent
+    kept (on the CPU a block is its steps in a loop, so the eager and the
+    blocked sharded runs are bitwise too)."""
+    config = dict(drawer="pixel", prompts="a sunrise", clip_models="TinyTest", size=[64, 36], save_every=1000,
+                  init_noise=None, vector_prompts="none", num_cuts=4, seed=7, save_intermediates=False,
+                  learning_rate_drops=[], precision="fp32")
+    out = dryrun.sharded_blocks(config, n_steps=9, block=4, device="cpu")
+    runs = out["runs"]
+    assert out["backend"] == "gloo"
+    assert runs["eager"]["blocks"] == []
+    for name in ("blocked", "unsharded", "unsharded2"):
+        assert runs[name]["blocks"] == [(1, 4), (5, 4)] and sorted(runs[name]["block_z"]) == [1, 5]
+    assert out["starts"] == {1: True, 5: True} and out["moved"]
+    assert out["lr0"] == {"blocks": [(1, 4)], "values_bitwise": [True] * 4, "latent_kept": True}
+    assert runs["blocked"]["losses"] == runs["eager"]["losses"]
+    assert runs["blocked"]["z"].tobytes() == runs["eager"]["z"].tobytes()
+    gap = dryrun.agreement(runs["blocked"], runs["unsharded"])
+    assert gap["loss"] <= 2e-3 and gap["z"] <= 2e-3

@@ -20,6 +20,14 @@ never runs two process groups at once.
   the gathered or replicated ``embeds``).
 - The plug-ins under a mesh, against the unsharded port: custom losses that
   read the gathered embeddings, an image prompt and a spot prompt.
+- Blocks under a mesh (``--steps_per_call`` 4 over 9 steps: step 0 eager,
+  its checkin, then blocks (1, 4) and (5, 4), each its steps in a loop on
+  the CPU): the port Engine on (2, 1) with TinyTest, (2, 2) with three
+  towers placed and FSDP (1, 2), blocked bitwise eager at every step's
+  values and in every rank's latent; and on (2, 1) fed the JAX engine's
+  weights, latent and draws, blocked bitwise its eager run on those draws
+  and within the slice's tolerances of the JAX Engine run blocked on a
+  (2, 1) virtual mesh.
 - ``init_distributed`` through the PIXRAY_TPU_* variables with a 'hosts'
   mesh of 2 x 2 (``LOCAL_WORLD_SIZE`` 2).
 - No fallback: a rank that raises, a rank that hangs past the deadline and
@@ -250,6 +258,94 @@ def test_sharded_slice_matches_unsharded_jax_engine(tmp_path, monkeypatch, shape
     if plugins:  # the aesthetic term is live: its head reads the embeddings
         assert abs(want_values[0][ref.loss_names.index("loss:AestheticLoss")]) > 0.1
     assert (tmp_path / "port" / "output.png").exists()
+
+
+# ---------------------------------------------------------------- blocks under a mesh
+BLOCKED_CASES = [("2,1", dict(clip_models="TinyTest")), ("2,2", dict(clip_models=THREE_TOWERS)),
+                 ("1,2", dict(clip_models="TinyTest"))]
+BLOCKED_STEPS, BLOCK = 9, 4  # step 0 eager (its checkin), then blocks (1, 4) and (5, 4)
+
+
+@pytest.fixture(scope="module")
+def blocked_runs():
+    return launch(R.blocked_ranks, 4, BLOCKED_CASES, BLOCKED_STEPS, BLOCK, deadline=DEADLINE)
+
+
+@pytest.mark.parametrize("case", [0, 1, 2], ids=["data parallel", "ensemble placement", "FSDP"])
+def test_blocked_sharded_is_eager_sharded_bitwise(blocked_runs, case):
+    """Under a gloo mesh on the CPU the engine dispatches blocks as it does
+    unsharded, and a block's steps give the eager steps' bits."""
+    d, m = (int(x) for x in BLOCKED_CASES[case][0].split(","))
+    for out in blocked_runs[:d * m]:
+        eager, blocked = out[case]["eager"], out[case]["blocked"]
+        assert eager["blocks"] == [] and blocked["blocks"] == [(1, BLOCK), (1 + BLOCK, BLOCK)]
+        assert (blocked["ensemble"], blocked["fsdp"]) == (case == 1, int(case == 2))
+        assert len(blocked["values"]) == BLOCKED_STEPS
+        for got, want in zip(blocked["values"], eager["values"]):
+            assert got.tobytes() == want.tobytes()
+        assert blocked["z"].tobytes() == eager["z"].tobytes()
+        assert blocked["bitwise"] and eager["bitwise"]  # the ranks' latents after every step
+        assert blocked["z"].tobytes() == blocked_runs[0][case]["blocked"]["z"].tobytes()
+        assert not np.array_equal(blocked["z"], blocked["z0"])
+    for out in blocked_runs[d * m:]:
+        assert out[case] is None
+
+
+@pytest.mark.usefixtures("jax_perceptor_cache")
+def test_blocked_sharded_slice_matches_blocked_jax_engine(tmp_path):
+    """(2, 1) with TinyTest, ``--steps_per_call`` 4 over 9 steps: the port
+    fed the JAX engine's weights, latent and draws (as
+    ``test_sharded_slice_matches_unsharded_jax_engine`` feeds them; a
+    block's draws through ``draw_step``: the JAX block draws inside its
+    ``lax.scan`` on the host's key schedule, which the draws replay),
+    blocked bitwise its eager run on the same draws (every step's values,
+    the final latent), and against the JAX Engine run blocked on a (2, 1)
+    virtual mesh: every step's losses atol 1e-4.  The final latent is held
+    within 1e-5 of the unsharded eager port's on the same draws, and so
+    within atol 1e-3 of the JAX engine's wherever that one is: over 9
+    steps the unsharded eager port itself parts from the JAX engine by up
+    to 1.9e-3 on 4 of 14,400 elements (Adam's first steps on elements
+    whose gradient is near its epsilon), which blocks and sharding leave
+    as they are."""
+    cfg = dict(SLICE, clip_models="TinyTest", batches=1, iterations=BLOCKED_STEPS, steps_per_call=BLOCK,
+               shard_cutouts=True, mesh_shape="2,1")
+    (tmp_path / "jax").mkdir()
+    (tmp_path / "port").mkdir()
+    ref = JEngine(j_apply_settings(dict(cfg, outdir=str(tmp_path / "jax")), apply_side_effects=False))
+    assert ref.mesh is not None and dict(ref.mesh.shape) == {DATA_AXIS: 2, MODEL_AXIS: 1}
+    payload = {
+        "settings": dict(cfg, outdir=str(tmp_path / "port")),
+        "weights": {p.name: {k: np.asarray(v) for k, v in state_dict_from_flax(p.variables["params"], p.config).items()}
+                    for p in ref.perceptors},
+        "z": np.asarray(ref.z), "z_orig_flat": np.asarray(ref.z_orig_flat), "draws": [],
+    }
+    sizes = [p.input_resolution for p in ref.perceptors]
+    key = ref.key
+    for _ in range(BLOCKED_STEPS):  # the host's key schedule, which the JAX block's scan follows
+        key, k_step = jax.random.split(key)
+        payload["draws"].append(_jax_step_draws(k_step, sizes, cfg["num_cuts"], 96 / 54, cfg["batches"]))
+    path = tmp_path / "payload.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(payload, f)
+    running = in_background(R.blocked_slice_rank, 2, str(path), deadline=DEADLINE)
+    want_values = []
+    for it in range(BLOCKED_STEPS):
+        ref.train(it)
+        want_values.append(np.asarray(ref.last_loss_values))
+    want_z = np.asarray(ref.z)
+    ranks = running.result()
+    for out in ranks:
+        assert out["mesh"] == {"data": 2, "model": 1} and out["names"] == ref.loss_names
+        assert out["blocks"] == [(1, BLOCK), (1 + BLOCK, BLOCK)]
+        for got, want in zip(out["blocked_values"], out["values"]):
+            assert got.tobytes() == want.tobytes()
+        assert out["blocked_z"].tobytes() == out["z"][-1].tobytes()
+        for got, want in zip(out["blocked_values"], want_values):
+            np.testing.assert_allclose(got, want, atol=1e-4)
+        np.testing.assert_allclose(out["blocked_z"], out["unsharded_z"], atol=1e-5)
+        gap, base_gap = np.abs(out["blocked_z"] - want_z), np.abs(out["unsharded_z"] - want_z)
+        assert np.all((gap <= 1e-3) | (base_gap > 1e-3)), int(((gap > 1e-3) & (base_gap <= 1e-3)).sum())
+        assert out["blocked_z"].tobytes() == ranks[0]["blocked_z"].tobytes()
 
 
 # ---------------------------------------------------------------- plug-ins, image and spot prompts

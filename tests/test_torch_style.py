@@ -40,7 +40,7 @@ from pixray_tpu_torch.models.vgg import load_vgg16, state_dict_from_flax_vgg16
 @pytest.fixture(scope="module")
 def vggs():
     params = JV.init_vgg16_params(jax.random.PRNGKey(16))
-    return params, load_vgg16(state_dict=state_dict_from_flax_vgg16(params))
+    return params, load_vgg16("cpu", state_dict=state_dict_from_flax_vgg16(params))
 
 
 def _nchw(a):

@@ -73,38 +73,111 @@ def parity_rank(device: str) -> dict:
             "local_rank": PM.local_rank(), "backend": torch.distributed.get_backend(), "step": step}
 
 
+def _fed_engine(data: dict, settings: dict):
+    """A port Engine on ``settings`` with the JAX engine's weights, latent
+    and ``z_orig_flat`` from a slice payload."""
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine.core import Engine
+
+    port = Engine(apply_settings(dict(settings), apply_side_effects=False), device="cpu",
+                  state_dicts={k: {n: torch.tensor(v) for n, v in sd.items()} for k, sd in data["weights"].items()})
+    port.z = torch.tensor(data["z"])
+    port.opt_state = port.optimizer.init(port.z)
+    port.step_cfg.z_orig_flat = torch.tensor(data["z_orig_flat"])
+    return port
+
+
+def _fed_eager(data: dict, settings: dict):
+    """:func:`_fed_engine` stepped eagerly through the payload's draws:
+    (engine, each step's values, each step's latent)."""
+    port = _fed_engine(data, settings)
+    values, zs = [], []
+    for it, draws in enumerate(data["draws"]):
+        port.train(it, draws)
+        values.append(port.last_loss_values.numpy().copy())
+        zs.append(port.z.detach().numpy().copy())
+    return port, values, zs
+
+
+def _feed_draws(port, draws: list):
+    """Make ``port.draw_step`` hand out ``draws`` in turn (the JAX engine's
+    step draws), writing their noise planes where a block asks for them."""
+    pending = iter(draws)
+
+    def draw_step(planes_out=None):
+        step = next(pending)
+        if planes_out is not None:
+            for batch, planes in zip(step, planes_out):
+                for pd, out in zip(batch["perceptors"], planes):
+                    for dst, src in zip(out, pd["noise"][1]):
+                        dst.copy_(src)
+        return step
+
+    port.draw_step = draw_step
+
+
+def blocked_slice_rank(payload: str) -> dict:
+    """The port Engine sharded by the settings' ``mesh_shape``, fed the JAX
+    engine's weights, latent and step draws from ``payload``: eager
+    (``train(it, draws)``), and blocked by the settings' ``steps_per_call``
+    with the same draws handed out by ``draw_step``."""
+    with open(payload, "rb") as f:
+        data = pickle.load(f)
+    _eager, values, zs = _fed_eager(data, dict(data["settings"], steps_per_call=1))
+    outdir = data["settings"]["outdir"] + "-blocked"
+    os.makedirs(outdir, exist_ok=True)
+    blocked = _fed_engine(data, dict(data["settings"], outdir=outdir))
+    _feed_draws(blocked, data["draws"])
+    blocked_values = []
+    for it in range(len(data["draws"])):
+        blocked.train(it)
+        blocked_values.append(blocked.last_loss_values.numpy().copy())
+    outdir = f"{data['settings']['outdir']}-unsharded-{torch.distributed.get_rank()}"
+    os.makedirs(outdir)
+    _unsharded, _, unsharded_zs = _fed_eager(data, dict(data["settings"], shard_cutouts=False, steps_per_call=1,
+                                                         outdir=outdir))
+    _no_jax()
+    return {"values": values, "z": zs, "blocked_values": blocked_values, "blocked_z": blocked.z.detach().numpy(),
+            "unsharded_z": unsharded_zs[-1],
+            "blocks": blocked.dispatched_blocks, "mesh": blocked.mesh.shape, "names": list(blocked.loss_names)}
+
+
+def blocked_ranks(cases: list, n_steps: int, steps_per_call: int) -> list:
+    """Per (mesh shape, settings) case: the port sharded on the shape,
+    eager and blocked by ``steps_per_call`` (None on a rank the mesh
+    leaves out)."""
+    out = []
+    for shape, extra in cases:
+        mesh = PM.build_mesh(shape)
+        if mesh is None:
+            out.append(None)
+            continue
+        runs = {}
+        for name, spc in (("eager", 1), ("blocked", steps_per_call)):
+            run = dryrun.trajectory(dryrun.tiny_settings(**dict(extra, iterations=n_steps)), n_steps, "cpu", mesh, spc)
+            engine = run.pop("engine")
+            runs[name] = dict(run, blocks=list(engine.dispatched_blocks), fsdp=len(engine.step_cfg.fsdp),
+                              ensemble=engine.step_cfg.ensemble)
+        out.append(runs)
+    _no_jax()
+    return out
+
+
 def slice_rank(payload: str) -> dict:
     """The port Engine sharded by the settings' ``mesh_shape``, fed the JAX
     engine's weights, latent and step draws from ``payload`` (a pickle);
     with ``payload["unsharded"]`` also the port unsharded on them."""
-    from pixray_tpu_torch.config import apply_settings
-    from pixray_tpu_torch.engine.core import Engine
-
     with open(payload, "rb") as f:
         data = pickle.load(f)
-
-    def run(settings):
-        settings = apply_settings(dict(settings), apply_side_effects=False)
-        port = Engine(settings, device="cpu", state_dicts={k: {n: torch.tensor(v) for n, v in sd.items()}
-                                                           for k, sd in data["weights"].items()})
-        port.z = torch.tensor(data["z"])
-        port.opt_state = port.optimizer.init(port.z)
-        port.step_cfg.z_orig_flat = torch.tensor(data["z_orig_flat"])
-        values, zs = [], []
-        for it, draws in enumerate(data["draws"]):
-            port.train(it, draws)
-            values.append(port.last_loss_values.numpy().copy())
-            zs.append(port.z.detach().numpy().copy())
-        return port, values, zs
-
-    port, values, zs = run(data["settings"])
+    port, values, zs = _fed_eager(data, data["settings"])
     out = {"values": values, "z": zs, "names": list(port.loss_names), "mesh": port.mesh.shape,
            "num_cuts": port.args.num_cuts, "ensemble": port.step_cfg.ensemble,
            "lr": getattr(port.drawer, "learning_rate", None) or port.args.learning_rate}  # the optimizer's
     if data.get("unsharded"):  # every rank writes its own files then
         outdir = f"{data['settings']['outdir']}-unsharded-{torch.distributed.get_rank()}"
         os.makedirs(outdir)
-        _port, out["base_values"], out["base_z"] = run(dict(data["settings"], shard_cutouts=False, outdir=outdir))
+        settings = dict(data["settings"], shard_cutouts=False, outdir=outdir)
+        _port, out["base_values"], out["base_z"] = _fed_eager(data, settings)
     _no_jax()
     return out
 
