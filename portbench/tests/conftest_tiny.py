@@ -1,0 +1,44 @@
+"""The tiny test cells: the benchmark's ``BENCHMARK.json`` with each cell
+swapped for its tiny counterpart of ``tiny/``, beside a copy of the
+benchmark folder's readers and layers, in a temporary checkout."""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+BENCH = os.path.dirname(HERE)
+
+# a cell of BENCHMARK.json: its tiny cell, the tiny configuration and traffic mix
+TINY = {"pixel.steady": ("tiny.pixel", "tiny_pixel", "tiny_steady"),
+        "vqgan.steady": ("tiny.vqgan", "tiny_vqgan", "tiny_steady")}
+
+
+def tiny_benchmark() -> dict:
+    """BENCHMARK.json with its cells and configurations swapped for the tiny ones."""
+    with open(os.path.join(os.path.dirname(BENCH), "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    cells = [w for w in bench["workloads"] if w["name"] in TINY]
+    bench["workloads"] = [dict(w, name=TINY[w["name"]][0], config=TINY[w["name"]][1], traffic=TINY[w["name"]][2])
+                          for w in cells]
+    bench["configs"] = [{"name": c, "source": "portbench/tests/tiny", "file": f"portbench/tests/tiny/configs/{c}.json",
+                         "reduced": [], "why": "a tiny CPU test configuration"}
+                        for c in sorted({w["config"] for w in bench["workloads"]})]
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if "workloads" in m:
+            m["workloads"] = [TINY[w][0] for w in m["workloads"] if w in TINY]
+    return bench
+
+
+def tiny_checkout(tmp_path) -> tuple[str, str]:
+    """(root, bench_dir) of a temporary checkout holding the tiny cells."""
+    root = tmp_path / "checkout"
+    bench = root / "portbench"
+    shutil.copytree(os.path.join(HERE, "tiny"), bench)
+    for sub in ("metrics", "layers"):
+        shutil.copytree(os.path.join(BENCH, sub), bench / sub)
+    with open(root / "BENCHMARK.json", "w") as f:
+        json.dump(tiny_benchmark(), f, indent=1)
+    return str(root), str(bench)
