@@ -60,6 +60,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    of K2 and K5 part two runs after a step with the learning rate on);
    the port's kernels listed by torch.profiler in one graph replay;
    capture time, host ms per block, steps/s;
+5c. layer ranges: the pixel and vqgan rows blocked (8), 24 steps after
+   step 0, captured with the device layer ranges on and off from one seed:
+   the ranged graph holds the other's nodes kind for kind and one
+   event-record node for each event of its ranges; the first replayed
+   step of each ranged block bitwise an eager step from the state the
+   block started from, as in 5b; each ranged block's record holds every
+   range's device ms (a tower per perceptor, the bank, the drawer's synth),
+   each above 0, their sum under the ranged steps' wall time; steps/s
+   with the ranges on and off;
 6. main path: the bench's headline row (pixel drawer, 384x216, "sunrise",
    random-weight ViT-B/32, 64 cuts) through apply_settings + Engine, 9
    warm-up and 24 timed steps, blocked (step 0 eager, then blocks of 8 as
@@ -333,6 +342,7 @@ AGREE_ATOL = 2e-2  # per-step loss, card (bf16 epilogue) vs CPU (f32) on TinyTes
 BLOCKED_STATE_RTOL = 0.25
 BLOCKED_FLOOR = 1e-5
 BLOCKED_STEPS = 16  # after step 0; vqgan 8
+RANGED_STEPS = 24  # after step 0: three blocks of 8
 PROFILER_PAUSE_S = 0.03  # host idle on both sides of each traced call (profiled_events)
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
 
@@ -1645,6 +1655,90 @@ def phase_blocked(tmp, config, label, steps, card):
           f"{steps} steps: blocked {rates['blocked']:.3f} ({steps / (steps / rates['blocked'] - blk.capture_s):.3f} "
           f"without the capture), eager {rates['eager0']:.3f}; on {card}", flush=True)
     return {"replay": seen, "events": events, "n": blk.n}
+
+
+def graph_node_kinds(graph, path: str) -> dict:
+    """{node kind (KERNEL, MEMSET, EVENT_RECORD, ...): count} of a captured
+    block's graph, from its ``debug_dump``."""
+    import collections
+    import re
+
+    graph.debug_dump(path)
+    with open(path) as f:
+        found = re.findall(r'"graph_\d+_node_\d+"\[[^\n]*label="(?:\{(\w+)|[^\n]*\n(\w+))', f.read())
+    return dict(collections.Counter(a or b for a, b in found))
+
+
+def phase_ranged_blocks(tmp, config, label, card):
+    """5c: the device layer ranges (``profiling.time_layers``) on the card.
+    Two engines from one seed run ``RANGED_STEPS`` steps after step 0 in
+    blocks of 8, the block captured with the ranges off and on.  The ranged
+    graph must be the other with one event-record node per event of its
+    ranges; its replays must compute what the graph computes without them
+    (each block's first replayed step bitwise the eager step from the state
+    the block started from, as 5b asks); each ranged block's record must
+    hold every range (each tower, the bank, the drawer's ``synth`` as
+    ``decoder``) above 0 ms, summing under the ranged steps' wall time.  A
+    ranged replay waits for the one before it (its events are read in
+    between): the steps/s of both are printed."""
+    import torch
+
+    from pixray_tpu_torch.config import apply_settings
+    from pixray_tpu_torch.engine import profiling as P
+    from pixray_tpu_torch.engine.core import Engine
+    from pixray_tpu_torch.parallel import dryrun
+
+    cfg = dict(config, iterations=RANGED_STEPS + 1, outdir=tmp, steps_per_call=8)
+    runs, rates, losses, kinds = {}, {}, {}, {}
+    for name in ("off", "on"):
+        engine = runs[name] = Engine(apply_settings(cfg, apply_side_effects=False), device="cuda")
+        kept = keep_block_starts(engine)[0] if name == "on" else None
+        was = P.time_layers(name == "on")
+        try:
+            engine.train(0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses[name] = [None]
+            for it in range(1, RANGED_STEPS + 1):
+                engine.train(it)
+                losses[name].append(engine.last_loss_values.float().cpu())
+            torch.cuda.synchronize()
+            rates[name] = RANGED_STEPS / (time.perf_counter() - t0)
+        finally:
+            P.time_layers(was)
+        capture = engine.step_block.capture_s
+        rates[name] = (rates[name], RANGED_STEPS / (RANGED_STEPS / rates[name] - capture))
+        check_blocked(f"ranged {label} ({name})", engine, [(1 + 8 * k, 8) for k in range(RANGED_STEPS // 8)])
+        kinds[name] = graph_node_kinds(engine.step_block.graph, os.path.join(tmp, f"{name}.dot"))
+    on = runs["on"]
+    ranges = on.step_block.ranges
+    if runs["off"].step_block.ranges is not None or ranges is None or not ranges.pairs:
+        fail(f"ranged {label}: the block captured with the ranges off holds ranges, or the one with them on none")
+    events = 2 * len(ranges.pairs)  # a backward's begin is its own pair's only: every event is in one pair
+    want = dict(kinds["off"], EVENT_RECORD=kinds["off"].get("EVENT_RECORD", 0) + events)
+    if kinds["on"] != want:
+        fail(f"ranged {label}: the ranged graph's nodes {kinds['on']}, expected the unranged graph's "
+             f"{kinds['off']} and {events} event records")
+    starts = dryrun.block_starts_bitwise(on, kept, losses["on"])
+    if sorted(starts) != [1 + 8 * k for k in range(RANGED_STEPS // 8)] or not all(starts.values()):
+        fail(f"ranged {label}: the first replayed step of each ranged block is not the eager step from the state "
+             f"it started from, bitwise: {starts}")
+    names = {f"tower.{s.name}" for s in on.step_cfg.perceptors} | {"bank", "decoder"}
+    records = [b for b in P.BLOCKS if b.engine == on.serial]
+    read = [b.device_ms for b in records]
+    if (len(read) != RANGED_STEPS // 8 or any(not ms or set(ms) != names or min(ms.values()) <= 0 for ms in read)):
+        fail(f"ranged {label}: block ranges read {read}, expected each of {sorted(names)} above 0 in every block")
+    per_step = {n: sum(ms[n] for ms in read) / RANGED_STEPS for n in sorted(names)}
+    wall_ms = 1e3 / rates["on"][1]
+    if not sum(per_step.values()) < wall_ms:
+        fail(f"ranged {label}: the ranges sum to {sum(per_step.values()):.3f} ms a step, above the "
+             f"{wall_ms:.3f} ms of wall a step")
+    print(f"ranged {label}: blocks of 8, {RANGED_STEPS} steps after step 0; graph nodes off {kinds['off']}, on "
+          f"{kinds['on']} ({events} event records, {len(ranges.pairs) // 8} ranges a step); first replayed step "
+          f"of each ranged block bitwise the eager step from its start {starts}; device ms a step "
+          f"{ {n: round(v, 3) for n, v in per_step.items()} }, sum {sum(per_step.values()):.3f} of {wall_ms:.3f} "
+          f"ms of wall; steps/s (without the capture) off {rates['off'][1]:.3f}, on {rates['on'][1]:.3f}; on {card}",
+          flush=True)
 
 
 def busy_ms(events):
@@ -4157,6 +4251,10 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             phase_blocked(tmp, config, label, steps, card)
     tick("phase_blocked")
+    for config, label in ((PIXEL_CONFIG, "pixel"), (VQGAN_CONFIG, "vqgan")):
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_ranged_blocks(tmp, config, label, card)
+    tick("phase_ranged_blocks")
     with tempfile.TemporaryDirectory() as tmp:
         launches, main_steps = phase_main_path(tmp, card)
     tick("phase_main_path")

@@ -43,7 +43,9 @@ the per-step frames, the step video of the checkin frames
 (``--save_intermediates``) and ``--save_svg``'s vector export; with
 ``return_display`` it returns False every ``display_every`` steps, so a
 caller can stream partial results, and ``--profile_dir`` traces the run
-(``engine/profiling.py``).
+(``engine/profiling.py``).  The build, each block's dispatch and its
+parts, each eager step and each checkin are host spans of
+``engine/profiling.py``, and each block dispatch leaves a record there.
 
 ``--filters`` (``name:weight``, comma-separated) and ``--custom_loss``
 (``name:weight``, ``loss->arg->arg``) are built as the JAX engine builds
@@ -115,6 +117,7 @@ import torch
 from pixray_tpu_torch.config.precision import read_rungs
 from pixray_tpu_torch.drawers import drawer_class
 from pixray_tpu_torch.engine import cutouts as C
+from pixray_tpu_torch.engine import profiling as P
 from pixray_tpu_torch.engine.latent import leaves, ravel, tree_map
 from pixray_tpu_torch.engine.optimizers import build_optimizer
 from pixray_tpu_torch.engine.prompts import build_prompt_tables
@@ -180,6 +183,16 @@ class Engine:
     settings' (:meth:`_build_mesh`)."""
 
     def __init__(self, args, device="cuda", state_dicts=None, mesh=None):
+        self.serial = next(P.ENGINES)  # its block records carry it
+        self.phases_from = P.TIMER.since()  # --profile_dir reports the spans from here
+        with P.span("build"):
+            self._build(args, device, state_dicts, mesh)
+
+    def _build(self, args, device, state_dicts, mesh):
+        """The engine's build, timed as ``build``: the drawer and its model
+        (``build.drawer``), the towers (``build.towers``), the prompt tables
+        and text encoding (``build.prompts``), the step and its optimizer
+        (``build.step``)."""
         self.args = args
         self.mesh = self._build_mesh(args, device) if mesh is None else mesh
         if self.mesh is not None:
@@ -220,14 +233,16 @@ class Engine:
 
         # ---- drawer (a drawer with weights loads them before snapping)
         state_dicts = state_dicts or {}
-        self.drawer = drawer_class(args.drawer)(args)
-        load_model = getattr(self.drawer, "load_model", None)
-        if load_model is not None:
-            load_model(args, self.device, model_dtype, state_dicts.get(args.drawer))
-        self.side_x, self.side_y = self.drawer.snap_canvas(args.size)
+        with P.span("build.drawer"):
+            self.drawer = drawer_class(args.drawer)(args)
+            load_model = getattr(self.drawer, "load_model", None)
+            if load_model is not None:
+                load_model(args, self.device, model_dtype, state_dicts.get(args.drawer))
+            self.side_x, self.side_y = self.drawer.snap_canvas(args.size)
 
-        self.perceptors = [Perceptor(name, self.device, tower_dtype, state_dicts.get(name), self.rungs)
-                           for name in args.clip_models]
+        with P.span("build.towers"):
+            self.perceptors = [Perceptor(name, self.device, tower_dtype, state_dicts.get(name), self.rungs)
+                               for name in args.clip_models]
         ensemble = PE.ensemble_active(self.mesh, len(self.perceptors))
         if ensemble:
             print(f"Placing {len(self.perceptors)} perceptors on {self.mesh.shape[PM.MODEL_AXIS]} model-axis "
@@ -299,8 +314,9 @@ class Engine:
                     target_specs.append((f1, weight, stop))
                 else:
                     target_specs.extend((f, weight, stop) for f in real_glob(f1))
-        tables, spot_tables, spot_off_tables, target_tables, clip_embed = build_prompt_tables(
-            args, self.perceptors, self.device, target_image_paths=target_specs, drawer=self.drawer)
+        with P.span("build.prompts"):
+            tables, spot_tables, spot_off_tables, target_tables, clip_embed = build_prompt_tables(
+                args, self.perceptors, self.device, target_image_paths=target_specs, drawer=self.drawer)
         if clip_embed is not None and hasattr(self.drawer, "set_clip_embed"):
             self.drawer.set_clip_embed(clip_embed)
             self.drawer_params.update({k: v.to(self.device) for k, v in self.drawer.model_params.items()})
@@ -318,46 +334,47 @@ class Engine:
         # the vision tower's weights from here on (the tables are encoded)
         fsdp = [] if ensemble else [w for w in (PM.shard_perceptor_params(p.model.visual, self.mesh)
                                                 for p in self.perceptors) if w is not None]
-        self.step_cfg = StepConfig(
-            drawer=self.drawer,
-            drawer_params=self.drawer_params,
-            perceptors=[
-                PerceptorSpec(p.name, p.input_resolution, p.image_fn, tables[p.name],
-                              spot_table=spot_tables[p.name], spot_off_table=spot_off_tables[p.name],
-                              image_prompt_weight=args.image_prompt_weight, target_table=target_tables[p.name],
-                              image_prompt_frame=bool(args.animation_dir), affine_fn=p.preprocess_affine,
-                              **self._image_prompt_inputs(args, p))
-                for p in self.perceptors
-            ],
-            batches=args.batches,
-            transparent=args.transparent,
-            transparent_weight=args.transparent_weight,
-            init_weight=args.init_weight,
-            init_weight_dist=args.init_weight_dist,
-            init_weight_cos=args.init_weight_cos,
-            init_weight_pix=args.init_weight_pix,
-            image_label_weight=args.image_label_weight,
-            image_prompt_shuffle=args.image_prompt_shuffle,
-            z_orig_flat=self.z_orig_flat,
-            init_image=self.init_image_tensor,
-            z_labels=self.z_labels,
-            compute_dtype=self.compute_dtype,
-            warp_prec=self.rungs.warp,
-            warp_bwd=self.rungs.warp_bwd,
-            filters=self.filters,
-            custom_losses=self.custom_losses,
-            loss_globals=self.loss_globals,
-            loss_layouts=[getattr(loss_obj, "draw_layout", lambda h, w: [])(*self._loss_canvas())
-                          for loss_obj, _w in self.custom_losses],
-            args=args,
-            mesh=self.mesh,
-            ensemble=ensemble,
-            fsdp=fsdp,
-        )
-        self.loss_names = self.step_cfg.names
+        with P.span("build.step"):
+            self.step_cfg = StepConfig(
+                drawer=self.drawer,
+                drawer_params=self.drawer_params,
+                perceptors=[
+                    PerceptorSpec(p.name, p.input_resolution, p.image_fn, tables[p.name],
+                                  spot_table=spot_tables[p.name], spot_off_table=spot_off_tables[p.name],
+                                  image_prompt_weight=args.image_prompt_weight, target_table=target_tables[p.name],
+                                  image_prompt_frame=bool(args.animation_dir), affine_fn=p.preprocess_affine,
+                                  **self._image_prompt_inputs(args, p))
+                    for p in self.perceptors
+                ],
+                batches=args.batches,
+                transparent=args.transparent,
+                transparent_weight=args.transparent_weight,
+                init_weight=args.init_weight,
+                init_weight_dist=args.init_weight_dist,
+                init_weight_cos=args.init_weight_cos,
+                init_weight_pix=args.init_weight_pix,
+                image_label_weight=args.image_label_weight,
+                image_prompt_shuffle=args.image_prompt_shuffle,
+                z_orig_flat=self.z_orig_flat,
+                init_image=self.init_image_tensor,
+                z_labels=self.z_labels,
+                compute_dtype=self.compute_dtype,
+                warp_prec=self.rungs.warp,
+                warp_bwd=self.rungs.warp_bwd,
+                filters=self.filters,
+                custom_losses=self.custom_losses,
+                loss_globals=self.loss_globals,
+                loss_layouts=[getattr(loss_obj, "draw_layout", lambda h, w: [])(*self._loss_canvas())
+                              for loss_obj, _w in self.custom_losses],
+                args=args,
+                mesh=self.mesh,
+                ensemble=ensemble,
+                fsdp=fsdp,
+            )
+            self.loss_names = self.step_cfg.names
 
-        self.tracker = BestTracker(max_loss_drops=args.max_loss_drops)
-        self._build_optimizer()
+            self.tracker = BestTracker(max_loss_drops=args.max_loss_drops)
+            self._build_optimizer()
 
         self.cur_iteration = 0
         self.last_loss_values = None
@@ -590,20 +607,27 @@ class Engine:
         return bool(de and (it + 1) % de == 0)
 
     def _dispatch_block(self, cur_it: int, n: int) -> dict:
-        """Draw, stage and dispatch ``n`` steps from ``cur_it``; the losses stay pending."""
-        skip = self._skipped_losses(range(cur_it, cur_it + n))
-        blk = self.step_blocks.get((n, skip))
-        if blk is None:
-            blk = self.step_blocks[(n, skip)] = StepBlock(self.step_cfg, self.optimizer, n,
-                                                          bank_rows(self.step_cfg, self.args.num_cuts),
-                                                          self.device, skip)
-        self.step_block = blk
-        rows, ints = blk.staging_inputs()
-        for s in range(n):
-            pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, rows[s], ints[s],
-                      anim_index=self._anim_index())
-        blk.upload()
-        result = blk.run(self.z, self.opt_state, self.lr_scale)
+        """Draw, stage and dispatch ``n`` steps from ``cur_it``; the losses
+        stay pending.  Timed as ``block.dispatch``; its record goes into
+        ``profiling.BLOCKS``."""
+        with P.span("block.dispatch"):
+            skip = self._skipped_losses(range(cur_it, cur_it + n))
+            blk = self.step_blocks.get((n, skip))
+            if blk is None:
+                blk = self.step_blocks[(n, skip)] = StepBlock(self.step_cfg, self.optimizer, n,
+                                                              bank_rows(self.step_cfg, self.args.num_cuts),
+                                                              self.device, skip)
+            self.step_block = blk
+            blk.record = record = P.BlockRecord(self.serial, cur_it, n)
+            rows, ints = blk.staging_inputs()
+            with P.span("block.draw") as draw:
+                for s in range(n):
+                    pack_step(self.step_cfg, self.draw_step(planes_out=blk.plane_targets(s)), cur_it + s, rows[s],
+                              ints[s], anim_index=self._anim_index())
+            record.draw_s = draw.seconds
+            blk.upload()
+            result = blk.run(self.z, self.opt_state, self.lr_scale)
+        P.BLOCKS.append(record)
         self.steps_dispatched += n
         self.dispatched_blocks.append((cur_it, n))
         return {"start": cur_it, "n": n, "result": result, "totals": None, "valss": None}
@@ -679,11 +703,12 @@ class Engine:
             if buffered is not None:
                 total, values = buffered
             else:
-                batch_draws = self.draw_step() if draws is None else draws
-                inputs = draws_to_inputs(self.step_cfg, batch_draws, cur_it, self.device,
-                                         anim_index=self._anim_index(), skip=self._skipped_losses([cur_it]))
-                total, values, img = train_step(self.step_cfg, self.optimizer, self.z, self.opt_state,
-                                                self.lr_scale, inputs)
+                with P.span("step.eager"):
+                    batch_draws = self.draw_step() if draws is None else draws
+                    inputs = draws_to_inputs(self.step_cfg, batch_draws, cur_it, self.device,
+                                             anim_index=self._anim_index(), skip=self._skipped_losses([cur_it]))
+                    total, values, img = train_step(self.step_cfg, self.optimizer, self.z, self.opt_state,
+                                                    self.lr_scale, inputs)
                 self.steps_dispatched += 1
             self.last_loss_values = values
 
@@ -778,6 +803,12 @@ class Engine:
         return arr
 
     def checkin(self, it: int, values):
+        """Print the losses and write the canvas's PNG; timed as ``checkin``
+        (``checkin.render``: the canvas to the host, ``checkin.png``: its files)."""
+        with P.span("checkin"):
+            self._checkin(it, values)
+
+    def _checkin(self, it: int, values):
         args = self.args
         if values is not None:
             vals = values.float().cpu().numpy()
@@ -793,12 +824,14 @@ class Engine:
             writestr = f"{writestr} (-{stale}=>{self.tracker.best_loss:2.4g})"
             outfile = get_file_path(args.outdir, args.output, ".png")
         if self.writer:
-            arr = self.synth_array(it)
-            OUT.save_png(arr, outfile, OUT.png_text(args.given_args, self.seed_used))
-            if args.save_intermediates:
-                step_path = os.path.join(args.outdir, "steps")
-                os.makedirs(step_path, exist_ok=True)
-                OUT.save_png(arr, get_file_path(step_path, f"frame_{it:04d}", ".png"))
+            with P.span("checkin.render"):
+                arr = self.synth_array(it)
+            with P.span("checkin.png"):
+                OUT.save_png(arr, outfile, OUT.png_text(args.given_args, self.seed_used))
+                if args.save_intermediates:
+                    step_path = os.path.join(args.outdir, "steps")
+                    os.makedirs(step_path, exist_ok=True)
+                    OUT.save_png(arr, get_file_path(step_path, f"frame_{it:04d}", ".png"))
             if self.cur_anim_index is not None and self.cur_anim_index == len(self.anim_output_files) - 1:
                 OUT.make_gif(args.animation_dir)
         print(writestr)
@@ -808,17 +841,18 @@ class Engine:
         interrupted; then the videos and the SVG.  True when the run is
         complete; with ``return_display``, False every ``display_every``
         steps, to be called again for the rest (the caller streams partial
-        results).  ``--animation_dir`` runs the animation ring instead."""
-        from pixray_tpu_torch.engine.profiling import device_trace
-
+        results).  ``--animation_dir`` runs the animation ring instead.
+        ``--profile_dir`` traces the first call, with the layer ranges on
+        (``profiling.time_layers``), and reports the spans since the build."""
         args = self.args
         # a block must end at a display step when the caller streams them
         self._display_streaming = return_display
         if args.animation_dir is not None:
             return self._run_animation()
         profile_dir = args.profile_dir if self.cur_iteration == 0 else None
+        layers_were_on = P.time_layers(True) if profile_dir else None
         try:
-            with device_trace(profile_dir, self.device, "(start of run)"):
+            with P.device_trace(profile_dir, self.device, "(start of run)", since=self.phases_from):
                 keep_going = True
                 while keep_going:
                     keep_going = self.train(self.cur_iteration)
@@ -829,6 +863,9 @@ class Engine:
                         return False
         except KeyboardInterrupt:
             pass
+        finally:
+            if profile_dir:
+                P.time_layers(layers_were_on)
         if not self.writer:
             return True
         if args.make_video:

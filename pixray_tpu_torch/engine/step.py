@@ -39,6 +39,11 @@ alone.  One sum over
 the mesh of the gradient and the values ends the step, so every rank
 takes the same optimizer step on the same bits.  FSDP gathers the
 towers' weights around each batch's forward and backward.
+
+The step's layer calls (each tower's ``image_fn``, the drawer's
+``synth``, each cutout bank) go through ``profiling.ranged``: a capture
+made while the layer ranges are on times each on the device
+(``engine/profiling.py``); otherwise they are plain calls.
 """
 
 from __future__ import annotations
@@ -49,11 +54,11 @@ from typing import Any
 import contextlib
 import gc
 import threading
-import time
 
 import torch
 
 from pixray_tpu_torch.engine import cutouts as C
+from pixray_tpu_torch.engine import profiling as P
 from pixray_tpu_torch.engine.latent import leaves, ravel, tree_map, unflatten
 from pixray_tpu_torch.engine.optimizers import state_tensors
 from pixray_tpu_torch.engine.prompts import PromptTable, prompt_losses, single_prompt_loss
@@ -291,7 +296,7 @@ def loss_fn(cfg: StepConfig, z, inputs: dict):
 
     # the iteration as a () device tensor (the vdiff drawer picks its
     # schedule entry by it; the other drawers ignore it)
-    img = cfg.drawer.synth(cfg.drawer_params, z, inputs["iteration"])
+    img = P.ranged("decoder", cfg.drawer.synth, cfg.drawer_params, z, inputs["iteration"], at=1)
 
     for i, (filt, weight) in enumerate(cfg.filters):
         img, f_loss = filt(img, inputs["filters"][i])
@@ -408,9 +413,8 @@ def _render(cfg: StepConfig, spec: PerceptorSpec, pd: dict, img, inputs: dict) -
     def bank(src):
         k = next(banks)
         planes = None if pd["planes"] is None else [p[k * n:(k + 1) * n] for p in pd["planes"]]
-        return cuda_warp.cutout_bank(src, pd["params"][k * n:(k + 1) * n], spec.cut_size, planes,
-                                     cfg.compute_dtype, cfg.warp_prec,
-                                     bwd_prec(cfg.warp_prec, cfg.warp_bwd, spec.cut_size))
+        return P.ranged("bank", cuda_warp.cutout_bank, src, pd["params"][k * n:(k + 1) * n], spec.cut_size, planes,
+                        cfg.compute_dtype, cfg.warp_prec, bwd_prec(cfg.warp_prec, cfg.warp_bwd, spec.cut_size))
 
     work = C.pool_to_work(img, spec.cut_size)
     main = bank(work)
@@ -515,8 +519,9 @@ def _encode(cfg: StepConfig, spec: PerceptorSpec, bank):
     chunk, stretched by the whole bank's range (``adjust_range`` takes the
     bank's min and max)."""
     if cfg.mesh is None:
-        return spec.image_fn(bank)
-    return spec.image_fn(M.shard_cutout_batch(bank, cfg.mesh), affine=spec.affine_fn(bank))
+        return P.ranged(f"tower.{spec.name}", spec.image_fn, bank)
+    return P.ranged(f"tower.{spec.name}", spec.image_fn, M.shard_cutout_batch(bank, cfg.mesh),
+                    affine=spec.affine_fn(bank))
 
 
 def inputs_loss_and_grads(cfg: StepConfig, z, inputs: list[dict]):
@@ -588,14 +593,22 @@ def train_step(cfg: StepConfig, optimizer, z, opt_state, lr_scale, inputs: list[
 
 class BlockResult:
     """The losses of a block: totals (n,) and values (n, L), on the host
-    once ``done`` (a CUDA event, or None) has passed."""
+    once ``done`` (a CUDA event, or None) has passed.  ``record``: the
+    dispatch's :class:`~pixray_tpu_torch.engine.profiling.BlockRecord`,
+    which gets the wait and (``ranges``: the replayed graph's
+    :class:`~pixray_tpu_torch.engine.profiling.LayerRanges`, or None) the
+    device ms of each layer range, unless a later replay read them first."""
 
-    def __init__(self, totals, values, done=None):
-        self.totals, self.values, self.done = totals, values, done
+    def __init__(self, totals, values, record, done=None, ranges=None):
+        self.totals, self.values, self.record, self.done, self.ranges = totals, values, record, done, ranges
 
     def host(self):
-        if self.done is not None:
-            self.done.synchronize()
+        with P.span("block.loss_wait") as wait:
+            if self.done is not None:
+                self.done.synchronize()
+        self.record.loss_wait_s = wait.seconds
+        if self.ranges is not None:
+            self.ranges.read(self.record)
         return self.totals.clone(), self.values.clone()
 
 
@@ -622,7 +635,13 @@ class StepBlock:
     itself launches nothing).  Under a mesh over NCCL the graph holds every
     collective of its steps, and every rank captures and replays them in
     one order, as every rank dispatches the same blocks.  On the CPU a
-    block is ``n`` eager steps from the same inputs."""
+    block is ``n`` eager steps from the same inputs.
+
+    A block captured while the layer ranges are on (``profiling.time_layers``)
+    holds their events; each replay first reads the last one's, waiting for
+    it where its losses have not reached the host.  Each call's span seconds go
+    into ``record``, which ``Engine._dispatch_block`` sets anew for each
+    dispatch."""
 
     def __init__(self, cfg: StepConfig, optimizer, n: int, cut_counts: list[int], device, skip=frozenset()):
         self.cfg, self.optimizer, self.n, self.cut_counts = cfg, optimizer, n, cut_counts
@@ -639,10 +658,12 @@ class StepBlock:
                                    device=self.device)
                        for c, spec in zip(cut_counts, cfg.perceptors)]
         self.graph = None
+        self.ranges = None  # the graph's LayerRanges, when captured with the layer ranges on
         self.addresses = None
         self.launches = None
         self.capture_s = None
         self.totals = self.values = None
+        self.record = P.BlockRecord(None, None, n)
 
     def plane_targets(self, s: int):
         """Per batch, per perceptor: the three planes step ``s`` draws into."""
@@ -655,46 +676,59 @@ class StepBlock:
         """The next staging buffer, free to write, as (rows (n, batches, R,
         PARAM_STRIDE), int32 tails (n, T)) views."""
         self.turn ^= 1
-        if self.copied[self.turn] is not None:
-            self.copied[self.turn].synchronize()
+        with P.span("block.stage_wait") as wait:
+            if self.copied[self.turn] is not None:
+                self.copied[self.turn].synchronize()
+        self.record.stage_wait_s = wait.seconds
         return split_inputs(self.cfg, self.staging[self.turn], self.cut_counts)
 
     def upload(self):
         """Copy the staging buffer last handed out into the block's inputs."""
-        self.buf.copy_(self.staging[self.turn], non_blocking=True)
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            self.copied[self.turn] = event
+        with P.span("block.upload") as upload:
+            self.buf.copy_(self.staging[self.turn], non_blocking=True)
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
+                self.copied[self.turn] = event
+        self.record.upload_s = upload.seconds
 
     def run(self, z, opt_state, lr_scale) -> BlockResult:
         """The block's ``n`` steps from the uploaded inputs, in place on ``z``
         and ``opt_state``; the losses come back in a :class:`BlockResult`."""
         if self.device.type != "cuda":
-            out = [train_step(self.cfg, self.optimizer, z, opt_state, lr_scale, self.inputs(s))
-                   for s in range(self.n)]
-            return BlockResult(torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]))
+            with P.span("block.launch") as launch:
+                out = [train_step(self.cfg, self.optimizer, z, opt_state, lr_scale, self.inputs(s))
+                       for s in range(self.n)]
+            self.record.launch_s = launch.seconds
+            return BlockResult(torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out]), self.record)
         live = [t.data_ptr() for t in leaves(z) + state_tensors(opt_state) + [lr_scale]]
         if self.graph is None:
-            self._capture(z, opt_state, lr_scale)
+            with P.span("block.capture") as capture:
+                self._capture(z, opt_state, lr_scale)
+            self.capture_s = self.record.capture_s = capture.seconds
             self.addresses = live
         elif live != self.addresses:
             raise RuntimeError("the latent, the optimizer state or the LR scale is not the one the "
                                "block's CUDA graph was captured on")
-        self.graph.replay()
-        for counter, recorded in zip(LAUNCH_COUNTERS, self.launches):
-            for name, count in recorded.items():
-                counter[name] += count
-        totals = torch.empty(self.totals.shape, dtype=self.totals.dtype, pin_memory=True)
-        values = torch.empty(self.values.shape, dtype=self.values.dtype, pin_memory=True)
-        totals.copy_(self.totals, non_blocking=True)
-        values.copy_(self.values, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(self.device))
-        return BlockResult(totals, values, done)
+        with P.span("block.launch") as launch:
+            if self.ranges is not None:
+                self.ranges.read()  # the last replay's events, before this one records them again
+            self.graph.replay()
+            for counter, recorded in zip(LAUNCH_COUNTERS, self.launches):
+                for name, count in recorded.items():
+                    counter[name] += count
+            totals = torch.empty(self.totals.shape, dtype=self.totals.dtype, pin_memory=True)
+            values = torch.empty(self.values.shape, dtype=self.values.dtype, pin_memory=True)
+            totals.copy_(self.totals, non_blocking=True)
+            values.copy_(self.values, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        self.record.launch_s = launch.seconds
+        if self.ranges is not None:
+            self.ranges.replayed(self.record, done)
+        return BlockResult(totals, values, self.record, done, self.ranges)
 
     def _capture(self, z, opt_state, lr_scale):
-        t0 = time.perf_counter()
         cfg, opt = self.cfg, self.optimizer
         main = torch.cuda.current_stream(self.device)
         side = _WARMUP_STREAMS.get(self.device)
@@ -715,6 +749,7 @@ class StepBlock:
         main.wait_stream(side)
         self.totals = torch.zeros((self.n,), dtype=total.dtype, device=self.device)
         self.values = torch.zeros((self.n, values.numel()), dtype=values.dtype, device=self.device)
+        ranges = P.LayerRanges() if P.layers_on() else None
         # the graph is kept beside its executable, so that debug_dump can
         # print it (chip_smoke.py counts the collectives of a block from it)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
@@ -730,7 +765,7 @@ class StepBlock:
             gc_was_enabled = gc.isenabled()
             gc.disable()
             try:
-                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                with P.recording(ranges), torch.cuda.graph(graph, capture_error_mode="thread_local"):
                     for s in range(self.n):
                         total, values, _ = train_step(cfg, opt, z, opt_state, lr_scale, self.inputs(s))
                         self.totals[s].copy_(total)
@@ -746,4 +781,4 @@ class StepBlock:
                     counter.update(b)  # recorded into the graph, not launched
         graph.instantiate()
         self.graph = graph
-        self.capture_s = time.perf_counter() - t0
+        self.ranges = None if ranges is None else ranges.finish()

@@ -220,7 +220,8 @@ def test_optimizer_checkpoint_trace_and_resume_without_jax(tmp_path):
     first, stdout = _run_blocked(tmp_path / "a", dict(drawer="pixel", optimiser="AdamP", iterations=4,
                                                       checkpoint_every=2, display_every=2,
                                                       profile_dir=str(tmp_path / "prof")), stream=True)
-    assert os.listdir(tmp_path / "prof") == ["trace.json"] and "wrote torch profiler trace" in stdout
+    assert sorted(os.listdir(tmp_path / "prof")) == ["phases.txt", "trace.json"]
+    assert "wrote torch profiler trace" in stdout
     ckpt = os.path.join(first, "session.ckpt")
     _, stdout = _run_blocked(tmp_path / "b", dict(drawer="pixel", optimiser="AdamP", iterations=4, resume_from=ckpt))
     assert "Resumed session from" in stdout and "at iteration 3" in stdout

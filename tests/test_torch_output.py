@@ -13,9 +13,10 @@ One run of each engine (pixel, TinyTest, 6 steps) with ``--make_video``,
 per-step frames ``video/frame_0000-0005.png`` and the video of frames 1-5
 (``output.gif`` here) as the JAX engine writes them.  The port's
 ``--profile_dir`` trace (a Chrome trace, ``trace.json``, of the run's
-ops) is written by the first call only, as the JAX engine traces only a
-run that starts at step 0 (the JAX engine runs without one here: tracing
-its compile takes ~45 s on the CPU).  ``PhaseTimer`` as the JAX
+ops, and the spans' report, ``phases.txt``) is written by the first call
+only, as the JAX engine traces only a run that starts at step 0 (the JAX
+engine runs without one here: tracing its compile takes ~45 s on the
+CPU).  ``PhaseTimer`` as the JAX
 package's.
 """
 
@@ -35,7 +36,7 @@ from pixray_tpu.engine.profiling import PhaseTimer as JPhaseTimer
 from pixray_tpu.io import output as j_output
 from pixray_tpu_torch.config import apply_settings
 from pixray_tpu_torch.engine.core import Engine
-from pixray_tpu_torch.engine.profiling import TRACE_FILE, PhaseTimer
+from pixray_tpu_torch.engine.profiling import PHASES_FILE, TRACE_FILE, PhaseTimer
 from pixray_tpu_torch.io import output as OUT
 from torch_parity import jax_perceptor_cache  # noqa: F401
 
@@ -137,7 +138,7 @@ def test_video_trace_and_streaming_match_jax(tmp_path, capsys, no_encoders):
     assert runs["port"][2].count("wrote torch profiler trace") == 1  # the first call only
     with Image.open(tmp_path / "jax" / "output.gif") as a, Image.open(tmp_path / "port" / "output.gif") as b:
         assert (b.n_frames, b.info["duration"]) == (a.n_frames, a.info["duration"]) == (5, 100)
-    assert os.listdir(tmp_path / "port" / "prof") == [TRACE_FILE]
+    assert sorted(os.listdir(tmp_path / "port" / "prof")) == sorted([PHASES_FILE, TRACE_FILE])
     with open(tmp_path / "port" / "prof" / TRACE_FILE) as f:
         events = json.load(f)["traceEvents"]
     assert any(str(e.get("name", "")).startswith("aten::") for e in events)
