@@ -7,7 +7,7 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. device: CUDA must be available; prints the card's name and power limit;
 2. build: compiles the CUDA sources of pixray_tpu_torch/csrc (warp.cu and
-   strokes.cu, one nvcc each, in parallel);
+   strokes.cu and attention.cu, one nvcc each, in parallel);
 3. warp kernels (K1, K2) in their bare-warp configuration (f32, no
    jitter, no noise) vs the plain gather on the card, forward (bitwise) and
    backward, at the 45 perspective cuts of a 64-cut bank (224x224x3 canvas,
@@ -239,6 +239,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    the captured block (counted in the graph's own dump); ms per step of
    the three, the captures' seconds and peak memory.
 
+36. attention kernels (csrc/attention.cu): attn_fwd and attn_bwd against
+   their plain version on the card at ViT-B/32's and ViT-B/16's 64 x 50
+   and 64 x 197 tokens (12 heads), a text tower's 77 causal (8 heads) and
+   ViT-L/14@336's 577 (16 heads): O, dq, dk, dv within ATTN_ULPS bf16 ulps
+   of the plain version's largest element, the LSE within ATTN_LSE_TOL,
+   two backward runs bitwise; kernel times beside their bounds (bytes at
+   3.35 TB/s), the plain version's and F.scaled_dot_product_attention's
+   (library_ms, a yardstick the port never calls); an 8-step CUDA graph of
+   attention steps replayed against the same steps eager, bitwise; the
+   pixel and vqgan rows' launches, 12 attn_fwd and 12 attn_bwd per ViT
+   tower per step.
+
 The product's tiler recipes (cogs/tiler_*.yaml) run with their quality's
 towers (RN50, ViT-B/32, ViT-B/16) between 11 and 12.
 
@@ -345,6 +357,14 @@ BLOCKED_STEPS = 16  # after step 0; vqgan 8
 RANGED_STEPS = 24  # after step 0: three blocks of 8
 PROFILER_PAUSE_S = 0.03  # host idle on both sides of each traced call (profiled_events)
 STROKE_FWD_ATOL = 1e-4  # the JAX fused-vs-XLA forward tolerance (tests/test_pallas_strokes.py:38)
+# the attention kernels against their plain version (36): (batch, tokens, heads, causal): ViT-B/32 and ViT-B/16
+# at 64 cuts, a text tower, ViT-L/14@336
+ATTN_CASES = ((64, 50, 12, False), (64, 197, 12, False), (64, 77, 8, True), (64, 577, 16, False))
+# P, dS and the outputs round to bf16 where the plain version rounds; the f32 sums' order and __expf part the
+# two by an ulp where a rounding flips, so each output is held to ATTN_ULPS bf16 ulps of its largest element
+ATTN_ULPS = 2
+ATTN_LSE_TOL = 1e-4  # the LSE, f32 (|LSE| < ~12 here): sums in another order, __expf and logf
+TENSOR_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 
 
 def write_images(tmp):
@@ -395,7 +415,7 @@ def card_line() -> str:
 
 def build_all():
     """One nvcc per CUDA source, started together; returns seconds per library."""
-    from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+    from pixray_tpu_torch.ops import attention, cuda_strokes, cuda_warp
 
     times, errors = {}, {}
 
@@ -407,7 +427,7 @@ def build_all():
             errors[mod.LIBRARY] = exc
         times[mod.LIBRARY] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=one, args=(m,)) for m in (cuda_warp, cuda_strokes)]
+    threads = [threading.Thread(target=one, args=(m,)) for m in (cuda_warp, cuda_strokes, attention)]
     for t in threads:
         t.start()
     for t in threads:
@@ -1377,7 +1397,7 @@ def drive_path(config, tmp, steps, warmup, before=None, on_engine=None, state_di
 
     from pixray_tpu_torch.config import apply_settings
     from pixray_tpu_torch.engine.core import Engine
-    from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+    from pixray_tpu_torch.ops import attention, cuda_strokes, cuda_warp
 
     settings = apply_settings(dict(config, outdir=tmp), apply_side_effects=False)
     t0 = time.perf_counter()
@@ -1391,6 +1411,7 @@ def drive_path(config, tmp, steps, warmup, before=None, on_engine=None, state_di
 
     cuda_warp.reset_launch_counts()
     cuda_strokes.reset_launch_counts()
+    attention.reset_launch_counts()
     losses = []
     for it in range(steps):
         if it == warmup:
@@ -1401,7 +1422,7 @@ def drive_path(config, tmp, steps, warmup, before=None, on_engine=None, state_di
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     timed = dispatched(steps) - first
-    launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES}
+    launches = {**cuda_warp.LAUNCHES, **cuda_strokes.LAUNCHES, **attention.LAUNCHES}
     if not all(math.isfinite(v) for v in losses):
         fail(f"non-finite losses: {losses}")
     return engine, losses, launches, init_s, elapsed, timed
@@ -1460,7 +1481,8 @@ def phase_main_path(tmp, card):
     ran = steps_run(engine, steps)
     first5, last5 = check_descent("pixel", losses)
     check_launches("pixel", launches, {"warp_fwd": ran, "warp_bwd": ran, "strokes_fwd": 0,
-                                       "strokes_fwd_store": 0, "strokes_bwd": 0})
+                                       "strokes_fwd_store": 0, "strokes_bwd": 0,
+                                       "attn_fwd": 12 * ran, "attn_bwd": 12 * ran})
     png = os.path.join(tmp, "output.png")
     check_png("pixel", png)
     rate = timed / elapsed
@@ -1768,7 +1790,8 @@ def phase_vqgan_path(tmp, card):
     capture_s = check_blocked("vqgan", engine, PATH_BLOCKS)
     ran = steps_run(engine, steps)
     check_launches("vqgan", launches, {"warp_fwd": 2 * ran, "warp_bwd": 2 * ran, "strokes_fwd": 0,
-                                       "strokes_fwd_store": 0, "strokes_bwd": 0})
+                                       "strokes_fwd_store": 0, "strokes_bwd": 0,
+                                       "attn_fwd": 24 * ran, "attn_bwd": 24 * ran})
     drawer = engine.drawer
     quantize = drawer.model.quantize
     z = engine.z.reshape(-1, quantize.codebook.shape[1])
@@ -4154,6 +4177,129 @@ def phase_parallel_blocks(card):
     return {label: (total, n + 1)}
 
 
+def attention_case(b, t, heads, causal, gen):
+    """One shape of 36: the kernels against their plain version on the card,
+    with their times, the plain version's and the library's."""
+    import torch
+    import torch.nn.functional as F
+
+    from pixray_tpu_torch.ops import attention as A
+
+    hd = 64
+    d = heads * hd
+    qkv = torch.randn((b, t, 3 * d), generator=gen, device="cuda").to(torch.bfloat16)
+    dout = torch.randn((b, t, d), generator=gen, device="cuda").to(torch.bfloat16)
+    out, lse = A.launch_fwd(qkv, heads, causal)
+    out2, lse2 = A.launch_fwd(qkv, heads, causal)
+    plain_out, plain_lse = A.attention_fwd_plain(qkv, heads, causal)
+    dqkv = A.launch_bwd(qkv, out, lse, dout, heads, causal)
+    dqkv2 = A.launch_bwd(qkv, out, lse, dout, heads, causal)
+    plain_dqkv = A.attention_bwd_plain(qkv, out, lse, dout, heads, causal)
+    torch.cuda.synchronize()
+
+    def ulps(got, want):
+        """max |got - want| in bf16 ulps of want's largest element"""
+        top = float(want.float().abs().max())
+        return float((got.float() - want.float()).abs().max()) / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+    errs = {"o": ulps(out, plain_out)}
+    for k, name in enumerate(("dq", "dk", "dv")):
+        errs[name] = ulps(dqkv[..., k * d:(k + 1) * d], plain_dqkv[..., k * d:(k + 1) * d])
+    lse_err = float((lse - plain_lse).abs().max())
+    bitwise = torch.equal(out, out2) and torch.equal(lse, lse2) and torch.equal(dqkv, dqkv2)
+    label = f"attention {b} x {t} tokens, {heads} heads{', causal' if causal else ''}"
+    if not (max(errs.values()) <= ATTN_ULPS and lse_err <= ATTN_LSE_TOL and bitwise):
+        fail(f"{label}: kernel against plain, bf16 ulps of the largest element {errs} (tol {ATTN_ULPS}), "
+             f"LSE {lse_err:.3g} (tol {ATTN_LSE_TOL}); two runs bitwise {bitwise}")
+    # the library's fused attention on (B, H, T, hd) views of the same buffer, a yardstick only
+    leaf = qkv.detach().requires_grad_()
+    views = [z.view(b, t, heads, hd).transpose(1, 2) for z in leaf.split(d, dim=-1)]
+    lib_fwd = lambda: F.scaled_dot_product_attention(*views, is_causal=causal)
+    lib_out, lib_dout = lib_fwd(), dout.view(b, t, heads, hd).transpose(1, 2)
+    tokens, pairs = b * t, b * heads * t * t * hd
+    fwd_bound = bound_tensor(tokens * 4 * d * 2 + b * heads * t * 4, 2 * 2 * pairs)
+    bwd_bound = bound_tensor(tokens * 8 * d * 2 + b * heads * t * 4, 4 * 2 * pairs)
+    fwd = lambda: A.launch_fwd(qkv, heads, causal)
+    bwd = lambda: A.launch_bwd(qkv, out, lse, dout, heads, causal)
+    lib_bwd = lambda: torch.autograd.grad(lib_out, leaf, lib_dout, retain_graph=True)
+    # device ms (torch.profiler: the kernel, or every kernel of a plain or library call), CUDA events in brackets
+    r = {"case": label, "errs": errs, "lse_err": lse_err,
+         "fwd_ms": device_ms(fwd, name=A.KERNEL_NAMES["attn_fwd"]), "fwd_ev_ms": median_ms(fwd),
+         "bwd_ms": device_ms(bwd, name=A.KERNEL_NAMES["attn_bwd"]), "bwd_ev_ms": median_ms(bwd),
+         "fwd_plain_ms": device_ms(lambda: A.attention_fwd_plain(qkv, heads, causal)),
+         "bwd_plain_ms": device_ms(lambda: A.attention_bwd_plain(qkv, out, lse, dout, heads, causal)),
+         "fwd_lib_ms": device_ms(lib_fwd), "bwd_lib_ms": device_ms(lib_bwd),
+         "fwd_bound": fwd_bound, "bwd_bound": bwd_bound}
+    print(f"{label}: kernel against plain within {max(errs.values()):.2f} bf16 ulps of the largest element "
+          f"({', '.join(f'{k} {v:.2f}' for k, v in errs.items())}), LSE {lse_err:.2g}; two runs bitwise; "
+          f"attn_fwd {r['fwd_ms']:.4f} ({r['fwd_ev_ms']:.4f}) ms, bound {fwd_bound[0]:.4f} ({fwd_bound[1]}); "
+          f"attn_bwd {r['bwd_ms']:.4f} ({r['bwd_ev_ms']:.4f}) ms, bound {bwd_bound[0]:.4f} ({bwd_bound[1]}); "
+          f"plain {r['fwd_plain_ms']:.4f} / {r['bwd_plain_ms']:.4f}; "
+          f"library_ms {r['fwd_lib_ms']:.4f} / {r['bwd_lib_ms']:.4f}", flush=True)
+    return r
+
+
+def bound_tensor(nbytes, flops):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM
+    rate and the bf16 tensor-core operations over their peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TENSOR_FLOPS
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def attention_graph_check(gen):
+    """8 attention steps (x <- x - 0.01 dx, ViT-B/16's shape) captured into a
+    CUDA graph and replayed, against the same steps eager: bitwise."""
+    import torch
+
+    from pixray_tpu_torch.ops import attention as A
+
+    b, t, heads = 64, 197, 12
+    x0 = torch.randn((b, t, 3 * heads * 64), generator=gen, device="cuda").to(torch.bfloat16)
+    dout = torch.randn((b, t, heads * 64), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def steps(x):
+        for _ in range(8):
+            leaf = x.detach().requires_grad_()
+            (g,) = torch.autograd.grad(A.attention(leaf, heads), leaf, dout)
+            x = x - 0.01 * g
+        return x
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        steps(x0.clone())
+    torch.cuda.current_stream().wait_stream(side)
+    static = x0.clone()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(A.LAUNCHES)
+    with torch.cuda.graph(graph):
+        final = steps(static)
+    captured = {k: A.LAUNCHES[k] - before[k] for k in before}
+    static.copy_(x0)
+    graph.replay()
+    eager = steps(x0.clone())
+    torch.cuda.synchronize()
+    same = torch.equal(final, eager)
+    moved = not torch.equal(final, x0)
+    if not (same and moved and captured == {"attn_fwd": 8, "attn_bwd": 8}):
+        fail(f"attention in a CUDA graph: 8 steps replayed bitwise the eager ones {same}, moved {moved}, "
+             f"launches captured {captured}")
+    print(f"attention in a CUDA graph: 8 steps ({b} x {t} tokens, {heads} heads) replayed bitwise the eager ones; "
+          f"captured {captured}", flush=True)
+
+
+def phase_attention(card):
+    """36: the attention kernels on the card."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(36)
+    cases = [attention_case(b, t, heads, causal, gen) for b, t, heads, causal in ATTN_CASES]
+    attention_graph_check(gen)
+    print(f"attention kernels on {card}", flush=True)
+    return cases
+
+
 def memo_random_inits():
     """Draw each random tower and VQGAN once per process: wrap the
     ``init_random_`` that the port's perceptors and VQGAN drawer call with a
@@ -4226,6 +4372,8 @@ def main():
     tick("phase_stroke_kernels")
     sizes = phase_bank_sizes(bank[0])
     tick("phase_bank_sizes")
+    attn = phase_attention(card)
+    tick("phase_attention")
     with tempfile.TemporaryDirectory() as tmp:
         phase_agreement(tmp, PIXEL_CONFIG, "pixel")
     tick("phase_agreement")
@@ -4437,6 +4585,20 @@ def main():
                         "launches": stroke_launches[counter], "max_abs_err": max(r[err] for r in strokes),
                         "ms": sf[key + "_ms"], "plain_ms": sf[plain], "bound_ms": sf["bounds"][key][0],
                         "bound_by": sf["bounds"][key][1], "library_ms": None})
+    from pixray_tpu_torch.ops import attention
+
+    attn_src = "pixray_tpu_torch/csrc/attention.cu"
+    for counter, side in (("attn_fwd", "fwd"), ("attn_bwd", "bwd")):
+        by_case = {r["case"]: {"ms": r[f"{side}_ms"], "bound_ms": r[f"{side}_bound"][0],
+                               "plain_ms": r[f"{side}_plain_ms"], "library_ms": r[f"{side}_lib_ms"]} for r in attn}
+        main = attn[1]  # ViT-B/16 at 64 cuts
+        kernels.append({"name": attention.KERNEL_NAMES[counter], "route": "cuda", "source": attn_src,
+                        "replaces": "none (jax.nn.dot_product_attention, pixray_tpu/models/clip/model.py)",
+                        "launches": launches[counter], "launches_by_row": {"pixel": launches[counter]},
+                        "max_abs_err_ulps": max(max(r["errs"].values()) for r in attn),
+                        "ms": main[f"{side}_ms"], "plain_ms": main[f"{side}_plain_ms"],
+                        "bound_ms": main[f"{side}_bound"][0], "bound_by": main[f"{side}_bound"][1],
+                        "library_ms": main[f"{side}_lib_ms"], "by_case": by_case})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

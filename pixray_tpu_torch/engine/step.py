@@ -62,7 +62,7 @@ from pixray_tpu_torch.engine import profiling as P
 from pixray_tpu_torch.engine.latent import leaves, ravel, tree_map, unflatten
 from pixray_tpu_torch.engine.optimizers import state_tensors
 from pixray_tpu_torch.engine.prompts import PromptTable, prompt_losses, single_prompt_loss
-from pixray_tpu_torch.ops import cuda_strokes, cuda_warp
+from pixray_tpu_torch.ops import attention, cuda_strokes, cuda_warp
 from pixray_tpu_torch.ops.cuda_warp import PARAM_STRIDE, unpack_params
 from pixray_tpu_torch.ops.grad import spherical_dist_loss
 from pixray_tpu_torch.ops.warp_batch import bwd_prec
@@ -137,7 +137,7 @@ class StepConfig:
 
 
 # the kernels' launch counters, which a replay advances by what its capture recorded
-LAUNCH_COUNTERS = (cuda_warp.LAUNCHES, cuda_strokes.LAUNCHES)
+LAUNCH_COUNTERS = (cuda_warp.LAUNCHES, cuda_strokes.LAUNCHES, attention.LAUNCHES)
 _CAPTURE_LOCK = threading.Lock()
 # one warm-up stream per device, as torch.cuda.graph keeps one capture
 # stream: cuBLAS caches a workspace (32 MiB on Hopper) for every (handle,

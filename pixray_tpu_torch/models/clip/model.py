@@ -12,8 +12,11 @@ renaming of a SLIP file).
 
 Numerics follow the JAX tower's rungs.  By default every matmul and
 convolution runs in the module's parameter dtype (bf16 on the card under
-``--precision bf16``, float32 in most CPU tests), and attention is plain
-matmul + softmax with float32 scores.  A ViT vision tower in bf16 can run
+``--precision bf16``, float32 in most CPU tests).  Attention in a bf16
+tower is ``ops/attention.py``'s fused kernel (on the card; its plain
+version on the CPU): float32 scores and softmax, the probabilities rounded
+to bf16 only as PV's operand; the float32 rung keeps plain matmul +
+softmax.  A ViT vision tower in bf16 can run
 its four dense kernels per block and its patch embedding on the int8 rungs
 of ``ops/quant.py`` (:meth:`VisionTransformer.set_quant`, the JAX
 ``QuantDense``): ``int8`` (int8 forward, bf16 dx) or ``int8b`` (int8 dx
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from pixray_tpu_torch.ops.attention import attention
 from pixray_tpu_torch.ops.quant import int8_matmul, int8_matmul_pre
 
 from .configs import CLIPConfig
@@ -100,15 +104,18 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, x, causal: bool = False):
         b, t, d = x.shape
-        hd = d // self.heads
         qkv = dense(x, self.in_proj_weight, self.in_proj_bias, self.quant, self.pre.get("in_proj_weight"))
-        q, k, v = (z.reshape(b, t, self.heads, hd).transpose(1, 2) for z in qkv.chunk(3, dim=-1))
-        scores = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
-        if causal:
-            mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
-            scores = scores.masked_fill(~mask, float("-inf"))
-        probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, d)
+        if x.dtype == torch.bfloat16:
+            out = attention(qkv, self.heads, causal)
+        else:
+            hd = d // self.heads
+            q, k, v = (z.reshape(b, t, self.heads, hd).transpose(1, 2) for z in qkv.chunk(3, dim=-1))
+            scores = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
+            if causal:
+                mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+                scores = scores.masked_fill(~mask, float("-inf"))
+            probs = torch.softmax(scores, dim=-1).to(q.dtype)
+            out = torch.matmul(probs, v).transpose(1, 2).reshape(b, t, d)
         return dense(out, self.out_proj.weight, self.out_proj.bias, self.quant, self.pre.get("out_proj.weight"))
 
 
