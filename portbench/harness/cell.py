@@ -2,10 +2,11 @@
 
 Everything is found by name: the cell's entry in ``BENCHMARK.json``, its
 configuration ``configs/<config>.json``, its traffic mix
-``traffic/<traffic>.json``, its limits ``workloads/<cell>.json``, each
-metric's reader ``metrics/<metric>.py`` and each layer a reader marks
-``layers/<layer>.json``.  A later cell or metric is new files and new
-entries; no code here names one.
+``traffic/<traffic>.json``, its limits and start ``workloads/<cell>.json``, each
+metric's reader ``metrics/<metric>.py``, each layer a reader marks
+``layers/<layer>.json`` and, for a cell that starts from the program's
+latent, its drawer's ``starts/<drawer>.json``.  A later cell or metric is
+new files and new entries; no code here names one.
 """
 
 from __future__ import annotations
@@ -72,11 +73,13 @@ def program_settings(cell: Cell, seed: int, outdir: str) -> dict:
 
 def reference_settings(cell: Cell) -> dict:
     """What the plain reference reads of a cell: the program settings that
-    shape the step, each tower's sizes and the drawer's model sizes."""
+    shape the step, each tower's sizes, the drawer's model sizes, the
+    vector prompts' names (as the program splits them), and where the
+    checkout and the benchmark folder are (the vector files, the tower
+    kinds)."""
     prog = dict(cell.config["program"], **cell.traffic["program"])
     prompts = prog.get("prompts", "")
-    if prog.get("vector_prompts", "none") != "none":
-        raise NotImplementedError("the reference has no vector prompts")
+    vectors = prog.get("vector_prompts") or "none"
     return {
         "drawer": prog["drawer"],
         "size": prog["size"],
@@ -84,11 +87,29 @@ def reference_settings(cell: Cell) -> dict:
         "learning_rate": prog["learning_rate"],
         "init_noise": prog.get("init_noise"),
         "prompts": [p.strip() for p in prompts.split("|") if p.strip()],
+        "vector_prompts": [] if vectors.lower() in ("none", "0") else [p.strip() for p in vectors.split("|")],
         "clip_models": [m.strip() for m in prog["clip_models"].split(",")],
         "num_cuts": prog["num_cuts"],
         "towers": cell.config["towers"],
         "vqgan_dims": cell.config.get("vqgan"),
+        "root": cell.root,
+        "bench_dir": cell.bench_dir,
     }
+
+
+def start(cell: Cell) -> str:
+    """Where the reference starts: ``"seed"`` (the drawer's initial latent
+    drawn again from the seed) or ``"program"`` (the program's initial
+    latent, its init checked by itself): ``workloads/<cell>.json``'s ``start``."""
+    return cell.limits.get("start", "seed")
+
+
+def start_spec(cell: Cell) -> dict:
+    """The drawer's encoding of an init image, for a cell that starts from
+    the program's latent: ``starts/<drawer>.json``, the program function
+    (``module:attr``) and the index of its tensor argument, the encoding
+    before quantization."""
+    return _json(cell.bench_dir, "starts", f"{cell.config['program']['drawer']}.json")
 
 
 def reader(metric: str, bench_dir: str = BENCH_DIR):

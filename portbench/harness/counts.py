@@ -34,20 +34,13 @@ PARAM_ROW_BYTES = 16 * 4  # one cut's float32 parameter row
 BANK_ELEMENT_BYTES = 2  # bf16 bank, noise and pre-jitter planes
 
 
-def vit_image_flops(d: dict) -> dict:
-    """One image through a ViT: {"linear": the patch embedding, the blocks'
-    dense layers and the projection, "attention": the score and value
-    products}."""
-    w, p, res = d["vision_width"], d["vision_patch_size"], d["image_resolution"]
-    grid = (res // p) ** 2
-    t = grid + 1
-    linear = 2 * grid * 3 * p * p * w + d["vision_layers"] * 24 * t * w * w + 2 * w * d["embed_dim"]
-    attention = d["vision_layers"] * 4 * t * t * w
-    return {"linear": linear, "attention": attention}
+def tower_step_flops(d: dict, cuts: int, bench_dir: str | None = None) -> float:
+    """A tower's step over ``cuts`` cuts: each image's forward and input
+    gradient, its FLOPs as its kind counts them (``image_flops`` of
+    ``reference/towers/<kind>.py``)."""
+    from portbench.reference import towers
 
-
-def tower_step_flops(d: dict, cuts: int) -> float:
-    f = vit_image_flops(d)
+    f = towers.module(towers.kind_of(d), bench_dir).image_flops(d)
     return cuts * (2 * f["linear"] + 3 * f["attention"])
 
 
@@ -122,5 +115,6 @@ def step_flops(settings: dict) -> float:
     import importlib
 
     drawer = importlib.import_module(f"portbench.reference.drawers.{settings['drawer']}")
-    towers = sum(tower_step_flops(settings["towers"][name], settings["num_cuts"]) for name in settings["clip_models"])
+    towers = sum(tower_step_flops(settings["towers"][name], settings["num_cuts"], settings.get("bench_dir"))
+                 for name in settings["clip_models"])
     return towers + drawer.synth_flops(settings)

@@ -9,7 +9,11 @@ replayed) and as many more steps as the cell's traffic names, so that every
 shape and path the window runs has run once.  Those first steps are what
 the reference follows: each step's loss, the first gradient (from Adam's
 first moment after step 0) and the latent after the first block, the
-first state that the blocked path leaves readable after step 0.
+first state that the blocked path leaves readable after step 0.  Where the
+reference starts from the program's latent (``"start": "program"``), the
+build also keeps the program's init image and its drawer's encoding of it
+before quantization (``starts/<drawer>.json`` names the function whose
+tensor argument that is), for the reference to check the init by itself.
 
 The window then calls ``Engine.train`` step after step, reading each
 step's loss on the host, for ``seconds`` of host clock; it counts the steps
@@ -27,6 +31,7 @@ from dataclasses import dataclass, field
 import torch
 
 from portbench.harness import cell as C
+from portbench.harness import spans as S
 from portbench.harness import trace as T
 from portbench.harness import weights as W
 
@@ -43,6 +48,8 @@ class ProgramRun:
     z0: torch.Tensor | None = None
     z_block: torch.Tensor | None = None  # the latent after the first block
     z1: torch.Tensor | None = None  # the latent after step 0
+    init_image: torch.Tensor | None = None  # the init image the drawer encoded, (H, W, 3) in [-1, 1]
+    init_pre: torch.Tensor | None = None  # its encoding before quantization, as the drawer's model made it
     image1: torch.Tensor | None = None  # step 0's checkin render of z1, (H, W, 3) float32
     followed_steps: int = 0  # steps up to the end of the first block
     dispatch_s: float = 0.0  # host seconds inside the block dispatches of the window
@@ -61,9 +68,39 @@ def _finite_loss(engine) -> float:
     return float(engine.last_loss_values.float().sum())
 
 
-def build(cell: C.Cell, seed: int, device, outdir: str, layer_log=None):
+def _keep_init(cell: C.Cell, kept: dict) -> list:
+    """Wrap the engine's init image (``Engine._init_tensor``) and the
+    drawer's encoding function (``starts/<drawer>.json``) to keep the
+    image and the encoding's first tensor argument; returns the undo list."""
+    from pixray_tpu_torch.engine.core import Engine
+
+    spec = C.start_spec(cell)
+    init_tensor = Engine._init_tensor
+
+    def kept_init_tensor(self, args):
+        image = init_tensor(self, args)
+        if image is not None and "image" not in kept:
+            kept["image"] = image.detach().clone()
+        return image
+
+    owner, name = T.resolve(spec["target"])
+    encoding, arg = getattr(owner, name), int(spec["tensor_arg"])
+
+    def kept_encoding(*args, **kwargs):
+        if "pre" not in kept:
+            kept["pre"] = args[arg].detach().float().clone()
+        return encoding(*args, **kwargs)
+
+    Engine._init_tensor = kept_init_tensor
+    setattr(owner, name, kept_encoding)
+    return [(Engine, "_init_tensor", init_tensor), (owner, name, encoding)]
+
+
+def build(cell: C.Cell, seed: int, device, outdir: str, layer_log=None, kept: dict | None = None):
     """The engine of a cell on ``device`` with the seed's weights; with
-    ``layer_log`` the markers of the layers its readers read are installed first."""
+    ``layer_log`` the markers of the layers its readers read are installed
+    first; with ``kept`` (a dict) the init image and its encoding are kept
+    into it."""
     from pixray_tpu_torch.config import apply_settings
     from pixray_tpu_torch.engine.core import Engine
 
@@ -73,7 +110,11 @@ def build(cell: C.Cell, seed: int, device, outdir: str, layer_log=None):
     if layer_log is not None:
         marked = C.layers(cell.marked_layers(), cell.bench_dir)
         undo = T.install(marked, layer_log) + T.install_block_replays(layer_log)
-    engine = Engine(settings, device=str(device), state_dicts=state_dicts)
+    init_undo = _keep_init(cell, kept) if kept is not None else []
+    try:
+        engine = Engine(settings, device=str(device), state_dicts=state_dicts)
+    finally:
+        T.uninstall(init_undo)
     del state_dicts
     return engine, undo
 
@@ -83,7 +124,10 @@ def run(cell: C.Cell, seed: int, seconds: float, trace: bool, device, t_start: f
     out = ProgramRun()
     outdir = tempfile.mkdtemp(prefix="portbench-")
     log = T.Log() if trace else None
-    engine, undo = build(cell, seed, device, outdir, log)
+    kept = {} if C.start(cell) == "program" else None
+    engine, undo = build(cell, seed, device, outdir, log, kept)
+    if kept is not None:
+        out.init_image, out.init_pre = kept.get("image"), kept.get("pre")
     try:
         _run(engine, cell, seconds, trace, device, t_start, out, log)
     finally:
@@ -192,22 +236,27 @@ def _traced_walk(engine, cell, it, log, out, read_loss):
         read_loss()
         state["it"] += 1
     names = set(cuda_warp.KERNEL_NAMES.values())
+    P = S.profiling()
 
     def walk():
         labels0, jitter0 = len(log.labels), len(out.jittered)
         launches0, dispatched0 = dict(cuda_warp.LAUNCHES), engine.steps_dispatched
+        timer0 = None if P is None else P.TIMER.since()
         for _ in range(steps):
             engine.train(state["it"])
             read_loss()
             state["it"] += 1
         launched = {k: v - launches0[k] for k, v in cuda_warp.LAUNCHES.items()}
+        spans = {} if P is None else P.TIMER.since(timer0)
         return {"labels": log.labels[labels0:], "jittered": out.jittered[jitter0:],
                 "launches": sum(v for k, v in launched.items() if k in cuda_warp.KERNEL_NAMES),
-                "steps": engine.steps_dispatched - dispatched0}
+                "steps": engine.steps_dispatched - dispatched0,
+                "spans": {} if P is None else {k: {"s": spans.totals[k], "n": spans.counts[k]} for k in spans.counts}}
 
     events, book = T.profiled_walk(walk, complete=lambda ev, bk: T.check_complete(ev, bk, names))
     summary = T.analyse(events, book["labels"], book["steps"])
     summary["jittered"] = book["jittered"]
+    summary["spans"] = book["spans"]  # the program's host spans over the walk: seconds and count by name
     return summary
 
 

@@ -20,6 +20,20 @@ gap against the reference:
 - ``image_gap``: |image_p - image_r|_2 / |image_r|_2 of step 0's checkin
   render, the reference rendering the program's own latent after step 0.
 
+Where the reference starts from the program's initial latent (``"start":
+"program"``), the init is checked by itself, on the program's own init
+image:
+
+- ``init_gap``: |pre_p - pre_r|_2 / |pre_r|_2 of the encoder's output
+  before quantization, the program's against the plain float32 encoder's;
+- ``init_quant_gap``: |z0_p - q_r(pre_p)|_2 / |q_r(pre_p)|_2, the
+  program's initial latent against the plain nearest codes of the
+  program's own ``pre_p``: a latent that is not the quantized encoding
+  reads about sqrt(2);
+- ``init_code_share`` (reported, not compared): the share of tokens whose
+  code in the program's initial latent is not the plain encoder's; a
+  lower precision's encoding changes the nearest code of many tokens.
+
 The latent is one leaf in every configuration here, so "the worst leaf" is
 that leaf.  A cell compares the numbers its ``workloads/<cell>.json``
 gives a limit; a number that is not finite fails.
@@ -31,7 +45,9 @@ import math
 
 import torch
 
-NUMBERS = ("loss_gap", "loss0_gap", "grad0_gap", "grad0_median_gap", "grad0_rest_gap", "change_gap", "image_gap")
+NUMBERS = ("loss_gap", "loss0_gap", "grad0_gap", "grad0_median_gap", "grad0_rest_gap", "change_gap", "image_gap",
+           "init_gap", "init_quant_gap")
+REPORTED = ("init_code_share",)  # reported beside the compared numbers, never compared
 
 
 def _norm(t) -> float:
@@ -57,12 +73,20 @@ def numbers(prog, ref: dict) -> dict:
            "change_gap": _gap(_norm(prog.z_block.to(dev) - prog.z0.to(dev)), _norm(ref["z"] - ref["z0"]))}
     if "image" in ref and prog.image1 is not None:
         out["image_gap"] = _norm(prog.image1.to(dev) - ref["image"]) / _norm(ref["image"])
+    if "init_pre" in ref:
+        nan = float("nan")
+        pre, z0 = ref["init_pre"], prog.z0.to(dev)
+        out["init_gap"] = nan if prog.init_pre is None else _norm(prog.init_pre.to(dev) - pre) / _norm(pre)
+        q = ref["init_quant"]
+        out["init_quant_gap"] = nan if q is None else _norm(z0 - q) / _norm(q)
+        out["init_code_share"] = ref["init_code_share"]
     return out
 
 
 def verdict(nums: dict, limits: dict) -> tuple[bool, list[str]]:
-    """(correct, one line per compared number: its name, value and limit)."""
-    lines, ok = [], True
+    """(correct, one line per reported number, then one per compared
+    number: its name, value and limit)."""
+    lines, ok = [f"{name} {nums[name]!r} not compared" for name in REPORTED if name in nums], True
     for name in (n for n in NUMBERS if n in limits):
         v, lim = nums.get(name, float("nan")), float(limits[name])
         good = math.isfinite(v) and v <= lim

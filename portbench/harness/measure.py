@@ -39,6 +39,18 @@ def power_limit() -> str | None:
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else None
 
 
+def reference(cell: C.Cell, settings: dict, weights: dict, seed: int, device, prog) -> dict:
+    """The reference's side of the judge for the program's run ``prog``:
+    the first steps followed from the seed (or from the program's initial
+    latent, whose init is then checked by itself) and step 0's render."""
+    from_program = C.start(cell) == "program"
+    ref = R.follow(settings, weights, seed, device, prog.followed_steps, z0=prog.z0 if from_program else None)
+    ref["image"] = R.render(settings, weights, prog.z1, device)
+    if from_program and prog.init_image is not None:  # without one, the init's numbers are missing and fail
+        ref.update(R.init_check(settings, weights, prog.init_image, prog.init_pre, prog.z0, device))
+    return ref
+
+
 def measure(cell: C.Cell, seed: int, seconds: float, trace: bool, device, t_start: float):
     device = torch.device(device)
     prog = drive.run(cell, seed, seconds, trace, device, t_start)
@@ -48,8 +60,7 @@ def measure(cell: C.Cell, seed: int, seconds: float, trace: bool, device, t_star
 
     settings = C.reference_settings(cell)
     weights = W.make(settings, seed, device)
-    ref = R.follow(settings, weights, seed, device, prog.followed_steps)
-    ref["image"] = R.render(settings, weights, prog.z1, device)
+    ref = reference(cell, settings, weights, seed, device, prog)
     del weights
     nums = judge.numbers(prog, ref)
     limits = cell.limits["limits"]

@@ -51,7 +51,8 @@ class Log:
             self.labels.append((layer, what))
 
 
-def _resolve(target: str):
+def resolve(target: str):
+    """(owner, attribute name) of a ``module:attr.attr`` target."""
     module_name, attr = target.split(":")
     owner = importlib.import_module(module_name)
     parts = attr.split(".")
@@ -64,7 +65,7 @@ def install(layers: dict, log: Log) -> list:
     """Wrap every layer's function with markers; returns the undo list."""
     undo = []
     for layer, spec in layers.items():
-        owner, name = _resolve(spec["target"])
+        owner, name = resolve(spec["target"])
         orig = getattr(owner, name)
         arg = int(spec["tensor_arg"])
 

@@ -1,10 +1,11 @@
-"""Plain float32 CLIP towers: OpenAI's ViT image tower and causal text tower.
+"""Plain float32 CLIP: an image tower of the configuration's kind
+(``reference/towers/``) and OpenAI's causal text tower.
 
-Written from OpenAI CLIP's ``clip/model.py`` (``VisionTransformer``,
-``Transformer``, ``ResidualAttentionBlock``, ``CLIP.encode_text``), with its
-state-dict names, so one state dict loads here and into the program under
-test.  Attention is spelled out (one matmul for the scores, softmax, one
-for the values); every tensor is float32.  Imports nothing of the program.
+Written from OpenAI CLIP's ``clip/model.py`` (``Transformer``,
+``ResidualAttentionBlock``, ``CLIP.encode_text``), with its state-dict
+names, so one state dict loads here and into the program under test.
+Attention is spelled out (one matmul for the scores, softmax, one for the
+values); every tensor is float32.  Imports nothing of the program.
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from portbench.reference import towers
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -65,34 +68,50 @@ class Transformer(nn.Module):
         return x
 
 
-class VisionTransformer(nn.Module):
-    def __init__(self, d: dict):
-        super().__init__()
-        width, patch, res = d["vision_width"], d["vision_patch_size"], d["image_resolution"]
-        self.patch = patch
-        self.conv1 = nn.Conv2d(3, width, patch, stride=patch, bias=False)
-        self.class_embedding = nn.Parameter(torch.empty(width))
-        self.positional_embedding = nn.Parameter(torch.empty((res // patch) ** 2 + 1, width))
-        self.ln_pre = nn.LayerNorm(width)
-        self.transformer = Transformer(width, d["vision_layers"], d["vision_heads"])
-        self.ln_post = nn.LayerNorm(width)
-        self.proj = nn.Parameter(torch.empty(width, d["embed_dim"]))
+def block_rule(name: str, shape):
+    """The initialiser of a residual attention block's tensor (``name``
+    ending in the block's own names), or None for another tensor."""
+    if name.endswith(("ln_1.weight", "ln_2.weight")):
+        return ("ones",)
+    if name.endswith("bias"):
+        return ("zeros",)
+    if name.endswith(("in_proj_weight", "out_proj.weight", "c_fc.weight", "c_proj.weight")):
+        return ("normal", shape[1] ** -0.5)
+    return None
 
-    def forward(self, x):
-        x = self.conv1(x).flatten(2).transpose(1, 2)
-        x = torch.cat([self.class_embedding.expand(x.shape[0], 1, -1), x], dim=1) + self.positional_embedding
-        x = self.transformer(self.ln_pre(x))
-        return self.ln_post(x[:, 0]) @ self.proj
+
+def text_rule(name: str, shape, d: dict):
+    """The initialiser of a text tower's tensor (a name outside ``visual.``)."""
+    if name == "ln_final.weight":
+        return ("ones",)
+    if name == "positional_embedding":
+        return ("normal", 0.01)
+    if name in ("token_embedding.weight", "text_projection"):
+        return ("normal", 0.02)
+    rule = block_rule(name, shape)
+    if rule is None:
+        raise KeyError(f"no initialiser for CLIP tensor {name}")
+    return rule
+
+
+def init_rule(name: str, shape, d: dict, bench_dir: str | None = None):
+    """The initialiser of one tensor of ``CLIP(d)``: the image tower's kind's
+    rule below ``visual.``, the text tower's elsewhere."""
+    if name.startswith("visual."):
+        return towers.module(towers.kind_of(d), bench_dir).init_rule(name[len("visual."):], shape, d)
+    return text_rule(name, shape, d)
 
 
 class CLIP(nn.Module):
     """The image tower and the text tower under OpenAI's names; ``d`` holds
-    the sizes of a configuration file's tower entry."""
+    the sizes of a configuration file's tower entry, the image tower's kind
+    among them (``reference/towers/``; ``bench_dir``: the benchmark folder
+    whose kinds come first)."""
 
-    def __init__(self, d: dict):
+    def __init__(self, d: dict, bench_dir: str | None = None):
         super().__init__()
         self.dims = d
-        self.visual = VisionTransformer(d)
+        self.visual = towers.module(towers.kind_of(d), bench_dir).Visual(d)
         self.token_embedding = nn.Embedding(d["vocab_size"], d["text_width"])
         self.positional_embedding = nn.Parameter(torch.empty(d["context_length"], d["text_width"]))
         self.transformer = Transformer(d["text_width"], d["text_layers"], d["text_heads"])

@@ -1,6 +1,9 @@
 """The tiny test cells: the benchmark's ``BENCHMARK.json`` with each cell
-swapped for its tiny counterpart of ``tiny/``, beside a copy of the
-benchmark folder's readers and layers, in a temporary checkout."""
+swapped for its tiny counterpart of ``tiny/``, and the prepared
+default-run cell's (``tiny.run``) added, beside a copy of the
+benchmark folder's readers, layers and starts, in a temporary checkout.
+The tiny vector prompt ``tinyoff`` (``tiny/vectors/``, a row for TinyTest)
+is found where ``$PIXRAY_TPU_VECTORS`` points (``tiny_vectors``)."""
 
 from __future__ import annotations
 
@@ -14,6 +17,10 @@ BENCH = os.path.dirname(HERE)
 # a cell of BENCHMARK.json: its tiny cell, the tiny configuration and traffic mix
 TINY = {"pixel.steady": ("tiny.pixel", "tiny_pixel", "tiny_steady"),
         "vqgan.steady": ("tiny.vqgan", "tiny_vqgan", "tiny_steady")}
+# the prepared cell vqgan.default_run (traffic and limits in this folder, no entry in BENCHMARK.json):
+# its tiny cell starts from the program's latent, encodes a noise init and reads a vector prompt
+PREPARED = {"name": "tiny.run", "config": "tiny_vqgan", "traffic": "tiny_run", "chips": 1,
+            "why": "the prepared default-run cell at a tiny size"}
 
 
 def tiny_benchmark() -> dict:
@@ -29,6 +36,8 @@ def tiny_benchmark() -> dict:
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
             m["workloads"] = [TINY[w][0] for w in m["workloads"] if w in TINY]
+    bench["workloads"].append(PREPARED)
+    next(m for m in bench["end_to_end"] if m["name"] == "steps_per_s")["workloads"].append(PREPARED["name"])
     return bench
 
 
@@ -37,8 +46,13 @@ def tiny_checkout(tmp_path) -> tuple[str, str]:
     root = tmp_path / "checkout"
     bench = root / "portbench"
     shutil.copytree(os.path.join(HERE, "tiny"), bench)
-    for sub in ("metrics", "layers"):
+    for sub in ("metrics", "layers", "starts"):
         shutil.copytree(os.path.join(BENCH, sub), bench / sub)
     with open(root / "BENCHMARK.json", "w") as f:
         json.dump(tiny_benchmark(), f, indent=1)
     return str(root), str(bench)
+
+
+def tiny_vectors(bench_dir: str) -> dict:
+    """The environment under which the program and the reference find the tiny vector prompts."""
+    return {"PIXRAY_TPU_VECTORS": os.path.join(bench_dir, "vectors")}

@@ -9,9 +9,13 @@ on: int8 towers with int8 input gradients, the int8 warp forward and
 backward), and the planted faults (``unchanged``: every step returns the
 latent and the optimizer state as they were; ``half``: each tower sees the
 first half of its cutouts and the loss is the mean over those), each
-followed by the reference as a run follows it.  No window is measured.
-Prints one JSON line per run with the compared numbers and each step's
-loss gap.
+followed by the reference as a run follows it.  ``--variants`` adds more,
+each on ``--control`` seeds: ``fp8`` (the reference in the program's
+place with its VQGAN's convolutions in float8 e4m3: the encoder's, for a
+cell that starts from the program's latent, and the decoder's) and the
+fault ``init_unencoded`` (the VQGAN drawer encodes its init image and
+takes its latent from random codes).  No window is measured.  Prints one
+JSON line per run with the compared numbers and each step's loss gap.
 """
 
 from __future__ import annotations
@@ -61,6 +65,28 @@ def unchanged_steps():
         yield
     finally:
         step.train_step = core.train_step = orig
+
+
+@contextlib.contextmanager
+def init_unencoded():
+    """The VQGAN drawer encodes its init image, then takes its latent from
+    random codes, drawn from a generator of their own so that the cut
+    draws stay in step."""
+    from pixray_tpu_torch.drawers.vqgan import VqganDrawer
+
+    orig = VqganDrawer.init_params
+
+    def unencoded(self, gen, init_tensor=None, indices=None):
+        z = orig(self, gen, init_tensor, indices)
+        n = self.model.quantize.codebook.shape[0]
+        codes = torch.randint(0, n, (z.shape[0] * z.shape[1],), generator=torch.Generator().manual_seed(0))
+        return orig(self, gen, None, codes)
+
+    VqganDrawer.init_params = unencoded
+    try:
+        yield
+    finally:
+        VqganDrawer.init_params = orig
 
 
 @contextlib.contextmanager
@@ -120,62 +146,73 @@ class Fp8(torch.autograd.Function):
 
 
 @contextlib.contextmanager
-def fp8_decoder():
-    """The reference's VQGAN decoder with every convolution's input,
-    weight, output and cotangents rounded to float8 e4m3."""
+def fp8_vqgan():
+    """The reference's VQGAN encoder and decoder with every convolution's
+    input, weight, output and cotangents rounded to float8 e4m3."""
     from portbench.reference import vqgan as RV
 
     inside = {"on": False}
-    conv_forward, dec_forward = torch.nn.Conv2d.forward, RV.Decoder.forward
+    conv_forward, enc_forward, dec_forward = torch.nn.Conv2d.forward, RV.Encoder.forward, RV.Decoder.forward
 
     def conv(self, x):
         if not inside["on"]:
             return conv_forward(self, x)
         return Fp8.apply(self._conv_forward(Fp8.apply(x), fp8_round(self.weight), self.bias))
 
-    def dec(self, z):
-        inside["on"] = True
-        try:
-            return dec_forward(self, z)
-        finally:
-            inside["on"] = False
+    def inside_of(forward):
+        def run(self, x):
+            inside["on"] = True
+            try:
+                return forward(self, x)
+            finally:
+                inside["on"] = False
+        return run
 
-    torch.nn.Conv2d.forward, RV.Decoder.forward = conv, dec
+    torch.nn.Conv2d.forward, RV.Encoder.forward, RV.Decoder.forward = conv, inside_of(enc_forward), inside_of(dec_forward)
     try:
         yield
     finally:
-        torch.nn.Conv2d.forward, RV.Decoder.forward = conv_forward, dec_forward
+        torch.nn.Conv2d.forward, RV.Encoder.forward, RV.Decoder.forward = conv_forward, enc_forward, dec_forward
 
 
 VARIANTS = {"sound": contextlib.nullcontext, "control": lambda: environment(CONTROL_RUNGS),
-            "unchanged": unchanged_steps, "half": half_batch}
-REFERENCE_CONTROLS = {"fp8_decoder": fp8_decoder}
+            "unchanged": unchanged_steps, "half": half_batch, "init_unencoded": init_unencoded}
+REFERENCE_CONTROLS = {"fp8": fp8_vqgan}
 
 
 def reading(cell, seed: int, variant: str, device) -> dict:
     from portbench.harness import cell as C
     from portbench.harness import drive, judge
+    from portbench.harness import measure as M
     from portbench.harness import weights as W
     from portbench.reference import step as R
 
     t0 = time.perf_counter()
     settings = C.reference_settings(cell)
+    from_program = C.start(cell) == "program"
     if variant in REFERENCE_CONTROLS:  # the reference in the program's place, one precision lower
         steps = 1 + int(cell.traffic["program"].get("steps_per_call", 0) or 8)
+        image = z0 = pre = None
+        if from_program:  # the program's init image, from a sound build
+            sound = drive.run(cell, seed, 0.0, False, device, t0)
+            drive.release(sound)
+            image = sound.init_image
         with REFERENCE_CONTROLS[variant]():
-            low = R.follow(settings, W.make(settings, seed, device), seed, device, steps)
+            low_weights = W.make(settings, seed, device)
+            if from_program:
+                init = R.init_check(settings, low_weights, image, None, None, device)
+                pre, z0 = init["init_pre"], init["init_latent"]
+            low = R.follow(settings, low_weights, seed, device, steps, z0=z0)
+            image1 = R.render(settings, low_weights, low["z1"], device).cpu()
         prog = drive.ProgramRun(losses=low["losses"], grad0=low["grad0"], z0=low["z0"], z_block=low["z"],
-                                followed_steps=steps, z1=low["z1"])
-        with REFERENCE_CONTROLS[variant]():
-            prog.image1 = R.render(settings, W.make(settings, seed, device), low["z1"], device).cpu()
+                                followed_steps=steps, z1=low["z1"], image1=image1, init_image=image, init_pre=pre)
+        del low_weights
     else:
         with VARIANTS[variant]():
             prog = drive.run(cell, seed, 0.0, False, device, t0)
         drive.release(prog)
     weights = W.make(settings, seed, device)
-    ref = R.follow(settings, weights, seed, device, prog.followed_steps)
-    if prog.z1 is not None:
-        ref["image"] = R.render(settings, weights, prog.z1, device)
+    ref = M.reference(cell, settings, weights, seed, device, prog)
     del weights
     nums = judge.numbers(prog, ref)
     gaps = [abs(a - b) / abs(b) for a, b in zip(prog.losses, ref["losses"])]
@@ -195,7 +232,7 @@ def main(argv=None) -> int:
     p.add_argument("--faults", type=int, default=3)
     p.add_argument("--device", default="cuda")
     p.add_argument("--variants", default="", help="comma-separated extra variants, each on --control seeds")
-    p.add_argument("--set", action="append", default=[], help="key=json: a program setting over the cell's")
+    p.add_argument("--set", action="append", default=[], help="key=json: a program setting over the cell's traffic")
     args = p.parse_args(argv)
 
     from portbench.harness import cell as C
@@ -203,7 +240,7 @@ def main(argv=None) -> int:
     cell = C.load(args.workload)
     for item in args.set:
         key, value = item.split("=", 1)
-        cell.config["program"][key] = json.loads(value)
+        cell.traffic["program"][key] = json.loads(value)
     plan = ([("sound", k) for k in range(args.sound)] + [("control", k) for k in range(args.control)]
             + [(f, k) for f in ("unchanged", "half") for k in range(args.faults)]
             + [(v, k) for v in args.variants.split(",") if v for k in range(args.control)])

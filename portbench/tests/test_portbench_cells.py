@@ -36,6 +36,32 @@ def test_steady_cells_report_their_layers():
     assert {"towers_ms", "bank_roofline", "step_mfu_pct", "device_idle_pct.steady"} <= pixel
 
 
+def test_prepared_default_run_cell_loads(tmp_path):
+    """vqgan.default_run's files (traffic, limits, readers) make a cell once BENCHMARK.json names it."""
+    bench = json.load(open(os.path.join(C.ROOT, "BENCHMARK.json")))
+    assert "vqgan.default_run" not in {w["name"] for w in bench["workloads"]}
+    bench["workloads"].append({"name": "vqgan.default_run", "config": "vqgan_f16_16384_clip2",
+                               "traffic": "default_run", "chips": 1, "why": "the default run"})
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if m["name"] in ("steps_per_s", "towers_ms", "decoder_ms", "bank_roofline", "step_mfu_pct", "build_s",
+                         "capture_s"):
+            m["workloads"].append("vqgan.default_run")
+    for name, layer in (("checkin_ms", "checkin"), ("device_idle_pct.run", "device")):
+        bench["per_layer"].append({"name": name, "unit": "ms", "better": "lower", "source": "program_span",
+                                   "layer": layer, "moves": "steps_per_s", "workloads": ["vqgan.default_run"]})
+    json.dump(bench, open(tmp_path / "BENCHMARK.json", "w"))
+    cell = C.load("vqgan.default_run", root=str(tmp_path))
+    assert {m["name"] for m in cell.metrics(False)} == {"steps_per_s", "setup_s"}
+    for m in cell.metrics(True):
+        assert callable(C.reader(m["name"]).read)
+    assert cell.marked_layers() == ["bank", "decoder", "towers"]
+    assert C.start(cell) == "program" and C.start(C.load("vqgan.steady")) == "seed"
+    assert C.start_spec(cell)["tensor_arg"] == 1
+    settings = C.reference_settings(cell)
+    assert settings["vector_prompts"] == ["textoff"] and settings["init_noise"] == "pixels"
+    assert settings["num_cuts"] == 30 and int(cell.limits["trace_steps"]) == 20
+
+
 def test_added_cell_and_metric_are_found(tmp_path):
     root, bench_dir = tiny_checkout(tmp_path)
     bench = json.load(open(os.path.join(root, "BENCHMARK.json")))

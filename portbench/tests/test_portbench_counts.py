@@ -9,6 +9,7 @@ import torch
 
 from portbench.harness import cell as C
 from portbench.harness import counts
+from portbench.reference import towers
 from portbench.reference.vqgan import VQGAN
 
 
@@ -18,7 +19,7 @@ def test_vit_b32_by_hand():
     per_block = 2 * t * w * (3 * w) + 2 * t * w * w + 2 * (2 * t * w * (4 * w))  # qkv, out, two MLP layers
     linear = 2 * 49 * (3 * 32 * 32) * w + 12 * per_block + 2 * w * 512  # patches, 12 blocks, projection
     attention = 12 * (2 * t * t * w + 2 * t * t * w)  # scores and values
-    f = counts.vit_image_flops(d)
+    f = towers.module("vit").image_flops(d)
     assert f == {"linear": linear, "attention": attention}
     # the input gradient: once more every product with a constant operand, twice each attention product
     assert counts.tower_step_flops(d, 64) == 64 * (2 * linear + 3 * attention) == 1_134_553_989_120

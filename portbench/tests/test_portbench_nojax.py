@@ -29,7 +29,8 @@ def test_benchmark_modules_import_no_jax():
 
 def test_reference_imports_nothing_of_the_program():
     code = ("import sys; sys.path.insert(0, '.');"
-            "import portbench.reference.step, portbench.reference.drawers.pixel, portbench.reference.drawers.vqgan;"
+            "import portbench.reference.step, portbench.reference.drawers.pixel, portbench.reference.drawers.vqgan,"
+            " portbench.reference.towers.vit;"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('pixray_tpu_torch', 'pixray_tpu', 'jax')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
                          cwd=__file__.rsplit("/portbench/", 1)[0])

@@ -100,3 +100,22 @@ def test_readers_on_the_summary():
 
     assert C.reader("bank_roofline").read(run) == pytest.approx(
         100 * 1e3 * sum(bank_bound_s(16, 10, 32, (32, 32))) / 0.15)
+
+
+def test_run_readers_on_the_summary():
+    """``checkin_ms`` from the program's ``checkin`` span over the walk; ``device_idle_pct.run`` as the steady one."""
+    from types import SimpleNamespace
+
+    from portbench.harness import cell as C
+
+    events, labels = window()
+    s = T.analyse(events, labels, steps=1)
+    s["spans"] = {"checkin": {"s": 0.17, "n": 2}, "block.dispatch": {"s": 0.01, "n": 2}}
+    run = SimpleNamespace(prog=SimpleNamespace(trace=s, attempted=1200, window_s=1.0), trace=s)
+    assert C.reader("checkin_ms").read(run) == pytest.approx(85.0)
+    assert C.reader("device_idle_pct.run").read(run) == C.reader("device_idle_pct.steady").read(run)
+    s["spans"] = {}  # a walk without a checkin
+    assert C.reader("checkin_ms").read(run) is None
+    run.trace = None
+    assert C.reader("checkin_ms").read(run) is None
+    assert C.reader("device_idle_pct.run").read(run) is None
